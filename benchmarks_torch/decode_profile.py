@@ -1,0 +1,91 @@
+#!/usr/bin/env python3
+"""Where a decode step's device time goes: torch.profiler over eager greedy
+decode steps of the Mistral-7B geometry (synth_params, fused FP4), batch 1
+and the engine's batch 8 over a 1024-row cache.  Prints the host wall time
+per step, the summed device time of the kernels per step, and the kernels
+ranked by device time, grouped as the port's pair-K kernels (K2 and its
+split reduction), attention (einsum/bmm, softmax, masking), the dense lm_head
+GEMM, and everything else.
+
+    python3 benchmarks_torch/decode_profile.py
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from torch_bnb_fp4_tpu_torch.models import transformer as T  # noqa: E402
+from torch_bnb_fp4_tpu_torch.ops import _build  # noqa: E402
+from torch_bnb_fp4_tpu_torch.utils.synth import synth_params  # noqa: E402
+
+STEPS = 8
+
+
+def group(name: str) -> str:
+    if "matmul_pk" in name or "reduce_splits" in name:
+        return "pair-K K2 (+split reduction)"
+    if "gemm" in name.lower() or "gemv" in name.lower() or "cutlass" in name.lower() or "sm90" in name:
+        return "cuBLAS GEMM (attention bmm, lm_head)"
+    if "softmax" in name.lower():
+        return "softmax"
+    if "copy" in name.lower() or "cast" in name.lower() or "elementwise" in name.lower():
+        return "elementwise / copies / casts"
+    if "index" in name.lower() or "scatter" in name.lower() or "gather" in name.lower():
+        return "indexing (KV writes, embedding)"
+    return "other"
+
+
+def profile_decode(params, cfg, batch: int, cache_rows: int, fill: int) -> None:
+    dev = torch.device("cuda")
+    cache = T.KVCache.zeros(cfg, batch, cache_rows, device=dev)
+    cache.length.fill_(fill)
+    tok = torch.zeros(batch, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for _ in range(2):
+            tok, _ = T.decode_step(params, cfg, tok, cache)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(STEPS):
+                tok, _ = T.decode_step(params, cfg, tok, cache)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / STEPS * 1e3
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and e.device_time_total > 0]
+    dev_ms = sum(e.device_time_total for e in kernels) / 1e3 / STEPS
+    print(f"batch {batch}, {cache_rows}-row cache filled to {fill}: host wall {wall_ms:.3f} ms/step, "
+          f"device kernels {dev_ms:.3f} ms/step (device idle {100 * (1 - dev_ms / wall_ms):.1f}%), "
+          f"{sum(e.count for e in kernels) / STEPS:.0f} kernel launches/step")
+    groups = defaultdict(float)
+    for e in kernels:
+        groups[group(e.key)] += e.device_time_total / 1e3 / STEPS
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"    {g:40} {ms:8.3f} ms/step")
+    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:12]:
+        print(f"      {e.device_time_total / 1e3 / STEPS:8.3f} ms  x{e.count // STEPS:4}  {e.key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("decode_profile: needs a CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    _build.build_all()
+    cfg = T.ModelConfig.mistral_7b()
+    params = synth_params(cfg, seed=0, fuse=True)
+    profile_decode(params, cfg, batch=1, cache_rows=97, fill=21)
+    profile_decode(params, cfg, batch=8, cache_rows=1024, fill=500)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

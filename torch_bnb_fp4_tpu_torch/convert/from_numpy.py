@@ -1,0 +1,81 @@
+"""Carry a model's weights across from the JAX package: a flat dict of numpy
+arrays plus static metadata -> the port's ``ModelParams`` on a device.
+
+Keys of ``arrays`` (layer ``i``, linear name ``L`` one of wq wk wv wo w_gate
+w_up w_down wqkv w_gateup; absent linears are simply missing):
+
+  embed                      (vocab, dim)        bf16 leaf
+  final_norm                 (dim,)              bf16 leaf
+  layers.i.attn_norm         (dim,)              bf16 leaf
+  layers.i.mlp_norm          (dim,)              bf16 leaf
+  layers.i.{post_attn_norm, post_mlp_norm, q_norm, k_norm}   optional bf16 leaves
+  layers.i.L.packed          (k_pad/2, n_pad)    uint8      quantized linear
+  layers.i.L.scale           (k_pad/bs, n_pad)   f32 (or bf16 leaf, see below)
+  layers.i.L.bias            (n_out,)            f32, optional
+  layers.i.L.codebook        (16,)               f32, lut variant only
+  layers.i.L.w               (k_in, n_out)       bf16 leaf  dense linear
+  layers.i.L.bias            (n_out,)            bf16 leaf  dense linear, optional
+  lm_head.*                  as a linear (``lm_head.w`` for the dense head)
+
+bf16 leaves arrive as float32, which holds every bf16 value exactly, and are
+cast back to bf16 here.  ``meta["linears"]`` maps each linear's prefix
+(``layers.3.wqkv``, ``lm_head``) to its static fields:
+``{"kind": "quant", "n_out", "k_in", "blocksize", "variant", "scale_dtype":
+"float32" | "bfloat16"}`` or ``{"kind": "dense", "n_out", "k_in"}``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.linear import DenseLinear, QuantLinear
+from ..models.transformer import LayerParams, ModelConfig, ModelParams
+from ..utils.device import resolve_device
+
+LINEAR_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "wqkv", "w_gateup")
+OPTIONAL_NORMS = ("post_attn_norm", "post_mlp_norm", "q_norm", "k_norm")
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def params_from_numpy(arrays: dict[str, np.ndarray], meta: dict, cfg: ModelConfig, device=None) -> ModelParams:
+    """Build ``ModelParams`` on ``device`` from the documented flat layout."""
+    device = resolve_device(device)
+
+    def t(key, dtype=None):
+        a = torch.from_numpy(np.require(arrays[key], requirements=["C", "W"]))
+        return a.to(device=device, dtype=dtype) if dtype is not None else a.to(device)
+
+    def bf16(key):
+        a = arrays[key]
+        if a.dtype != np.float32:
+            raise ValueError(f"{key}: bf16 leaves arrive as float32, got {a.dtype}")
+        return t(key, torch.bfloat16)
+
+    def linear(prefix):
+        m = meta["linears"].get(prefix)
+        if m is None:
+            return None
+        bias_key = prefix + ".bias"
+        if m["kind"] == "dense":
+            return DenseLinear(w=bf16(prefix + ".w"), bias=bf16(bias_key) if bias_key in arrays else None,
+                               n_out=m["n_out"], k_in=m["k_in"])
+        if m["kind"] != "quant":
+            raise ValueError(f"{prefix}: unknown linear kind {m['kind']!r}")
+        if arrays[prefix + ".packed"].dtype != np.uint8:
+            raise ValueError(f"{prefix}.packed must be uint8")
+        cb_key = prefix + ".codebook"
+        return QuantLinear(
+            packed=t(prefix + ".packed"), scale=t(prefix + ".scale", _DTYPES[m.get("scale_dtype", "float32")]),
+            bias=t(bias_key, torch.float32) if bias_key in arrays else None,
+            n_out=m["n_out"], k_in=m["k_in"], blocksize=m.get("blocksize", 64), variant=m["variant"],
+            codebook=t(cb_key, torch.float32) if cb_key in arrays else None,
+        )
+
+    layers = []
+    for i in range(cfg.n_layers):
+        p = f"layers.{i}."
+        extra = {n: bf16(p + n) for n in OPTIONAL_NORMS if p + n in arrays}
+        lins = {n: linear(p + n) for n in LINEAR_NAMES}
+        layers.append(LayerParams(attn_norm=bf16(p + "attn_norm"), mlp_norm=bf16(p + "mlp_norm"), **lins, **extra))
+    return ModelParams(embed=bf16("embed"), layers=layers, final_norm=bf16("final_norm"), lm_head=linear("lm_head"))

@@ -1,0 +1,85 @@
+// K1: pair-K byte decode, the device routine every pair-K kernel shares.
+//
+// Replaces torch_bnb_fp4_tpu/ops/kernels.py::_decode_pairs (:573),
+// make_pairk_lut (:621) and _pairs_weight_tile (:631), which the TPU kernels
+// inline into K2-K4.  One packed byte X becomes two bf16 bit patterns of
+// 192 * code in one 32-bit word: the low 16 bits decode the LOW nibble (Wt row
+// 2i), the high 16 bits the HIGH nibble (row 2i+1).  A 32-bit store of the
+// word therefore lands the pair K-contiguous, which is what the tensor-core
+// fragments of K3/K4 read.
+//
+// Bound: integer ALU.  ramp 6 ops, zramp 11, exact 16 per byte; lut is two
+// table reads from shared memory.  Inside K2 the decode hides under the HBM
+// stream of the packed bytes.
+//
+// The TPU code relies on int32 wraparound (X * 0x01001000 puts byte bit 7 at
+// bit 31) and on arithmetic right shifts whose sign-extended bits the masks
+// drop.  Signed overflow is undefined in C++, so everything here is uint32_t:
+// unsigned multiply wraps mod 2^32 and the logical shifts keep the same
+// masked bits.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace pk {
+
+enum Variant : int { kExact = 0, kZramp = 1, kRamp = 2, kLut = 3 };
+
+template <int V>
+__device__ __forceinline__ uint32_t decode_pairs(uint32_t X, const uint16_t* lut) {
+  if constexpr (V == kRamp) {
+    const uint32_t t = X * 0x01001000u;  // lo nibble -> bits 12..15, hi -> 28..31
+    return (0x41804180u + ((t >> 6) & 0x01C001C0u)) | (t & 0x80008000u);
+  } else if constexpr (V == kZramp) {
+    const uint32_t t = X * 0x01001000u;
+    const uint32_t q12 = t & 0x70007000u;
+    const uint32_t bits = 0x41804180u + (q12 >> 6);
+    // [rank >= 1] per half: adding 0x7000 to rank<<12 carries into bit 15/31
+    const uint32_t s1 = ((q12 + 0x70007000u) >> 15) & 0x00010001u;
+    return (bits & (s1 * 0xFFFFu)) | (t & 0x80008000u);
+  } else if constexpr (V == kExact) {
+    const uint32_t t = X * 0x1001u;  // lo nibble -> bits 0..3, hi -> 16..19
+    const uint32_t q2 = t & 0x00070007u;
+    uint32_t bits = 0x41804180u + (q2 << 6);
+    // [rank >= 2] per half: bit 3 of rank + 6
+    const uint32_t s1 = ((q2 + 0x00060006u) >> 3) & 0x00010001u;
+    bits &= s1 * 0xFFFFu;
+    const uint32_t one = q2 & (s1 ^ 0x00010001u);  // rank 1 -> bf16(1.0)
+    bits |= one * 0x3F80u;
+    return bits | ((t & 0x00080008u) << 12);
+  } else {
+    return static_cast<uint32_t>(lut[X & 0xFu]) | (static_cast<uint32_t>(lut[(X >> 4) & 0xFu]) << 16);
+  }
+}
+
+// bf16 bit pair -> the two float values (exact: bf16 widens without rounding)
+__device__ __forceinline__ float pair_lo(uint32_t bits) { return __uint_as_float(bits << 16); }
+__device__ __forceinline__ float pair_hi(uint32_t bits) { return __uint_as_float(bits & 0xFFFF0000u); }
+
+// dtype codes shared by every C entry point (ops/kernels.py _DTYPE_CODE)
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+__device__ __forceinline__ float load_scale(const void* scale, int scale_dtype, size_t i) {
+  if (scale_dtype == kBF16) {
+    const uint16_t b = static_cast<const uint16_t*>(scale)[i];
+    return __uint_as_float(static_cast<uint32_t>(b) << 16);
+  }
+  return static_cast<const float*>(scale)[i];
+}
+
+// f32 result -> output element (round to nearest even, like XLA's astype)
+__device__ __forceinline__ void store_out(void* out, int out_dtype, size_t i, float v) {
+  if (out_dtype == kBF16) {
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
+  } else if (out_dtype == kF16) {
+    static_cast<__half*>(out)[i] = __float2half_rn(v);
+  } else {
+    static_cast<float*>(out)[i] = v;
+  }
+}
+
+}  // namespace pk

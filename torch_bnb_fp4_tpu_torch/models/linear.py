@@ -1,0 +1,197 @@
+"""QuantLinear / DenseLinear: the pair-K linear layer of the port.
+
+Counterpart of ``torch_bnb_fp4_tpu/models/linear.py`` (pair-K part).  A layer
+is a plain dataclass of tensors applied by :func:`apply_linear`, which pads K
+and N to the kernels' quanta and picks a kernel by the row count M through
+``ops.kernels.matmul_fp4_pk``.  Padding: the pack step zero-pads N to 128 and
+K to 512 (code 0 with a zero scale decodes to 0); apply pads x with zeros and
+slices the result.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..ops import format as fmt
+from ..ops import kernels as K
+from ..utils.device import resolve_device
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+@dataclasses.dataclass
+class QuantLinear:
+    """Blockwise-FP4 pair-K linear layer state.
+
+    ``packed`` uint8 (k_pad/2, n_pad) and ``scale`` (k_pad/blocksize, n_pad)
+    f32|bf16 (the JAX package's ``absmax_hi``; its ``absmax_lo`` is None for
+    pair-K).  ``variant`` names the stored codebook; ``codebook`` (16,) f32 is
+    set for ``variant="lut"`` only.
+    """
+
+    packed: torch.Tensor
+    scale: torch.Tensor
+    bias: torch.Tensor | None  # (n_out,) f32 or None
+    n_out: int
+    k_in: int
+    blocksize: int = 64
+    variant: str = "exact"
+    codebook: torch.Tensor | None = None
+
+    @property
+    def n_pad(self) -> int:
+        return self.packed.shape[-1]
+
+    @property
+    def k_pad(self) -> int:
+        return 2 * self.packed.shape[-2]
+
+    def to(self, device) -> "QuantLinear":
+        mv = lambda t: None if t is None else t.to(device)  # noqa: E731
+        return dataclasses.replace(self, packed=mv(self.packed), scale=mv(self.scale), bias=mv(self.bias),
+                                   codebook=mv(self.codebook))
+
+    def __call__(self, x: torch.Tensor, **kw) -> torch.Tensor:
+        return apply_linear(self, x, **kw)
+
+
+@dataclasses.dataclass
+class DenseLinear:
+    """Unquantized linear with the same calling convention as QuantLinear
+    (the bf16 twin's layers and the dense lm_head).  ``w`` is (k_in, n_out)."""
+
+    w: torch.Tensor
+    bias: torch.Tensor | None
+    n_out: int
+    k_in: int
+
+    def to(self, device) -> "DenseLinear":
+        return dataclasses.replace(self, w=self.w.to(device), bias=None if self.bias is None else self.bias.to(device))
+
+    def __call__(self, x: torch.Tensor, out_dtype=None, **_kw) -> torch.Tensor:
+        # f32-accumulated product returned in f32, like the JAX dot with
+        # preferred_element_type=f32.  On the card cuBLAS writes f32 straight
+        # from bf16 operands (mm with out_dtype); the CPU has no such op and
+        # multiplies the exact f32 widenings.
+        x2 = x.reshape(-1, self.k_in)
+        if x.is_cuda and x.dtype == self.w.dtype and x.dtype != torch.float32:
+            y = torch.mm(x2, self.w, out_dtype=torch.float32)
+        else:
+            y = x2.float() @ self.w.float()
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y.to(out_dtype if out_dtype is not None else x.dtype).reshape(*x.shape[:-1], self.n_out)
+
+
+def dense_linear(w: np.ndarray, bias: np.ndarray | None = None, dtype=torch.bfloat16, device=None) -> DenseLinear:
+    """DenseLinear from a torch-convention (n_out, k_in) weight."""
+    device = resolve_device(device)
+    w = np.asarray(w, np.float32)
+    n_out, k_in = w.shape
+    return DenseLinear(
+        w=torch.from_numpy(np.ascontiguousarray(w.T)).to(device=device, dtype=dtype),
+        bias=None if bias is None else torch.from_numpy(np.asarray(bias, np.float32)).to(device=device, dtype=dtype),
+        n_out=n_out, k_in=k_in,
+    )
+
+
+def quantize_linear(w: np.ndarray, bias: np.ndarray | None = None, *, blocksize: int = 64, quant_type: str = "fp4",
+                    layout: str | None = None, variant: str = "ramp", scale_dtype=None, device=None) -> QuantLinear:
+    """Quantize a weight (n_out, k_in) into a pair-K QuantLinear on ``device``.
+
+    ``quant_type`` "fp4" or "nf4" (nf4 forces ``variant="lut"``);
+    ``variant`` exact | zramp | ramp; ``scale_dtype`` None = float32.
+    Only ``layout="pairk"`` is ported.
+    """
+    device = resolve_device(device)
+    w = np.asarray(w, dtype=np.float32)
+    if w.ndim != 2:
+        raise ValueError(f"quantize_linear expects a 2-D (n_out, k_in) weight, got shape {w.shape}")
+    n_out, k_in = w.shape
+    if quant_type not in ("fp4", "nf4"):
+        raise ValueError(f"quant_type must be 'fp4' or 'nf4', got {quant_type!r}")
+    if layout not in (None, "pairk"):
+        raise NotImplementedError(f"layout={layout!r} is not yet ported (pairk only)")
+    if quant_type == "nf4":
+        variant = "lut"
+    elif variant not in fmt.PAIRK_VARIANTS:
+        raise ValueError(f"variant must be one of {fmt.PAIRK_VARIANTS}, got {variant!r}")
+    k_pad = _round_up(k_in, 8 * blocksize)
+    n_pad = _round_up(n_out, 128)
+    if (k_pad, n_pad) != (k_in, n_out):
+        wp = np.zeros((n_pad, k_pad), dtype=np.float32)
+        wp[:n_out, :k_in] = w
+    else:
+        wp = w
+    codebook = None
+    if variant == "lut":
+        packed, scale = fmt.pack_tpu_pairk_lut(wp, fmt.NF4_CODE, blocksize=blocksize)
+        codebook = torch.from_numpy(fmt.NF4_CODE.copy()).to(device)
+    else:
+        packed, scale = fmt.pack_tpu_pairk(wp, blocksize=blocksize, variant=variant,
+                                           scale_dtype=torch.float32 if scale_dtype is None else scale_dtype)
+    return QuantLinear(
+        packed=packed.to(device), scale=scale.to(device),
+        bias=None if bias is None else torch.from_numpy(np.asarray(bias, np.float32)).to(device),
+        n_out=n_out, k_in=k_in, blocksize=blocksize, variant=variant, codebook=codebook,
+    )
+
+
+def apply_linear(q: QuantLinear, x: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+    """Forward pass, x (..., k_in) -> (..., n_out): one row goes through the
+    batch-1 route, more rows through ``matmul_fp4_pk``'s M-based choice."""
+    *lead, k = x.shape
+    if k != q.k_in:
+        raise ValueError(f"input feature dim {k} does not match layer k_in={q.k_in} "
+                         f"(x.shape={tuple(x.shape)}, layer {q.n_out}x{q.k_in})")
+    m = math.prod(lead)
+    if m == 0:
+        return torch.zeros((*lead, q.n_out), dtype=x.dtype, device=x.device)
+    x2 = x.reshape(m, k)
+    if k != q.k_pad:
+        x2 = torch.nn.functional.pad(x2, (0, q.k_pad - k))
+    bias = q.bias
+    if bias is not None and q.n_pad != q.n_out:
+        bias = torch.nn.functional.pad(bias, (0, q.n_pad - q.n_out))
+    cb = q.codebook if q.variant == "lut" else None
+    kw = dict(blocksize=q.blocksize, out_dtype=out_dtype, variant=q.variant)
+    if m == 1:
+        out = K.gemv_fp4_pk(x2, q.packed, q.scale, bias, cb, **kw)
+    else:
+        out = K.matmul_fp4_pk(x2, q.packed, q.scale, bias, cb, **kw)
+    if q.n_pad != q.n_out:
+        out = out[:, : q.n_out]
+    return out.reshape(*lead, q.n_out)
+
+
+def fuse_linears(linears: list[QuantLinear]) -> QuantLinear:
+    """Fuse same-input pair-K linears into one (column concat): one kernel
+    call for QKV and one for gate|up.  Tensor parallelism (tp > 1) is not yet
+    ported."""
+    q0 = linears[0]
+    if any(l.variant != q0.variant for l in linears):
+        raise ValueError("fused linears must share a codebook variant")
+    if q0.variant == "lut" and any(not torch.equal(l.codebook, q0.codebook) for l in linears):
+        raise ValueError("fused lut linears must share one codebook")
+    if any(l.k_in != q0.k_in or l.k_pad != q0.k_pad or l.blocksize != q0.blocksize for l in linears):
+        raise ValueError("fused linears must share k_in, k_pad and blocksize")
+    if any(l.n_out != l.n_pad for l in linears):
+        raise ValueError("fused linears must be 128-aligned")
+    if any(l.bias is not None for l in linears):
+        bias = torch.cat([l.bias if l.bias is not None else torch.zeros(l.n_out, dtype=torch.float32,
+                                                                         device=l.packed.device)
+                          for l in linears])
+    else:
+        bias = None
+    return QuantLinear(
+        packed=torch.cat([l.packed for l in linears], dim=-1).contiguous(),
+        scale=torch.cat([l.scale for l in linears], dim=-1).contiguous(),
+        bias=bias, n_out=sum(l.n_out for l in linears), k_in=q0.k_in, blocksize=q0.blocksize,
+        variant=q0.variant, codebook=q0.codebook,
+    )

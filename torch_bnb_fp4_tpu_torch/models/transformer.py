@@ -1,0 +1,542 @@
+"""Llama/Mistral-family decoder with FP4 pair-K linears, in PyTorch.
+
+Counterpart of ``torch_bnb_fp4_tpu/models/transformer.py`` for the dense
+families.  Parameters are plain dataclasses of tensors; ``forward`` runs
+eagerly and writes the KV cache IN PLACE (the JAX version is functional and
+returns a fresh cache; here the returned ``KVCache`` shares the per-layer
+tensors with the one passed in and only ``length`` is new).
+
+Not yet ported (raise ``NotImplementedError``): mixture-of-experts layers,
+LoRA adapters, the quantized embedding table, tensor parallelism, rolling
+sliding-window rings (``write_chunk > 0``) and the flash-attention route:
+attention always takes the dense, query-chunked path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..utils.device import resolve_device
+from .linear import DenseLinear, QuantLinear, dense_linear, fuse_linears, quantize_linear
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Static decoder geometry (same fields and presets as the JAX package)."""
+
+    vocab_size: int
+    dim: int
+    n_layers: int
+    n_heads: int
+    n_kv_heads: int
+    ffn_dim: int
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-5
+    sliding_window: int | None = None
+    quantize_lm_head: bool = False
+    quantize_embed: bool = False
+    blocksize: int = 64
+    quant_type: str = "fp4"
+    attn_bias: bool = False
+    variant: str = "ramp"
+    head_dim: int | None = None
+    hidden_act: str = "silu"
+    norm_offset: bool = False
+    embed_scale: bool = False
+    rope_scaling: tuple[float, float, float, float] | None = None
+    n_experts: int = 0
+    experts_per_tok: int = 2
+    post_norms: bool = False
+    attn_logit_softcap: float | None = None
+    final_logit_softcap: float | None = None
+    query_pre_attn_scalar: float | None = None
+    alt_sliding: bool = False
+    qk_norm: bool = False
+
+    def layer_sliding_window(self, i: int) -> int | None:
+        if self.alt_sliding and i % 2:
+            return None
+        return self.sliding_window
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim", self.dim // self.n_heads)
+        if self.rope_scaling is not None:
+            object.__setattr__(self, "rope_scaling", tuple(self.rope_scaling))
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @classmethod
+    def mistral_7b(cls) -> "ModelConfig":
+        return cls(vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+                   ffn_dim=14336, rope_theta=1e6, sliding_window=4096)
+
+    @classmethod
+    def tinyllama_1b(cls) -> "ModelConfig":
+        return cls(vocab_size=32000, dim=2048, n_layers=22, n_heads=32, n_kv_heads=4,
+                   ffn_dim=5632, rope_theta=10000.0)
+
+    @classmethod
+    def llama2_70b(cls) -> "ModelConfig":
+        return cls(vocab_size=32000, dim=8192, n_layers=80, n_heads=64, n_kv_heads=8,
+                   ffn_dim=28672, rope_theta=10000.0)
+
+    @classmethod
+    def llama3_8b(cls) -> "ModelConfig":
+        return cls(vocab_size=128256, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+                   ffn_dim=14336, rope_theta=500000.0)
+
+    @classmethod
+    def qwen2_7b(cls) -> "ModelConfig":
+        return cls(vocab_size=152064, dim=3584, n_layers=28, n_heads=28, n_kv_heads=4,
+                   ffn_dim=18944, rope_theta=1e6, rms_eps=1e-6, attn_bias=True)
+
+    @classmethod
+    def qwen3_8b(cls) -> "ModelConfig":
+        return cls(vocab_size=151936, dim=4096, n_layers=36, n_heads=32, n_kv_heads=8,
+                   ffn_dim=12288, rope_theta=1e6, rms_eps=1e-6, head_dim=128, qk_norm=True)
+
+    @classmethod
+    def phi3_mini(cls) -> "ModelConfig":
+        return cls(vocab_size=32064, dim=3072, n_layers=32, n_heads=32, n_kv_heads=32,
+                   ffn_dim=8192, rope_theta=10000.0)
+
+    @classmethod
+    def gemma_7b(cls) -> "ModelConfig":
+        return cls(vocab_size=256000, dim=3072, n_layers=28, n_heads=16, n_kv_heads=16,
+                   ffn_dim=24576, rms_eps=1e-6, head_dim=256, hidden_act="gelu_tanh",
+                   norm_offset=True, embed_scale=True)
+
+    @classmethod
+    def gemma2_9b(cls) -> "ModelConfig":
+        return cls(vocab_size=256000, dim=3584, n_layers=42, n_heads=16, n_kv_heads=8,
+                   ffn_dim=14336, rms_eps=1e-6, head_dim=256, hidden_act="gelu_tanh",
+                   norm_offset=True, embed_scale=True, post_norms=True,
+                   sliding_window=4096, alt_sliding=True,
+                   attn_logit_softcap=50.0, final_logit_softcap=30.0,
+                   query_pre_attn_scalar=256.0)
+
+    @classmethod
+    def mixtral_8x7b(cls) -> "ModelConfig":
+        return cls(vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+                   ffn_dim=14336, rope_theta=1e6, n_experts=8, experts_per_tok=2)
+
+    @classmethod
+    def tiny_test(cls, **kw) -> "ModelConfig":
+        """Small geometry for CPU tests (K multiples of 1024)."""
+        d = dict(vocab_size=256, dim=1024, n_layers=2, n_heads=8, n_kv_heads=4, ffn_dim=2048)
+        d.update(kw)
+        return cls(**d)
+
+
+@dataclasses.dataclass
+class LayerParams:
+    attn_norm: torch.Tensor  # (dim,) bf16
+    wq: Any  # QuantLinear/DenseLinear, or None when wqkv is fused
+    wk: Any
+    wv: Any
+    wo: Any
+    mlp_norm: torch.Tensor
+    w_gate: Any = None
+    w_up: Any = None
+    w_down: Any = None
+    wqkv: Any = None
+    w_gateup: Any = None
+    moe: Any = None
+    post_attn_norm: Any = None
+    post_mlp_norm: Any = None
+    q_norm: Any = None
+    k_norm: Any = None
+
+
+@dataclasses.dataclass
+class ModelParams:
+    embed: torch.Tensor  # (vocab, dim) bf16
+    layers: list[LayerParams]
+    final_norm: torch.Tensor  # (dim,) bf16
+    lm_head: Any  # DenseLinear (dim -> vocab) or QuantLinear
+
+
+def params_to(params: ModelParams, device) -> ModelParams:
+    """A copy of ``params`` with every tensor on ``device``."""
+    def mv(v):
+        if v is None:
+            return None
+        return v.to(device)
+
+    layers = [LayerParams(**{f.name: mv(getattr(lp, f.name)) for f in dataclasses.fields(LayerParams)})
+              for lp in params.layers]
+    return ModelParams(embed=mv(params.embed), layers=layers, final_norm=mv(params.final_norm),
+                       lm_head=mv(params.lm_head))
+
+
+@dataclasses.dataclass
+class KVCache:
+    """bf16 KV cache, one (B, rows, n_kv, head_dim) pair per layer, with a
+    per-sequence ``length`` (B,) int32 (continuous batching needs one write
+    offset per slot)."""
+
+    k: list[torch.Tensor]
+    v: list[torch.Tensor]
+    length: torch.Tensor
+
+    @classmethod
+    def zeros(cls, cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, write_chunk: int = 0,
+              device=None) -> "KVCache":
+        if write_chunk:
+            raise NotImplementedError("rolling sliding-window rings (write_chunk > 0) are not yet ported")
+        device = resolve_device(device)
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        ks = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.n_layers)]
+        vs = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.n_layers)]
+        return cls(k=ks, v=vs, length=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, offset: bool = False) -> torch.Tensor:
+    """Llama order: normalize in f32, downcast, then multiply by the bf16
+    weight; Gemma (``offset``) multiplies by (1 + w) in f32 first."""
+    xf = F.rms_norm(x.float(), (x.shape[-1],), eps=eps)  # xf * rsqrt(mean(xf^2) + eps)
+    if offset:
+        return (xf * (1.0 + weight.float())).to(x.dtype)
+    return xf.to(x.dtype) * weight
+
+
+def _act(cfg: ModelConfig, gate: torch.Tensor) -> torch.Tensor:
+    g = gate.float()
+    if cfg.hidden_act == "gelu_tanh":
+        return F.gelu(g, approximate="tanh")
+    return F.silu(g)
+
+
+def rope_tables(positions: torch.Tensor, d: int, theta: float,
+                scaling: tuple[float, float, float, float] | None = None):
+    """(cos, sin), each (B, L, 1, d/2) f32, for ``positions`` (B, L).
+    ``scaling`` applies the Llama-3.1 frequency remap."""
+    freqs = theta ** (-torch.arange(0, d // 2, dtype=torch.float32, device=positions.device) / (d // 2))
+    if scaling is not None:
+        factor, lo_f, hi_f, orig = scaling
+        wavelen = torch.full_like(freqs, 2.0 * math.pi) / freqs
+        smooth = (torch.full_like(freqs, orig) / wavelen - lo_f) / (hi_f - lo_f)
+        smooth = torch.clamp(smooth, 0.0, 1.0)
+        freqs = (1.0 - smooth) * freqs / factor + smooth * freqs
+    angles = positions.float()[..., None] * freqs  # (B, L, D/2)
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate x (B, L, H, D) in f32, half-split layout."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         scaling: tuple[float, float, float, float] | None = None) -> torch.Tensor:
+    """Rotary embedding of x (B, L, H, D) at positions (B, L)."""
+    return apply_rope(x, *rope_tables(positions, x.shape[-1], theta, scaling))
+
+
+_ATTN_QUERY_CHUNK = 512
+
+
+def attention_mask(q_positions, kv_positions, kv_valid, sliding_window):
+    """(B, 1, 1, Lq, Lk) bool: key visible to the query (causal, written,
+    inside the sliding window)."""
+    qpos = q_positions[:, None, None, :, None]
+    kpos = kv_positions[:, None, None, None, :]
+    mask = (kpos <= qpos) & kv_valid[:, None, None, None, :]
+    if sliding_window is not None:
+        mask = mask & (kpos > qpos - sliding_window)
+    return mask
+
+
+def _attention(q, k, v, blocked, scale=None, logit_softcap=None):
+    """Causal GQA attention, dense, chunked over the query axis at 512 rows.
+    ``blocked`` is the negation of :func:`attention_mask`.  (The JAX package sends
+    Lq*Lk >= 256*4096 to its Pallas flash kernel on a TPU; that route is not
+    yet ported.)"""
+    lq = q.shape[1]
+    if lq > _ATTN_QUERY_CHUNK:
+        c = _ATTN_QUERY_CHUNK
+        return torch.cat([_attention_dense(q[:, c0 : c0 + c], k, v, blocked[:, :, :, c0 : c0 + c], scale,
+                                           logit_softcap) for c0 in range(0, lq, c)], dim=1)
+    return _attention_dense(q, k, v, blocked, scale, logit_softcap)
+
+
+def _attention_dense(q, k, v, blocked, scale=None, logit_softcap=None):
+    b, lq, hq, d = q.shape
+    hk = k.shape[2]
+    group = hq // hk
+    qf = q.reshape(b, lq, hk, group, d).float()
+    logits = torch.einsum("blhgd,bshd->bhgls", qf, k.float()) * (1.0 / np.sqrt(d) if scale is None else scale)
+    if logit_softcap is not None:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    probs = torch.softmax(logits.masked_fill_(blocked, -1e30), dim=-1)
+    out = torch.einsum("bhgls,bshd->blhgd", probs, v.float())
+    return out.reshape(b, lq, hq, d).to(q.dtype)
+
+
+def _attn_scale(cfg: ModelConfig) -> float | None:
+    if cfg.query_pre_attn_scalar is not None:
+        return 1.0 / np.sqrt(cfg.query_pre_attn_scalar)
+    return None
+
+
+@dataclasses.dataclass
+class _StepContext:
+    """What every layer of one forward shares: RoPE tables, the KV write rows,
+    and the slot->position masks per (cache rows, sliding window)."""
+
+    cos: torch.Tensor
+    sin: torch.Tensor
+    write_b: torch.Tensor  # (B, L) batch index of each written row
+    write_rows: dict  # cache rows -> (B, L) row index (start clamped as JAX's dynamic_update_slice)
+    blocked: dict  # (cache rows, window) -> (B, 1, 1, L, rows) bool, True = masked out
+
+
+def _write_kv(cache: torch.Tensor, new: torch.Tensor, ctx: _StepContext) -> None:
+    """Write ``new`` (B, L, Hk, D) at each sequence's offset, IN PLACE."""
+    cache[ctx.write_b, ctx.write_rows[cache.shape[1]]] = new.to(cache.dtype)
+
+
+def _layer_forward(lp: LayerParams, cfg: ModelConfig, x, k_cache, v_cache, ctx: _StepContext, layer_idx: int = 0):
+    """One decoder block (tp = 1).  Writes this step's K/V into the layer's
+    cache tensors in place; returns the new hidden state."""
+    if lp.moe is not None:
+        raise NotImplementedError("mixture-of-experts layers are not yet ported")
+    b, l, _ = x.shape
+    n_heads, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = rms_norm(x, lp.attn_norm, cfg.rms_eps, cfg.norm_offset)
+    if lp.wqkv is not None:
+        qkv = lp.wqkv(h)
+        qc, kc = n_heads * hd, n_kv * hd
+        q, k, v = qkv[..., :qc], qkv[..., qc : qc + kc], qkv[..., qc + kc :]
+    else:
+        q, k, v = lp.wq(h), lp.wk(h), lp.wv(h)
+    q = q.reshape(b, l, n_heads, hd)
+    k = k.reshape(b, l, n_kv, hd)
+    v = v.reshape(b, l, n_kv, hd)
+    if lp.q_norm is not None:
+        q = rms_norm(q, lp.q_norm, cfg.rms_eps, cfg.norm_offset)
+        k = rms_norm(k, lp.k_norm, cfg.rms_eps, cfg.norm_offset)
+    # one rotation over the q and k heads together (elementwise: same values)
+    q, k = torch.split(apply_rope(torch.cat([q, k], dim=2), ctx.cos, ctx.sin), [n_heads, n_kv], dim=2)
+    _write_kv(k_cache, k, ctx)
+    _write_kv(v_cache, v, ctx)
+    blocked = ctx.blocked[(k_cache.shape[1], cfg.layer_sliding_window(layer_idx))]
+    attn = _attention(q, k_cache, v_cache, blocked, _attn_scale(cfg), cfg.attn_logit_softcap)
+    y = lp.wo(attn.reshape(b, l, n_heads * hd)).to(x.dtype)
+    if lp.post_attn_norm is not None:
+        y = rms_norm(y, lp.post_attn_norm, cfg.rms_eps, cfg.norm_offset)
+    x = x + y
+    h = rms_norm(x, lp.mlp_norm, cfg.rms_eps, cfg.norm_offset)
+    if lp.w_gateup is not None:
+        gate, up = torch.chunk(lp.w_gateup(h), 2, dim=-1)
+    else:
+        gate, up = lp.w_gate(h), lp.w_up(h)
+    y = lp.w_down(_act(cfg, gate).to(up.dtype) * up).to(x.dtype)
+    if lp.post_mlp_norm is not None:
+        y = rms_norm(y, lp.post_mlp_norm, cfg.rms_eps, cfg.norm_offset)
+    return x + y
+
+
+def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCache,
+            positions: torch.Tensor | None = None, last_only: bool = False,
+            last_index: int | None = None) -> tuple[torch.Tensor, KVCache]:
+    """Run L tokens (B, L) through the model, appending to the cache.
+
+    Returns (logits (B, L', vocab) f32, cache with the new lengths); L' is 1
+    with ``last_only`` or ``last_index`` (the lm_head runs on that position
+    only).  The cache tensors are updated in place.
+    """
+    b, l = tokens.shape
+    if positions is None:
+        positions = cache.length[:, None] + torch.arange(l, dtype=torch.int32, device=tokens.device)[None, :]
+    x = params.embed[tokens.long()].to(torch.bfloat16)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.dim**0.5, dtype=torch.bfloat16, device=x.device)
+    new_len = cache.length + l
+    dev = tokens.device
+    cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    ctx = _StepContext(cos=cos, sin=sin, write_b=torch.arange(b, device=dev)[:, None].expand(b, l),
+                       write_rows={}, blocked={})
+    for i in range(cfg.n_layers):
+        rows, window = cache.k[i].shape[1], cfg.layer_sliding_window(i)
+        if rows not in ctx.write_rows:
+            start = torch.clamp(torch.remainder(cache.length, rows), max=rows - l).to(torch.int64)
+            ctx.write_rows[rows] = start[:, None] + torch.arange(l, device=dev)[None, :]
+        if (rows, window) not in ctx.blocked:
+            # slot s of an R-row cache holds the latest position p < new_len
+            # with p = s (mod R); for a full-size cache this is arange with
+            # valid = pos < new_len
+            last = new_len[:, None] - 1
+            s = torch.arange(rows, dtype=torch.int32, device=dev)[None, :]
+            p = last - torch.remainder(last - s, rows)
+            ctx.blocked[(rows, window)] = ~attention_mask(positions, p, p >= 0, window)
+
+    for i, lp in enumerate(params.layers):
+        x = _layer_forward(lp, cfg, x, cache.k[i], cache.v[i], ctx, layer_idx=i)
+    x = rms_norm(x, params.final_norm, cfg.rms_eps, cfg.norm_offset)
+    if last_index is not None:
+        x = x[:, last_index : last_index + 1]
+    elif last_only:
+        x = x[:, -1:]
+    logits = params.lm_head(x, out_dtype=torch.float32)
+    if cfg.final_logit_softcap is not None:
+        logits = cfg.final_logit_softcap * torch.tanh(logits / cfg.final_logit_softcap)
+    return logits, KVCache(k=cache.k, v=cache.v, length=new_len)
+
+
+@torch.no_grad()
+def prefill(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCache):
+    """Run the prompt; returns (last-position logits (B, vocab), cache)."""
+    logits, cache = forward(params, cfg, tokens, cache, last_only=True)
+    return logits[:, -1], cache
+
+
+@torch.no_grad()
+def decode_step(params: ModelParams, cfg: ModelConfig, token: torch.Tensor, cache: KVCache):
+    """One greedy decode step: token (B,) -> (next_token (B,) int32, cache)."""
+    logits, cache = forward(params, cfg, token[:, None], cache)
+    return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
+
+
+@torch.no_grad()
+def generate(params: ModelParams, cfg: ModelConfig, prompt: torch.Tensor, max_new_tokens: int,
+             max_len: int | None = None) -> torch.Tensor:
+    """Greedy generation: prompt (B, Lp) -> (B, max_new_tokens) int32.  The
+    JAX package's decode ``lax.scan`` is a Python loop here; the last step,
+    whose output the scan drops, is not run."""
+    b, lp = prompt.shape
+    if max_len is None:
+        max_len = lp + max_new_tokens
+    cache = KVCache.zeros(cfg, b, max_len, device=prompt.device)
+    first, cache = prefill(params, cfg, prompt, cache)
+    tok = torch.argmax(first, dim=-1).to(torch.int32)
+    toks = [tok]
+    for _ in range(max_new_tokens - 1):
+        tok, cache = decode_step(params, cfg, tok, cache)
+        toks.append(tok)
+    return torch.stack(toks, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Parameter construction
+# ---------------------------------------------------------------------------
+
+
+def norm_names(cfg: ModelConfig) -> tuple[str, str, str | None, str | None]:
+    """HF names of (attn_norm, mlp_norm, post_attn_norm, post_mlp_norm)."""
+    if cfg.post_norms:
+        return ("input_layernorm", "pre_feedforward_layernorm",
+                "post_attention_layernorm", "post_feedforward_layernorm")
+    return ("input_layernorm", "post_attention_layernorm", None, None)
+
+
+def fuse_params(params: ModelParams) -> ModelParams:
+    """Fuse QKV and gate|up in every layer: one kernel launch each."""
+    def fusable(*ls):
+        return all(isinstance(l, QuantLinear) for l in ls)
+
+    layers = []
+    for lp in params.layers:
+        rep = {}
+        if fusable(lp.wq, lp.wk, lp.wv):
+            rep.update(wqkv=fuse_linears([lp.wq, lp.wk, lp.wv]), wq=None, wk=None, wv=None)
+        if fusable(lp.w_gate, lp.w_up):
+            rep.update(w_gateup=fuse_linears([lp.w_gate, lp.w_up]), w_gate=None, w_up=None)
+        layers.append(dataclasses.replace(lp, **rep))
+    return dataclasses.replace(params, layers=layers)
+
+
+def quantize_params(cfg: ModelConfig, weights: dict[str, np.ndarray], fuse: bool = False,
+                    device=None) -> ModelParams:
+    """ModelParams on ``device`` from fp weights in HF llama naming: every
+    linear quantized, norms and embeddings bf16, a dense bf16 lm_head unless
+    ``cfg.quantize_lm_head``."""
+    device = resolve_device(device)
+    if cfg.n_experts:
+        raise NotImplementedError("mixture-of-experts models are not yet ported")
+    if cfg.quantize_embed:
+        raise NotImplementedError("the quantized embedding table is not yet ported")
+
+    def bf16(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device=device, dtype=torch.bfloat16)
+
+    def ql(w, bias=None):
+        return quantize_linear(w, bias, blocksize=cfg.blocksize, quant_type=cfg.quant_type, variant=cfg.variant,
+                               device=device)
+
+    layers = []
+    an, mn, pan, pmn = norm_names(cfg)
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+
+        def q(name):
+            return ql(weights[p + name + ".weight"], weights.get(p + name + ".bias"))
+
+        extra = {}
+        if pan is not None:
+            extra.update(post_attn_norm=bf16(weights[p + pan + ".weight"]),
+                         post_mlp_norm=bf16(weights[p + pmn + ".weight"]))
+        if cfg.qk_norm:
+            extra.update(q_norm=bf16(weights[p + "self_attn.q_norm.weight"]),
+                         k_norm=bf16(weights[p + "self_attn.k_norm.weight"]))
+        layers.append(LayerParams(
+            attn_norm=bf16(weights[p + an + ".weight"]),
+            wq=q("self_attn.q_proj"), wk=q("self_attn.k_proj"), wv=q("self_attn.v_proj"),
+            wo=q("self_attn.o_proj"), mlp_norm=bf16(weights[p + mn + ".weight"]),
+            w_gate=q("mlp.gate_proj"), w_up=q("mlp.up_proj"), w_down=q("mlp.down_proj"), **extra,
+        ))
+    lm_w = weights.get("lm_head.weight")
+    if lm_w is None:  # tied embeddings
+        lm_w = weights["model.embed_tokens.weight"]
+    lm_head = ql(np.asarray(lm_w)) if cfg.quantize_lm_head else dense_linear(lm_w, device=device)
+    params = ModelParams(embed=bf16(weights["model.embed_tokens.weight"]), layers=layers,
+                         final_norm=bf16(weights["model.norm.weight"]), lm_head=lm_head)
+    return fuse_params(params) if fuse else params
+
+
+def random_weights(cfg: ModelConfig, seed: int = 0, scale: float = 0.02) -> dict[str, np.ndarray]:
+    """Random fp32 weights in HF llama naming (numpy, seeded) — the same
+    arrays as the JAX package's ``random_weights`` for the same seed."""
+    if cfg.n_experts:
+        raise NotImplementedError("mixture-of-experts models are not yet ported")
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    out = {
+        "model.embed_tokens.weight": w(cfg.vocab_size, cfg.dim),
+        "model.norm.weight": np.ones(cfg.dim, np.float32),
+        "lm_head.weight": w(cfg.vocab_size, cfg.dim),
+    }
+    kv_dim = cfg.n_kv_heads * cfg.head_dim
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        for nname in norm_names(cfg):
+            if nname is not None:
+                out[p + nname + ".weight"] = np.ones(cfg.dim, np.float32)
+        out[p + "self_attn.q_proj.weight"] = w(cfg.q_dim, cfg.dim)
+        out[p + "self_attn.k_proj.weight"] = w(kv_dim, cfg.dim)
+        out[p + "self_attn.v_proj.weight"] = w(kv_dim, cfg.dim)
+        out[p + "self_attn.o_proj.weight"] = w(cfg.dim, cfg.q_dim)
+        if cfg.attn_bias:
+            out[p + "self_attn.q_proj.bias"] = w(cfg.q_dim)
+            out[p + "self_attn.k_proj.bias"] = w(kv_dim)
+            out[p + "self_attn.v_proj.bias"] = w(kv_dim)
+        if cfg.qk_norm:
+            out[p + "self_attn.q_norm.weight"] = np.ones(cfg.head_dim, np.float32)
+            out[p + "self_attn.k_norm.weight"] = np.ones(cfg.head_dim, np.float32)
+        out[p + "mlp.gate_proj.weight"] = w(cfg.ffn_dim, cfg.dim)
+        out[p + "mlp.up_proj.weight"] = w(cfg.ffn_dim, cfg.dim)
+        out[p + "mlp.down_proj.weight"] = w(cfg.dim, cfg.ffn_dim)
+    return out

@@ -1,0 +1,454 @@
+"""Pair-K FP4 kernels K1-K4: CUDA wrappers, plain PyTorch versions, launch
+counts, and the M-based path choice of ``matmul_fp4_pk``.
+
+Counterpart of ``torch_bnb_fp4_tpu/ops/kernels.py`` (pair-K part).  Every
+wrapper takes its kernel's plain version for a tensor on the CPU and launches
+the CUDA kernel (``csrc/``, built by ``_build``) for a CUDA tensor; there is no
+fallback from one to the other.  The plain versions repeat the kernels'
+arithmetic in torch ops and run on any device, so a test can hold a kernel
+against its plain version on the card.
+
+  K1 decode_pairs       csrc/pairk_decode.cuh (device routine) + decode_pairs.cu
+  K2 matmul_pk          csrc/matmul_pk.cu          GEMV / small-M (m-outer)
+  K3 matmul_pk_minner   csrc/matmul_pk_minner.cu   decode-once GEMM (m-inner)
+  K4 matmul_pk_w4a8     csrc/matmul_pk_w4a8.cu     int8 tensor-core GEMM
+
+Block shapes are constants of the kernels; there is no per-chip table.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from . import _build
+from . import format as fmt
+
+VARIANT_CODE = {"exact": 0, "zramp": 1, "ramp": 2, "lut": 3}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+# M at which bf16 input with an FP4-family variant takes the w4a8 path (the
+# JAX package's a8_min_m, ops/kernels.py:127-139); activation K-tile request
+A8_MIN_M = 256
+A8_BLOCK_K = 1024
+# K2 splits K until the grid holds about this many blocks per SM
+# (benchmarks_torch/k2_sweep.py on an H100: 4 is best for the tensor-core
+# kernel at M = 1 and 8 over the four Mistral-7B shapes)
+K2_BLOCKS_PER_SM = 4
+
+# launches per wrapper: each CUDA launch adds one (plain CPU calls do not)
+LAUNCHES = {"decode_pairs": 0, "matmul_pk": 0, "matmul_pk_minner": 0, "matmul_pk_w4a8": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check_status(name: str, status: int) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {status}")
+
+
+def _choose_block(dim: int, requested: int, quantum: int) -> int:
+    """Largest multiple of ``quantum`` that is <= requested and divides dim."""
+    assert dim % quantum == 0, (dim, quantum)
+    best = quantum
+    for s in range(min(requested, dim) // quantum, 0, -1):
+        if (dim // quantum) % s == 0:
+            best = s * quantum
+            break
+    return best
+
+
+def _k_block_pairk(k: int, requested: int, blocksize: int, s_quantum: int = 8) -> int:
+    """The JAX path's K block for scale-tiled pair-K kernels: quantum
+    s_quantum*blocksize, else one full-K block.  Fixes the w4a8 activation
+    K-tile (a8_block_k), which is part of that path's numerics."""
+    q = s_quantum * blocksize
+    if k % q == 0:
+        return _choose_block(k, requested, q)
+    if k % (2 * blocksize) or (k // 2) % 32:
+        raise ValueError(f"K={k} is not a pair-K shape for blocksize {blocksize}")
+    return k
+
+
+@functools.lru_cache(maxsize=256)
+def a8_block_k(k: int, scale_dtype: torch.dtype, blocksize: int = 64) -> int:
+    return _k_block_pairk(k, A8_BLOCK_K, blocksize, 16 if scale_dtype == torch.bfloat16 else 8)
+
+
+# ---------------------------------------------------------------------------
+# K1: pair-K byte decode
+# ---------------------------------------------------------------------------
+
+
+def make_pairk_lut(codebook, device=None) -> torch.Tensor:
+    """(16,) int16 bf16 BIT PATTERNS of a codebook (the lut decode's table)."""
+    cb = torch.as_tensor(np.asarray(codebook, np.float32) if not torch.is_tensor(codebook) else codebook)
+    return cb.to(device=device, dtype=torch.float32).to(torch.bfloat16).view(torch.int16).contiguous()
+
+
+def decode_pairs_plain(x_u8: torch.Tensor, variant: str = "exact", lut: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain K1: uint8 bytes -> int32 words holding two bf16 bit patterns of
+    192*code (low 16 bits = low nibble).  The integer steps run in int64 and
+    are masked to 32 bits, reproducing the kernel's uint32 wraparound."""
+    X = x_u8.to(torch.int64)
+    if variant == "lut":
+        lu = lut.to(torch.int64) & 0xFFFF
+        bits = lu[X & 0xF] | (lu[(X >> 4) & 0xF] << 16)
+    elif variant in ("ramp", "zramp"):
+        t = (X * 0x01001000) & 0xFFFFFFFF
+        if variant == "ramp":
+            bits = (0x41804180 + ((t >> 6) & 0x01C001C0)) | (t & 0x80008000)
+        else:
+            q12 = t & 0x70007000
+            b0 = 0x41804180 + (q12 >> 6)
+            s1 = ((q12 + 0x70007000) >> 15) & 0x00010001
+            bits = (b0 & ((s1 * 0xFFFF) & 0xFFFFFFFF)) | (t & 0x80008000)
+    elif variant == "exact":
+        t = X * 0x1001
+        q2 = t & 0x00070007
+        bits = 0x41804180 + (q2 << 6)
+        s1 = ((q2 + 0x00060006) >> 3) & 0x00010001
+        bits = bits & (s1 * 0xFFFF)
+        one = q2 & (s1 ^ 0x00010001)
+        bits = bits | (one * 0x3F80)
+        bits = bits | ((t & 0x00080008) << 12)
+    else:
+        raise ValueError(f"unknown pairk variant {variant!r}")
+    bits = bits & 0xFFFFFFFF
+    return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
+
+
+def decode_pairs(x_u8: torch.Tensor, variant: str = "exact", lut: torch.Tensor | None = None) -> torch.Tensor:
+    """K1 on its own (the CUDA test kernel on a CUDA tensor): same result as
+    :func:`decode_pairs_plain`."""
+    if x_u8.dtype != torch.uint8:
+        raise ValueError(f"decode_pairs takes uint8 bytes, got {x_u8.dtype}")
+    if variant == "lut" and lut is None:
+        raise ValueError("variant='lut' needs the bf16 bit-pattern table")
+    if not x_u8.is_cuda:
+        return decode_pairs_plain(x_u8, variant, lut)
+    x = x_u8.contiguous()
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    lut_d = None if variant != "lut" else lut.to(x.device).contiguous()
+    fn = _build.kernel("decode_pairs.cu")
+    LAUNCHES["decode_pairs"] += 1
+    _check_status("decode_pairs", fn(x.data_ptr(), out.data_ptr(), x.numel(), VARIANT_CODE[variant],
+                                     _ptr(lut_d), _stream(x)))
+    return out
+
+
+def pairs_weight_tile(packed: torch.Tensor, variant: str = "exact", lut: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain decode of a packed (K/2, N) tile -> (K, N) bf16 code values
+    (192*code for FP4 variants, bf16(code) for lut), scale NOT applied."""
+    bits = decode_pairs_plain(packed, variant, lut).to(torch.int64)
+    lo = bits & 0xFFFF
+    hi = (bits >> 16) & 0xFFFF
+    pair = torch.stack([lo, hi], dim=1)  # (K/2, 2, N): row 2i, row 2i+1
+    pair = torch.where(pair >= 2**15, pair - 2**16, pair).to(torch.int16)
+    return pair.reshape(-1, packed.shape[1]).view(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of K2-K4 (any device)
+# ---------------------------------------------------------------------------
+
+
+def _finish(acc: torch.Tensor, bias: torch.Tensor | None, out_dtype: torch.dtype) -> torch.Tensor:
+    if bias is not None:
+        acc = acc + bias.float()
+    return acc.to(out_dtype)
+
+
+def matmul_pk_plain(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant):
+    """Plain K2: per quant block b, part_b = x_b . (192*code)_b in f32, then
+    acc = sum_b part_b * scale[b] (the TPU kernel's order, :680-691)."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    m, k = x.shape
+    n = packed.shape[1]
+    nb = k // blocksize
+    w = pairs_weight_tile(packed, variant, lut).float().reshape(nb, blocksize, n)
+    xb = x.float().reshape(m, nb, blocksize).transpose(0, 1)  # (nb, m, bs)
+    part = torch.bmm(xb, w)  # (nb, m, n) f32
+    acc = (part * scale.float()[:, None, :]).sum(0)
+    return _finish(acc, bias, out_dtype)
+
+
+def matmul_pk_minner_plain(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant):
+    """Plain K3: weight tile = code value * scale, rounded in bf16 for bf16
+    input (w * bf16(scale), :726-729) and kept in f32 for f32 input; then an
+    f32 matmul."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    w = pairs_weight_tile(packed, variant, lut)  # (K, N) bf16
+    s = scale.float().repeat_interleave(blocksize, dim=0)
+    if x.dtype == torch.float32:
+        wt = w.float() * s
+    else:
+        wt = (w.float() * s.to(torch.bfloat16).float()).to(torch.bfloat16).float()
+    return _finish(x.float() @ wt, bias, out_dtype)
+
+
+def quantize_activations(x: torch.Tensor, block_k: int):
+    """Per (row, K-tile) int8 activations for the w4a8 path (:1143-1147):
+    r = max|x| over the tile (0 -> 1), x8 = round_half_even(x * (127 / r)),
+    rs = r * (1/127).  The f32 division is written out: ``127.0 / r`` in torch
+    multiplies by a reciprocal, which rounds differently."""
+    m, k = x.shape
+    xr = x.float().reshape(m, k // block_k, block_k)
+    r = xr.abs().amax(dim=2)
+    r = torch.where(r == 0.0, torch.ones_like(r), r)
+    q = torch.full_like(r, 127.0).div(r)
+    x8 = torch.round(xr * q[:, :, None]).to(torch.int8).reshape(m, k)
+    return x8.contiguous(), (r * (1.0 / 127.0)).contiguous()
+
+
+def w4a8_weights_plain(packed, scale, *, blocksize=64, variant, a8_block_k):
+    """The w4a8 path's requantized weights: (w8 int8 (K, N), g (K/a8_block_k, N)
+    f32 = tile column max of the scales (0 -> 1) times 192/127)."""
+    k, n = 2 * packed.shape[0], packed.shape[1]
+    nk, nsub = k // a8_block_k, a8_block_k // blocksize
+    s = scale.float().reshape(nk, nsub, n)
+    g = s.amax(dim=1)
+    g = torch.where(g == 0.0, torch.ones_like(g), g)
+    f = (s / g[:, None, :]) * (127.0 / fmt.PAIRK_VALUE_SCALE)  # (nk, nsub, n)
+    wv = pairs_weight_tile(packed, variant).float().reshape(nk, nsub, blocksize, n)
+    w8 = torch.round(wv * f[:, :, None, :]).to(torch.int8).reshape(k, n)
+    return w8, g * (fmt.PAIRK_VALUE_SCALE / 127.0)
+
+
+def matmul_pk_w4a8_plain(x8, rs, packed, scale, bias=None, *, blocksize=64, out_dtype, variant, a8_block_k):
+    """Plain K4: exact per-K-tile integer dots (float64 holds them exactly),
+    then acc = acc + (d * rs) * g tile by tile in f32."""
+    m, k = x8.shape
+    n = packed.shape[1]
+    nk = k // a8_block_k
+    w8, g = w4a8_weights_plain(packed, scale, blocksize=blocksize, variant=variant, a8_block_k=a8_block_k)
+    xt = x8.double().reshape(m, nk, a8_block_k).transpose(0, 1)  # (nk, m, bk)
+    d = torch.bmm(xt, w8.double().reshape(nk, a8_block_k, n)).float()  # (nk, m, n) exact
+    acc = torch.zeros((m, n), dtype=torch.float32, device=x8.device)
+    for t in range(nk):
+        acc = acc + (d[t] * rs[:, t : t + 1]) * g[t][None, :]
+    return _finish(acc, bias, out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers of K2-K4
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda_operands(x, x_dtypes, packed, scale, bias, blocksize, **extra):
+    """What the CUDA kernels assume and do not check themselves: dtypes, one
+    device, contiguous 16-byte-aligned buffers, blocksize 64 and N % 128."""
+    if x.dtype not in x_dtypes:
+        raise ValueError(f"the CUDA kernel takes x in {x_dtypes}, got {x.dtype}")
+    dev = x.device
+    for name, t in (("x", x), ("packed", packed), ("scale", scale), ("bias", bias), *extra.items()):
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, x on {dev}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned for the CUDA kernels")
+    if packed.dtype != torch.uint8 or scale.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"packed must be uint8 and scale f32/bf16, got {packed.dtype}, {scale.dtype}")
+    if blocksize != 64:
+        raise ValueError(f"the CUDA pair-K kernels take blocksize 64, got {blocksize}")
+    if packed.shape[1] % 128:
+        raise ValueError(f"the CUDA pair-K kernels need N % 128 == 0, got N={packed.shape[1]}")
+    if bias is not None and bias.dtype != torch.float32:
+        raise ValueError(f"bias must be float32, got {bias.dtype}")
+    if extra.get("lut") is not None and extra["lut"].dtype != torch.int16:
+        raise ValueError("lut must hold the int16 bf16 bit patterns of make_pairk_lut")
+    if extra.get("rs") is not None and extra["rs"].dtype != torch.float32:
+        raise ValueError("rs must be float32")
+
+
+@functools.lru_cache(maxsize=1024)
+def _k2_launch(m: int, k: int, n: int, tensor_cores: bool, sms: int, blocks_per_sm: int) -> tuple[int, int]:
+    """(x rows per block, K splits) for K2.  Tensor cores (bf16 x) take 8, 16
+    or 32 rows and 256 columns per block, CUDA cores (f32 x) 1-8 rows and 512
+    columns.  K splits: the fewest that fill about ``blocks_per_sm`` blocks on
+    each of the ``sms`` SMs, dividing the K/64 quant blocks, with the staged x
+    chunk inside 48 KB of shared memory.  Memoized: it runs on every
+    decode-step call."""
+    if tensor_cores:
+        rows, cols = (8 if m <= 8 else 16 if m <= 16 else 32), 256
+    else:
+        rows, cols = (1 if m == 1 else 2 if m == 2 else 4 if m <= 4 else 8), 512
+    nb = k // 64
+    blocks = -(-n // cols) * -(-m // rows)
+    target = -(-blocks_per_sm * sms // blocks)
+    for d in range(1, nb + 1):
+        kchunk = k // d
+        smem = rows * (kchunk + 8) * 2 if tensor_cores else rows * kchunk * 4
+        if nb % d == 0 and d >= target and smem <= 48 * 1024:
+            return rows, d
+    return rows, nb
+
+
+def matmul_pk(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant):
+    """K2: y = x . Wt + bias, the GEMV / small-M kernel (bf16 x on tensor
+    cores, f32 x on CUDA cores)."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if not x.is_cuda:
+        return matmul_pk_plain(x, packed, scale, bias, lut, blocksize=blocksize, out_dtype=out_dtype, variant=variant)
+    _check_cuda_operands(x, (torch.float32, torch.bfloat16), packed, scale, bias, blocksize, lut=lut)
+    return _launch_matmul_pk(x, packed, scale, bias, lut, out_dtype, variant, K2_BLOCKS_PER_SM)
+
+
+def _launch_matmul_pk(x, packed, scale, bias, lut, out_dtype, variant, blocks_per_sm: int):
+    """Launch K2 on checked CUDA operands with a K-split occupancy target
+    (``benchmarks_torch/k2_sweep.py`` sweeps it; the wrapper passes
+    ``K2_BLOCKS_PER_SM``)."""
+    m, k = x.shape
+    n = packed.shape[1]
+    rows, ksplit = _k2_launch(m, k, n, x.dtype == torch.bfloat16, _sm_count(x.device), blocks_per_sm)
+    ws = torch.empty((ksplit, m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    fn = _build.kernel("matmul_pk.cu")
+    LAUNCHES["matmul_pk"] += 1
+    _check_status("matmul_pk", fn(
+        x.data_ptr(), _DTYPE_CODE[x.dtype], packed.data_ptr(), scale.data_ptr(), _DTYPE_CODE[scale.dtype],
+        _ptr(bias), _ptr(lut), ws.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype],
+        m, k, n, ksplit, rows, VARIANT_CODE[variant], _stream(x)))
+    return out
+
+
+def _gemm_bm(m: int, n: int, sms: int) -> int:
+    """M tile of K3/K4: 128 unless that leaves most of the ``sms`` SMs idle."""
+    return 128 if (n // 128) * -(-m // 128) >= sms else 64
+
+
+def matmul_pk_minner(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant):
+    """K3: decode-once GEMM; bf16 x on tensor cores, f32 x on CUDA cores."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if not x.is_cuda:
+        return matmul_pk_minner_plain(x, packed, scale, bias, lut, blocksize=blocksize, out_dtype=out_dtype,
+                                      variant=variant)
+    _check_cuda_operands(x, (torch.float32, torch.bfloat16), packed, scale, bias, blocksize, lut=lut)
+    m, k = x.shape
+    n = packed.shape[1]
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    fn = _build.kernel("matmul_pk_minner.cu")
+    LAUNCHES["matmul_pk_minner"] += 1
+    _check_status("matmul_pk_minner", fn(
+        x.data_ptr(), _DTYPE_CODE[x.dtype], packed.data_ptr(), scale.data_ptr(), _DTYPE_CODE[scale.dtype],
+        _ptr(bias), _ptr(lut), out.data_ptr(), _DTYPE_CODE[out_dtype], m, k, n, _gemm_bm(m, n, _sm_count(x.device)),
+        VARIANT_CODE[variant], _stream(x)))
+    return out
+
+
+def matmul_pk_w4a8(x8, rs, packed, scale, bias=None, *, blocksize=64, out_dtype, variant, a8_block_k):
+    """K4: int8 tensor-core GEMM over pre-quantized activations."""
+    if not x8.is_cuda:
+        return matmul_pk_w4a8_plain(x8, rs, packed, scale, bias, blocksize=blocksize, out_dtype=out_dtype,
+                                    variant=variant, a8_block_k=a8_block_k)
+    _check_cuda_operands(x8, (torch.int8,), packed, scale, bias, blocksize, rs=rs)
+    m, k = x8.shape
+    n = packed.shape[1]
+    if k % a8_block_k or a8_block_k % 64:
+        raise ValueError(f"a8_block_k={a8_block_k} must divide K={k} and be a multiple of 64")
+    out = torch.empty((m, n), dtype=out_dtype, device=x8.device)
+    fn = _build.kernel("matmul_pk_w4a8.cu")
+    LAUNCHES["matmul_pk_w4a8"] += 1
+    _check_status("matmul_pk_w4a8", fn(
+        x8.data_ptr(), rs.data_ptr(), packed.data_ptr(), scale.data_ptr(), _DTYPE_CODE[scale.dtype],
+        _ptr(bias), out.data_ptr(), _DTYPE_CODE[out_dtype], m, k, n, a8_block_k, VARIANT_CODE[variant],
+        _stream(x8)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Entry points with the JAX package's path choice
+# ---------------------------------------------------------------------------
+
+
+def select_path(m: int, compute_dtype: torch.dtype, variant: str, a8: bool | None) -> str:
+    """Which kernel ``matmul_fp4_pk`` runs (ops/kernels.py:1062-1114 and
+    :1233-1238 of the JAX package): "w4a8" (K4), "minner" (K3) or "mouter"
+    (K2).  The TPU's 48 MB VMEM gate on the m-inner path (:1114) is dropped:
+    the CUDA kernels keep no full-M accumulator, so no M is too large."""
+    if a8 is None:
+        a8 = m >= A8_MIN_M and compute_dtype == torch.bfloat16 and variant != "lut"
+    elif a8:
+        if compute_dtype != torch.bfloat16:
+            raise ValueError("a8=True requires bf16 compute (f32 keeps full-precision dots)")
+        if variant == "lut":
+            raise ValueError("a8 requires an FP4-family variant (lut codebook range is data)")
+    if a8:
+        return "w4a8"
+    if compute_dtype == torch.bfloat16:
+        return "minner" if m > 128 else "mouter"
+    return "minner" if m > 256 else "mouter"
+
+
+def matmul_fp4_pk(x, packed, scale, bias=None, codebook=None, *, blocksize=64, out_dtype=None, variant,
+                  a8=None):
+    """Fused pair-K dequant-matmul: y[M, N] = x[M, K] @ Wt[K, N] (+ bias).
+
+    ``packed`` uint8 (K/2, N); ``scale`` f32|bf16 (K/blocksize, N) =
+    absmax/192 (lut: absmax); ``variant`` is required.  x may be f32, bf16 or
+    f16; f16 computes in bf16, f32 in f32.  ``a8``: None = auto (bf16, M >=
+    256, FP4-family variant), True forces the int8 path, False forbids it.
+    """
+    if variant == "lut":
+        if codebook is None:
+            raise ValueError("variant='lut' requires a 16-entry codebook array")
+    elif variant not in fmt.PAIRK_VARIANTS:
+        raise ValueError(f"unknown pairk variant {variant!r}; expected one of {fmt.PAIRK_VARIANTS} or 'lut'")
+    elif codebook is not None:
+        raise ValueError("codebook is only used with variant='lut'")
+    if packed.ndim != 2 or packed.dtype != torch.uint8:
+        raise ValueError(f"packed must be 2-D uint8 (K/2, N), got {tuple(packed.shape)} {packed.dtype}")
+    kp, n = packed.shape
+    k = 2 * kp
+    if x.ndim != 2 or x.shape[1] != k:
+        raise ValueError(f"x must be (M, K={k}) for packed (K/2={kp}, N={n}), got {tuple(x.shape)}")
+    if scale.shape != (k // blocksize, n):
+        raise ValueError(f"scale must be {(k // blocksize, n)} for blocksize={blocksize}, got {tuple(scale.shape)}")
+    if scale.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"scale must be float32 or bfloat16, got {scale.dtype}")
+    m = x.shape[0]
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    compute_dtype = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
+    x = x.to(compute_dtype).contiguous()
+    lut = make_pairk_lut(codebook, x.device) if variant == "lut" else None
+    path = select_path(m, compute_dtype, variant, a8)
+    if path == "mouter":
+        return matmul_pk(x, packed, scale, bias, lut, blocksize=blocksize, out_dtype=out_dtype, variant=variant)
+    if path == "minner":
+        return matmul_pk_minner(x, packed, scale, bias, lut, blocksize=blocksize, out_dtype=out_dtype,
+                                variant=variant)
+    bk = a8_block_k(k, scale.dtype, blocksize)
+    x8, rs = quantize_activations(x, bk)
+    return matmul_pk_w4a8(x8, rs, packed, scale, bias, blocksize=blocksize, out_dtype=out_dtype, variant=variant,
+                          a8_block_k=bk)
+
+
+def gemv_fp4_pk(x, packed, scale, bias=None, codebook=None, *, blocksize=64, out_dtype=None, variant):
+    """Batch-1 route: a single row through K2."""
+    if x.shape[0] != 1:
+        raise ValueError(f"gemv_fp4_pk is the batch-1 fast path; got x.shape={tuple(x.shape)} (use matmul_fp4_pk)")
+    return matmul_fp4_pk(x, packed, scale, bias, codebook, blocksize=blocksize, out_dtype=out_dtype,
+                         variant=variant)

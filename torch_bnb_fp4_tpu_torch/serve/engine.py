@@ -1,0 +1,282 @@
+"""Greedy continuous-batching serving engine (single device, slot-based).
+
+Counterpart of the greedy core of ``torch_bnb_fp4_tpu/serve/engine.py``:
+
+  * one batched decode over ``max_batch`` fixed slots, each slot with its own
+    cache offset (``KVCache.length`` is per sequence), run ``n`` steps per
+    tick as a Python loop with ONE host fetch of the tokens per tick;
+  * prefill runs per request at batch 1 on a small cache of the prompt's
+    32-row bucket, and its KV rows are copied into the slot;
+  * the host loop only moves token ids and bookkeeping.
+
+KV writes are in place (``index_put_`` / ``copy_`` on the engine's cache
+tensors); the JAX engine donates its cache to functional programs instead.
+A finished slot's stale rows need no clearing: the next prefill overwrites
+rows [0, Lp) and resets the length, and attention masks past the length.
+
+Not yet ported (setting them raises ``NotImplementedError``): sampling,
+logprobs, chunked prefill, admission budgets, batch buckets, the fp8 KV
+cache, speculative decoding, prefix caching and the retired-prefix store,
+LoRA adapters and multi-device meshes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from ..models import transformer as T
+
+log = logging.getLogger("torch_bnb_fp4_tpu_torch.serve")
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: list[int]
+    max_new_tokens: int = 64
+    eos_id: int | None = None
+    stop_ids: list[int] | None = None  # extra stop tokens; finish_reason "stop"
+    # per-request sampling / adapter overrides: not yet ported (a greedy
+    # engine accepts temperature 0 and top_p 1, which change nothing)
+    temperature: float | None = None
+    top_p: float | None = None
+    adapter: str | None = None
+
+
+@dataclasses.dataclass
+class Completion:
+    uid: int
+    tokens: list[int]
+    prompt_len: int
+    finish_reason: str  # "eos" | "stop" | "length"
+    ttft_s: float = 0.0  # submit -> first token (queue wait + prefill), host clock
+    total_s: float = 0.0  # submit -> completion
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Engine settings.  Only ``max_batch``, ``max_len``, ``inner_steps`` and
+    ``seed`` are ported; every other field keeps the JAX engine's name and
+    default and raises when set to anything else."""
+
+    max_batch: int = 8  # decode slots
+    max_len: int = 2048  # per-slot KV capacity
+    inner_steps: int = 8  # decode steps per host round trip (bucketed to 2^k)
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    min_p: float = 0.0
+    seed: int = 0
+    admit_budget: int = 0
+    prefill_chunk: int = 0
+    batch_buckets: bool = False
+    kv_dtype: str = "bfloat16"
+    spec_tokens: int = 0
+    spec_ngram: int = 3
+    prefix_cache: bool = False
+    prefix_store: int = 0
+    sliding_kv: bool = True
+    logprobs: bool = False
+
+    _PORTED = ("max_batch", "max_len", "inner_steps", "seed")
+
+    def __post_init__(self):
+        for f in dataclasses.fields(self):
+            if f.name not in self._PORTED and getattr(self, f.name) != f.default:
+                raise NotImplementedError(f"EngineConfig.{f.name} is not yet ported (greedy core only)")
+        if self.max_batch < 1 or self.max_len < 2 or self.inner_steps < 1:
+            raise ValueError(f"need max_batch >= 1, max_len >= 2, inner_steps >= 1, got {self}")
+
+
+class Engine:
+    """Single-device greedy continuous-batching engine over ``params``.
+
+    ``on_token``: optional callback ``(uid, token_id)`` for every emitted
+    token (the streaming hook)."""
+
+    def __init__(self, params: T.ModelParams, cfg: T.ModelConfig, ecfg: EngineConfig, on_token=None):
+        self.params, self.cfg, self.ecfg, self.on_token = params, cfg, ecfg, on_token
+        self.device = params.embed.device
+        b = ecfg.max_batch
+        self.cache = T.KVCache.zeros(cfg, b, ecfg.max_len, device=self.device)
+        self.slot_req: list[Request | None] = [None] * b
+        self.slot_tokens: list[list[int]] = [[] for _ in range(b)]
+        self.slot_t0: list[float] = [0.0] * b  # first-token wall time per slot
+        self.slot_cur = np.zeros(b, np.int64)  # current token per slot
+        self._submit_t: dict[int, float] = {}
+        self.pending: deque[Request] = deque()
+        self.completions: list[Completion] = []
+        self._completed = 0
+        self._steps = 0
+        self._tokens_out = 0
+        self._t0 = time.perf_counter()
+        # per-decoded-token tick latency (whole step() wall time incl. any
+        # admission prefills, over the inner depth), trailing window
+        self.step_times: deque[float] = deque(maxlen=4096)
+        self._mask_dev: torch.Tensor | None = None  # active-slot mask, rebuilt on admit/retire
+
+    # -- device work -------------------------------------------------------
+
+    @torch.no_grad()
+    def _decode_fn(self, tokens: torch.Tensor, active: torch.Tensor, n: int) -> torch.Tensor:
+        """``n`` batched greedy decode steps; idle slots first get length 0 so
+        their write offset never creeps toward max_len (their tokens are
+        garbage the host ignores).  Returns (B, n) int32 on the device."""
+        cache = T.KVCache(k=self.cache.k, v=self.cache.v,
+                          length=torch.where(active, self.cache.length, torch.zeros_like(self.cache.length)))
+        tok, toks = tokens, []
+        for _ in range(n):
+            logits, cache = T.forward(self.params, self.cfg, tok[:, None], cache)
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            toks.append(tok)
+        self.cache = cache
+        return torch.stack(toks, dim=1)
+
+    @torch.no_grad()
+    def _prefill_fn(self, tokens: torch.Tensor, slot: int, true_len: int) -> torch.Tensor:
+        """Batch-1 prefill of a bucket-padded prompt (1, Lp_pad) on a small
+        cache, spliced into ``slot``; rows past ``true_len`` are garbage that
+        kv_valid masks.  The lm_head runs on the true last position only.
+        Returns the first token (device scalar)."""
+        lp_pad = tokens.shape[1]
+        small = T.KVCache.zeros(self.cfg, 1, lp_pad, device=self.device)
+        logits, small = T.forward(self.params, self.cfg, tokens, small, last_index=true_len - 1)
+        for big, sm in zip(self.cache.k + self.cache.v, small.k + small.v):
+            big[slot, :lp_pad].copy_(sm[0])
+        self.cache.length[slot] = true_len
+        return torch.argmax(logits[0, -1], dim=-1)
+
+    # -- host API ----------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        if not req.prompt:
+            raise ValueError("empty prompt (need at least one token to prefill)")
+        if len(req.prompt) >= self.ecfg.max_len:
+            raise ValueError(f"prompt len {len(req.prompt)} >= max_len {self.ecfg.max_len}")
+        if req.temperature not in (None, 0, 0.0) or req.top_p not in (None, 1, 1.0) or req.adapter is not None:
+            raise NotImplementedError("per-request sampling and LoRA adapters are not yet ported (greedy only)")
+        self._submit_t[req.uid] = time.perf_counter()
+        self.pending.append(req)
+
+    def _free_slots(self) -> list[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    def _bucket(self, lp: int) -> int:
+        """Prefill length bucket: 32-row steps, clamped to the cache."""
+        return min((lp + 31) // 32 * 32, self.ecfg.max_len)
+
+    def _admit(self) -> None:
+        for slot in self._free_slots():
+            if not self.pending:
+                break
+            req = self.pending.popleft()
+            lp = len(req.prompt)
+            padded = np.zeros((1, self._bucket(lp)), np.int32)
+            padded[0, :lp] = req.prompt
+            first = int(self._prefill_fn(torch.from_numpy(padded).to(self.device), slot, lp))
+            self.slot_req[slot] = req
+            self.slot_tokens[slot] = [first]
+            self.slot_cur[slot] = first
+            self.slot_t0[slot] = time.perf_counter()
+            self._mask_dev = None
+            if self.on_token is not None:
+                self.on_token(req.uid, first)
+            log.debug("admit uid=%d slot=%d prompt_len=%d", req.uid, slot, lp)
+
+    def _retire(self, slot: int, reason: str) -> None:
+        req = self.slot_req[slot]
+        now = time.perf_counter()
+        t_sub = self._submit_t.pop(req.uid, now)
+        self._completed += 1
+        self.completions.append(Completion(
+            uid=req.uid, tokens=self.slot_tokens[slot], prompt_len=len(req.prompt), finish_reason=reason,
+            ttft_s=self.slot_t0[slot] - t_sub, total_s=now - t_sub))
+        self.slot_req[slot] = None
+        self.slot_tokens[slot] = []
+        self._mask_dev = None
+
+    def step(self) -> int:
+        """One tick: admit pending requests, retire finished slots, run up to
+        ``inner_steps`` batched decode steps.  Returns the active slot count."""
+        t_tick = time.perf_counter()
+        self._admit()
+        for i, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            toks = self.slot_tokens[i]
+            if req.eos_id is not None and toks and toks[-1] == req.eos_id:
+                self._retire(i, "eos")
+            elif req.stop_ids and toks and toks[-1] in req.stop_ids:
+                self._retire(i, "stop")
+            elif len(toks) >= req.max_new_tokens or len(req.prompt) + len(toks) >= self.ecfg.max_len:
+                self._retire(i, "length")
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return 0
+        # inner depth: bounded by the tightest remaining cache capacity only
+        # (a slot's own budget does not shrink it: tokens past it are dropped
+        # below), bucketed to a power of two
+        cap = min(self.ecfg.max_len - (len(self.slot_req[i].prompt) + len(self.slot_tokens[i])) for i in active)
+        budget = min(self.ecfg.inner_steps, cap)
+        n = 1
+        while 2 * n <= budget:
+            n *= 2
+        if self._mask_dev is None:
+            mask = np.zeros(self.ecfg.max_batch, bool)
+            mask[active] = True
+            self._mask_dev = torch.from_numpy(mask).to(self.device)
+        tokens = torch.from_numpy(self.slot_cur.astype(np.int32)).to(self.device)
+        toks = self._decode_fn(tokens, self._mask_dev, n).cpu().numpy()  # the tick's one host fetch
+        self.step_times.append((time.perf_counter() - t_tick) / n)
+        self._steps += n
+        for i in active:
+            req = self.slot_req[i]
+            for t in toks[i]:
+                t = int(t)
+                self.slot_tokens[i].append(t)
+                self._tokens_out += 1
+                if self.on_token is not None:
+                    self.on_token(req.uid, t)
+                if (req.eos_id is not None and t == req.eos_id) or (req.stop_ids and t in req.stop_ids):
+                    break  # tokens decoded past EOS/stop are dropped
+                if len(self.slot_tokens[i]) >= req.max_new_tokens:
+                    break  # tokens past the request budget are dropped too
+            self.slot_cur[i] = self.slot_tokens[i][-1]
+        return len(active)
+
+    def stats(self) -> dict:
+        """Serving metrics: tok/s, occupancy, per-token tick latency, TTFT."""
+        dt = time.perf_counter() - self._t0
+        done = self.completions
+        st = np.asarray(self.step_times) if self.step_times else np.zeros(1)
+        return dict(
+            step_p50_s=float(np.percentile(st, 50)),
+            step_p99_s=float(np.percentile(st, 99)),
+            completions=self._completed,
+            decode_steps=self._steps,
+            tokens_out=self._tokens_out,
+            tok_per_s=self._tokens_out / dt if dt > 0 else 0.0,
+            avg_batch_occupancy=self._tokens_out / max(self._steps, 1),
+            decode_batch=self.ecfg.max_batch,
+            active_slots=sum(r is not None for r in self.slot_req),
+            pending=len(self.pending),
+            kv_cache_bytes=sum(a.numel() * a.element_size() for a in self.cache.k + self.cache.v),
+            mean_ttft_s=sum(c.ttft_s for c in done) / len(done) if done else 0.0,
+            mean_tpot_s=(sum((c.total_s - c.ttft_s) / max(len(c.tokens) - 1, 1) for c in done) / len(done)
+                         if done else 0.0),
+        )
+
+    def run(self, requests: list[Request]) -> dict[int, Completion]:
+        """Serve a list of requests to completion; returns uid -> Completion."""
+        for r in requests:
+            self.submit(r)
+        while self.pending or any(r is not None for r in self.slot_req):
+            if self.step() == 0 and not self.pending:
+                break
+        return {c.uid: c for c in self.completions}

@@ -1,0 +1,72 @@
+"""Timing and roofline helpers for the H100.
+
+Counterpart of ``torch_bnb_fp4_tpu/utils/profiling.py``: ``time_fn`` times
+on the card with CUDA events (PyTorch returns before the device finishes, so
+a host clock would time the enqueue), and the roofline uses the H100 SXM's
+published dense peaks.  A card set below its 700 W limit runs slower than
+these peaks; report its ``power.limit`` beside any share of them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# NVIDIA H100 SXM data sheet, dense rates
+H100_HBM_BYTES_PER_S = 3.35e12
+H100_BF16_FLOPS = 989e12
+H100_INT8_OPS = 1979e12
+H100_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
+
+
+def time_fn(fn, *args, rep: int = 50, warmup: int = 3) -> float:
+    """Seconds per call of ``fn(*args)`` on the current CUDA device: warm up,
+    then ``rep`` back-to-back calls between two CUDA events."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_fn measures on the card; CUDA is not available")
+    for _ in range(warmup):
+        fn(*args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(rep):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3 / rep
+
+
+def time_graph(fn, *args, rep: int = 50) -> float:
+    """Device seconds per call of ``fn(*args)``: ``rep`` calls captured in one
+    CUDA graph and replayed between two CUDA events, so the host's launch cost
+    (Python wrappers, eager dispatch) is not in the figure.  Use
+    :func:`time_fn` for what an eager caller sees."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_graph measures on the card; CUDA is not available")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rep):
+            fn(*args)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3 / rep
+
+
+def bound_s(bytes_moved: float, ops: float, peak_ops: float) -> tuple[float, str]:
+    """Least time the card could take: the larger of bytes over the HBM rate
+    and ops over the peak rate for their type.  Returns (seconds, bound_by)."""
+    t_mem = bytes_moved / H100_HBM_BYTES_PER_S
+    t_ops = ops / peak_ops
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
