@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where a decode step's device time goes: torch.profiler over eager greedy
-decode steps of the Mistral-7B geometry (synth_params, fused FP4), batch 1
-and the engine's batch 8 over a 1024-row cache.  Prints the host wall time
-per step, the summed device time of the kernels per step, and the kernels
-ranked by device time, grouped as the port's pair-K kernels (K2 and its
-split reduction), attention (einsum/bmm, softmax, masking), the dense lm_head
-GEMM, and everything else.
+"""Where a decode step's and a prefill chunk's device time goes:
+torch.profiler over eager greedy decode steps of the Mistral-7B geometry
+(synth_params, fused FP4), batch 1 and the engine's batch 8 over a 1024-row
+cache, and over one 256-row chunk of a long prompt (positions 5632-5887) on
+the 4352-row sliding-window rings of chunked prefill.  Prints the host wall
+time per step, the summed device time of the kernels per step, and the
+kernels ranked by device time, grouped as the port's kernels (K2 and its
+split reduction, K3, K4, K7), attention (einsum/bmm, softmax, masking), the
+dense lm_head GEMM, and everything else.
 
     python3 benchmarks_torch/decode_profile.py
 """
@@ -33,6 +35,12 @@ STEPS = 8
 def group(name: str) -> str:
     if "matmul_pk" in name or "reduce_splits" in name:
         return "pair-K K2 (+split reduction)"
+    if "minner" in name:
+        return "pair-K K3"
+    if "w4a8" in name:
+        return "pair-K K4 (w4a8)"
+    if "flash_kernel" in name:
+        return "K7 flash attention"
     if "gemm" in name.lower() or "gemv" in name.lower() or "cutlass" in name.lower() or "sm90" in name:
         return "cuBLAS GEMM (attention bmm, lm_head)"
     if "softmax" in name.lower():
@@ -44,24 +52,21 @@ def group(name: str) -> str:
     return "other"
 
 
-def profile_decode(params, cfg, batch: int, cache_rows: int, fill: int) -> None:
-    dev = torch.device("cuda")
-    cache = T.KVCache.zeros(cfg, batch, cache_rows, device=dev)
-    cache.length.fill_(fill)
-    tok = torch.zeros(batch, dtype=torch.int32, device=dev)
+def profile_steps(label: str, step) -> None:
+    """Profile ``STEPS`` calls of ``step()`` after two warm-up calls."""
     with torch.no_grad():
         for _ in range(2):
-            tok, _ = T.decode_step(params, cfg, tok, cache)
+            step()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(STEPS):
-                tok, _ = T.decode_step(params, cfg, tok, cache)
+                step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) / STEPS * 1e3
     kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and e.device_time_total > 0]
     dev_ms = sum(e.device_time_total for e in kernels) / 1e3 / STEPS
-    print(f"batch {batch}, {cache_rows}-row cache filled to {fill}: host wall {wall_ms:.3f} ms/step, "
+    print(f"{label}: host wall {wall_ms:.3f} ms/step, "
           f"device kernels {dev_ms:.3f} ms/step (device idle {100 * (1 - dev_ms / wall_ms):.1f}%), "
           f"{sum(e.count for e in kernels) / STEPS:.0f} kernel launches/step")
     groups = defaultdict(float)
@@ -71,6 +76,31 @@ def profile_decode(params, cfg, batch: int, cache_rows: int, fill: int) -> None:
         print(f"    {g:40} {ms:8.3f} ms/step")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:12]:
         print(f"      {e.device_time_total / 1e3 / STEPS:8.3f} ms  x{e.count // STEPS:4}  {e.key[:90]}")
+
+
+def profile_decode(params, cfg, batch: int, cache_rows: int, fill: int) -> None:
+    cache = T.KVCache.zeros(cfg, batch, cache_rows, device=torch.device("cuda"))
+    cache.length.fill_(fill)
+    tok = [torch.zeros(batch, dtype=torch.int32, device=cache.length.device)]
+
+    def step():  # every step rewrites the same cache row
+        tok[0], _ = T.decode_step(params, cfg, tok[0], cache)
+
+    profile_steps(f"decode, batch {batch}, {cache_rows}-row cache filled to {fill}", step)
+
+
+def profile_chunk(params, cfg, chunk: int, max_len: int, fill: int) -> None:
+    """One ``chunk``-row prefill chunk at position ``fill`` of a batch-1 cache
+    with the engine's rings (write_chunk = chunk)."""
+    cache = T.KVCache.zeros(cfg, 1, max_len, write_chunk=chunk, device=torch.device("cuda"))
+    cache.length.fill_(fill)
+    tokens = torch.randint(0, cfg.vocab_size, (1, chunk), dtype=torch.int32, device=cache.length.device)
+    rows = sorted({a.shape[1] for a in cache.k})
+
+    def step():  # every call rewrites the same ring rows
+        T.forward(params, cfg, tokens, cache, last_index=chunk - 1)
+
+    profile_steps(f"prefill chunk of {chunk} rows at position {fill}, {rows}-row rings", step)
 
 
 def main() -> int:
@@ -84,6 +114,7 @@ def main() -> int:
     params = synth_params(cfg, seed=0, fuse=True)
     profile_decode(params, cfg, batch=1, cache_rows=97, fill=21)
     profile_decode(params, cfg, batch=8, cache_rows=1024, fill=500)
+    profile_chunk(params, cfg, chunk=256, max_len=8192, fill=5632)
     return 0
 
 

@@ -10,13 +10,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      kernel vs the plain version, bit-exact; timed on a gate|up-sized matrix;
   3. K2/K3/K4 vs their plain versions at the Mistral-7B fused shapes
      (qkv 4096->6144, o 4096->4096, gate_up 4096->28672, down 14336->4096)
-     and every kernel instance the main path runs: M in {1, 8} (decode) and
-     {32, 128} (prefill buckets) for K2, 224 for K3, 320 and 704 for K4;
-     kernel time, bound, plain time and a dense bf16 torch.matmul of the same
-     shape as the yardstick;
+     and every kernel instance phases 5 and 6 run: M in {1, 4, 8} (decode at
+     batch 1, 4 and 8) and {32, 64, 128} (prefill buckets and final chunks)
+     for K2, 160 and 224 for K3, 256 (every prefill chunk), 320, 704 and 6016
+     (a whole 6000-token prompt) for K4; kernel time, bound, plain time and a
+     dense bf16 torch.matmul of the same shape as the yardstick;
+  3b. K7 (flash attention) vs its plain version with the kernel's blocks,
+     |do| <= 2^-7 * max|o| of each (query, head) row, in five cases: (a) a 256-query Mistral chunk over
+     a 4352-row ring of 6000 positions, (b) a causal 6016-token Mistral
+     prompt, (c) Gemma-2 (D 256, softcap, scale 1/16), (d) TinyLlama at batch
+     2 with mixed valid lengths, (e) blocks whose rows see no key (zeros);
+     kernel time, bound, plain time, the port's dense path and one
+     scaled_dot_product_attention call (the yardstick); then a dense-vs-K7
+     grid of Lq x Lk at the Mistral heads;
   4. a 2-layer model at full Mistral-7B width from seeded weights, on the
-     card (kernels) and on the CPU (plain versions): 300-token prompt and 4
-     decode steps, logits within the stated tolerance;
+     card (kernels) and on the CPU (plain versions): 300- and 1024-token
+     prompts (the 1024 one takes the flash route: K7 on the card, its plain
+     version on the CPU) and 4 decode steps each, logits within the stated
+     tolerance;
   5. the main path: the full 32-layer Mistral-7B geometry (synth_params,
      fused) served by the Engine (max_batch 8, max_len 1024, inner_steps 8)
      with 6 requests (prompts 20..700 tokens, 32 new tokens each) plus a
@@ -24,7 +35,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      engine's logits for the 20-token request are held against generate's at
      every step up to the first token where the two differ (if any), which
      must be a near-tie.  Then batch-1 decode tok/s of the FP4 model beside
-     its dense bf16 twin.
+     its dense bf16 twin;
+  6. the long-prompt path: the 32-layer Mistral-7B geometry served by the
+     Engine with chunked prefill (max_batch 4, max_len 8192, chunk 256) on
+     4352-row sliding-window rings: prompts of 100, 300, 4500 and 6000
+     tokens, 32 new tokens each; the short requests must gain tokens on the
+     ticks that run a long prompt's chunk, and K7 and K4 must both launch.
+     The 6000-token request is served again with full 8192-row caches and as
+     one whole-prompt prefill (Lq = Lk = 6016: K7, and K4 at M = 6016); each
+     run's logits are held against the ring run's as in phase 5.
 Prints the kernel table as one JSON line, then the final status line.
 Kernel times are CUDA-graph replays timed with CUDA events (the card's own
 time, without the Python wrappers' launch cost, which is printed beside them
@@ -44,6 +63,28 @@ SHAPES = (("qkv", 4096, 6144), ("o", 4096, 4096), ("gate_up", 4096, 28672), ("do
 L2_BYTES = 50 * 2**20
 PROMPTS = (20, 100, 200, 300, 500, 700)
 NEW_TOKENS = 32
+LONG_PROMPTS = (100, 300, 4500, 6000)  # phase 6
+# phase 3: (kernel, M, the run whose launch count its kernels-JSON row reports):
+# phase 5's engine and generate ("main": decode at batch 8 and 1, prefill
+# buckets), phase 6's ring run ("ring": decode at batch 4, the 256-row chunks,
+# the final 64- and 160-row chunks of the 300- and 4500-token prompts; 128 rows
+# end the 100- and 6000-token ones) and its whole-prompt run ("whole")
+PK_INSTANCES = (("K2", 1, "main"), ("K2", 8, "main"), ("K2", 32, "main"), ("K2", 128, "main"), ("K3", 224, "main"),
+                ("K4", 320, "main"), ("K4", 704, "main"), ("K2", 4, "ring"), ("K2", 64, "ring"), ("K3", 160, "ring"),
+                ("K4", 256, "ring"), ("K4", 6016, "whole"))
+# phase 3b: (case, what, B, Lq, Lk, Hq, Hk, D, lens, q_offset, window, softcap, scale)
+FLASH_CASES = (
+    ("a", "Mistral chunk: 256 queries, 4352-row ring of 6000 positions, window 4096",
+     1, 256, 4352, 32, 8, 128, 6000, None, 4096, None, None),
+    ("b", "Mistral whole prompt: causal 6016 x 6016, 6000 valid, window 4096",
+     1, 6016, 6016, 32, 8, 128, 6000, 0, 4096, None, None),
+    ("c", "Gemma-2: 512 x 2048, 16/8 heads, D 256, softcap 50, scale 1/16, window 4096",
+     1, 512, 2048, 16, 8, 256, 2048, None, 4096, 50.0, 1.0 / 16),
+    ("d", "TinyLlama: batch 2, 512 x 2048, 32/4 heads, D 64, valid 2048 and 1300",
+     2, 512, 2048, 32, 4, 64, [2048, 1300], None, None, None, None),
+    ("e", "masked rows: 512 x 2048 Mistral heads, the first 64 queries before every key",
+     1, 512, 2048, 32, 8, 128, 2048, -64, None, None, None),
+)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -51,30 +92,100 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def engine_vs_generate(T, Engine, params, cfg, ecfg, reqs, eng_tokens, gen_tokens, dev):
-    """Hold the engine's logits for request 0 (served in slot 0 beside the
-    other requests) against batch-1 ``generate``'s at every step up to the
-    first token where they differ; that token must be a near-tie: each run's
-    winner leads the other's by at most 2^-7 * max|logit| (bf16 resolution).
-    The engine is rerun with ``T.forward`` wrapped to keep slot 0's logits
-    (its prefill is the first call, then row 0 of each batched decode step);
-    generate's steps are replayed fed its own tokens."""
-    import torch
+def attention_err(got, want):
+    """(max|do|, worst |do| / max|o| of its (query, head) row): K7's error
+    measured against each output row's own scale, so that rows which see
+    thousands of keys (small |o|) are held as tightly as rows which see few;
+    a row that sees no key must be exactly 0 on both sides."""
+    d = (got.float() - want.float()).abs()
+    row = want.float().abs().amax(-1, keepdim=True)
+    return d.max().item(), (d / row.clamp_min(2.0**-126)).max().item()
 
-    rec, forward = [], T.forward
 
-    def recording(p, c, tokens, cache, **kw):
-        lg, cache = forward(p, c, tokens, cache, **kw)
-        if not rec or tokens.shape[0] == ecfg.max_batch:
-            rec.append(lg[0, -1].float().cpu())
+def hold_runs(tag, names, ref_lg, ref_tokens, lg, tokens):
+    """Hold run ``lg``'s logits (one (vocab,) row per emitted token) against
+    ``ref_lg`` at every step up to the first token where the two runs differ
+    (their contexts agree until then): max|d| <= 6e-2 * max|logit| and rel L2
+    <= 3e-2.  The first differing token must be a near-tie: each run's
+    winner leads the other's by at most 2^-7 * max|logit| (bf16 resolution)."""
+    n = min(len(ref_tokens), len(tokens))
+    j = next((t for t, (a, b) in enumerate(zip(ref_tokens[:n], tokens[:n])) if a != b), None)
+    last = n - 1 if j is None else j
+    worst_d = worst_rel = 0.0
+    for t in range(last + 1):
+        e, g = lg[t], ref_lg[t]
+        d, rel = (e - g).abs().max().item(), ((e - g).norm() / g.norm()).item()
+        check(d <= 6e-2 * g.abs().max().item() and rel <= 3e-2, f"{tag} logits at step {t}: max|d| {d}, rel L2 {rel}")
+        worst_d, worst_rel = max(worst_d, d), max(worst_rel, rel)
+    same = sum(a == b for a, b in zip(ref_tokens, tokens))
+    print(f"{tag} {names[1]} vs {names[0]}: {same}/{n} tokens equal; logits over steps 0..{last}: "
+          f"worst max|d| {worst_d:.4g}, worst rel L2 {worst_rel:.3g}")
+    if j is not None:
+        e, g, a, b = lg[j], ref_lg[j], ref_tokens[j], tokens[j]
+        tie = 2.0**-7 * g.abs().max().item()
+        m_ref, m_run = (g[a] - g[b]).item(), (e[b] - e[a]).item()
+        print(f"{tag} first differing token at step {j}: {names[0]} {a} leads {names[1]}'s {b} by {m_ref:.4g} in "
+              f"its logits, {names[1]}'s by {m_run:.4g} in its own; max|d| there {(e - g).abs().max().item():.4g}, "
+              f"near-tie limit 2^-7*max|logit| = {tie:.4g}")
+        check(m_ref <= tie and m_run <= tie, f"{tag} step {j}: not a near-tie ({m_ref}, {m_run} > {tie})")
+
+
+class Recorder:
+    """Wraps ``T.forward`` while ``eng`` serves: keeps, on the device, the
+    last-position logits of every batch-1 call (prefill chunks or a whole
+    prompt) with the uid of the chunked prefill in flight (None for a
+    whole-prompt prefill) and CUDA events around the call, and the logits
+    of request ``uid``'s row in every batched decode call."""
+
+    def __init__(self, T, eng, uid):
+        self.T, self.eng, self.uid, self.forward = T, eng, uid, T.forward
+        self.prefill, self.decode = [], []  # (uid, rows, logits, start, end); logits
+
+    def __enter__(self):
+        self.T.forward = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self.T.forward = self.forward
+
+    def _call(self, p, c, tokens, cache, **kw):
+        import torch
+
+        if tokens.shape[0] == 1:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            lg, cache = self.forward(p, c, tokens, cache, **kw)
+            ev[1].record()
+            uid = self.eng._pf["req"].uid if self.eng._pf is not None else None
+            self.prefill.append((uid, tokens.shape[1], lg[0, -1].float().clone(), *ev))
+            return lg, cache
+        lg, cache = self.forward(p, c, tokens, cache, **kw)
+        slot = next((i for i, r in enumerate(self.eng.slot_req) if r is not None and r.uid == self.uid), None)
+        if slot is not None:
+            self.decode.append(lg[slot, -1].float().clone())
         return lg, cache
 
-    T.forward = recording
-    try:
-        rerun = Engine(params, cfg, ecfg).run(reqs)[0].tokens
-    finally:
-        T.forward = forward
-    eng_lg = rec[:NEW_TOKENS]
+    def logits(self, n):
+        """Request ``uid``'s logits for its first ``n`` tokens, on the CPU: its
+        last prefill chunk, or else the first whole-prompt prefill (requests
+        are admitted in order, so the one held here is submitted first), then
+        its decode rows."""
+        chunks = [r[2] for r in self.prefill if r[0] == self.uid]
+        first = chunks[-1] if chunks else next(r[2] for r in self.prefill if r[0] is None)
+        return [first.cpu()] + [x.cpu() for x in self.decode[: n - 1]]
+
+
+def engine_vs_generate(T, Engine, params, cfg, ecfg, reqs, eng_tokens, gen_tokens, dev):
+    """Hold the engine's logits for request 0 (served in slot 0 beside the
+    other requests) against batch-1 ``generate``'s with :func:`hold_runs`.
+    The engine is rerun under a :class:`Recorder`; generate's steps are
+    replayed fed its own tokens."""
+    import torch
+
+    eng = Engine(params, cfg, ecfg)
+    with Recorder(T, eng, reqs[0].uid) as rec:
+        rerun = eng.run(reqs)[reqs[0].uid].tokens
+    eng_lg = rec.logits(NEW_TOKENS)
     check(rerun == eng_tokens, "engine rerun gave other tokens for the 20-token prompt")
     check([int(v.argmax()) for v in eng_lg] == eng_tokens, "recorded engine logits do not give its tokens")
 
@@ -87,27 +198,7 @@ def engine_vs_generate(T, Engine, params, cfg, ecfg, reqs, eng_tokens, gen_token
             gen_lg.append(lg[0, -1].float().cpu())
             toks = torch.tensor([[t]], dtype=torch.int32, device=dev)
     check([int(v.argmax()) for v in gen_lg] == gen_tokens, "replayed generate logits do not give its tokens")
-
-    j = next((t for t, (a, b) in enumerate(zip(eng_tokens, gen_tokens)) if a != b), None)
-    last = NEW_TOKENS - 1 if j is None else j
-    worst_d = worst_rel = 0.0
-    for t in range(last + 1):  # the two runs share their context up to here
-        e, g = eng_lg[t], gen_lg[t]
-        d, rel = (e - g).abs().max().item(), ((e - g).norm() / g.norm()).item()
-        check(d <= 6e-2 * g.abs().max().item() and rel <= 3e-2,
-              f"engine vs generate logits at step {t}: max|d| {d}, rel L2 {rel}")
-        worst_d, worst_rel = max(worst_d, d), max(worst_rel, rel)
-    same = sum(a == b for a, b in zip(eng_tokens, gen_tokens))
-    print(f"[5] engine vs batch-1 generate, 20-token prompt: {same}/{NEW_TOKENS} tokens equal; logits over "
-          f"steps 0..{last}: worst max|d| {worst_d:.4g}, worst rel L2 {worst_rel:.3g}")
-    if j is not None:
-        e, g, a, b = eng_lg[j], gen_lg[j], gen_tokens[j], eng_tokens[j]
-        tie = 2.0**-7 * g.abs().max().item()
-        m_gen, m_eng = (g[a] - g[b]).item(), (e[b] - e[a]).item()
-        print(f"[5] first differing token at step {j}: generate {a} leads engine's {b} by {m_gen:.4g} in its "
-              f"logits, the engine's by {m_eng:.4g} in its own; max|d| there {(e - g).abs().max().item():.4g}, "
-              f"near-tie limit 2^-7*max|logit| = {tie:.4g}")
-        check(m_gen <= tie and m_eng <= tie, f"step {j}: not a near-tie ({m_gen}, {m_eng} > {tie})")
+    hold_runs("[5]", ("batch-1 generate", "engine (20-token prompt)"), gen_lg, gen_tokens, eng_lg, eng_tokens)
 
 
 def main() -> int:
@@ -213,8 +304,8 @@ def main() -> int:
     print("[3] kernel  shape     M    us      GB/s    bound_us  by          eager_us   plain_us   bf16_matmul_us"
           "  max_abs_err   (us: CUDA-graph replay; eager_us: back-to-back Python calls)")
     rows = {}
-    for kname, m in (("K2", 1), ("K2", 8), ("K2", 32), ("K2", 128), ("K3", 224), ("K4", 320), ("K4", 704)):
-        tot = dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0, bf16_ms=0.0, err=0.0)
+    for kname, m, run in PK_INSTANCES:
+        tot = dict(run=run, ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0, bf16_ms=0.0, err=0.0)
         for sname, k, n in SHAPES:
             w_bytes = k * n // 2 + (k // 64) * n * 4
             copies = max(1, math.ceil(2.5 * L2_BYTES / w_bytes))
@@ -254,34 +345,102 @@ def main() -> int:
         rows[(kname, m)] = tot
     torch.cuda.empty_cache()
 
-    # -- phase 4: 2-layer full-width model, card vs CPU -------------------------------
+    # -- phase 3b: K7 flash attention ----------------------------------------------------
+    import torch.nn.functional as F
+
     from torch_bnb_fp4_tpu_torch.models import transformer as T
-    from torch_bnb_fp4_tpu_torch.utils.synth import synth_params
+    from torch_bnb_fp4_tpu_torch.ops import attention as A
+    from torch_bnb_fp4_tpu_torch.utils.synth import synth_attention, synth_params
+
+    def sdpa(q, k, v, mask, scale):  # the yardstick: one PyTorch call, never used by the port
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                              attn_mask=mask[:, 0], scale=scale, enable_gqa=True)
+
+    print("[3b] case  us        bound_us  by          plain_ms   dense_us   sdpa_us    max_abs_err  (of max|o|; "
+          "worst |do| / max|o| of its row)")
+    flash_rows = {}
+    for case, what, b, lq, lk, hq, hk, d, lens, q_off, window, cap, scale in FLASH_CASES:
+        ops = synth_attention(b, lq, lk, hq, hk, d, lens=lens, q_offset=q_off, seed=lq + lk + d, device=dev)
+        q, k, v, qpos, valid, kpos = ops
+        got = A.flash_attention(*ops, window, scale, cap)
+        plain = lambda: A.flash_attention_plain(*ops, window, scale, cap,  # noqa: E731
+                                                block_q=A.kernel_blocks(hq, hk)[0], block_k=A.BLOCK_K)
+        want = plain()
+        torch.cuda.synchronize()
+        (err, row_err), ref_max = attention_err(got, want), want.float().abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"K7 case {case}: non-finite output")
+        check(row_err <= 2.0**-7, f"K7 case {case}: |do| / max|o| of its row reaches {row_err} > 2^-7")
+        if case == "e":
+            check(not got[:, :64].any() and got[:, 64:].abs().max().item() > 0,
+                  "K7 case e: rows that see no key must be exactly 0, the others not")
+        ms = device_ms(lambda: A.flash_attention(*ops, window, scale, cap), rep=10)
+        plain_ms = timed(plain, rep=2)
+        mask = T.attention_mask(qpos, kpos, valid, window)
+        dense_ms = timed(lambda: T._attention_chunked(q, k, v, ~mask, scale, cap), rep=3)
+        sdpa_ms = timed(lambda: sdpa(q, k, v, mask, scale), rep=3)
+        pairs = P.visible_pairs(qpos, valid, kpos, window)
+        bnd, by = P.attention_bound_s(q, k, pairs)
+        flash_rows[case] = dict(what=what, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, library_ms=sdpa_ms,
+                                bound_ms=bnd * 1e3, bound_by=by, max_abs_err=err, row_err=row_err,
+                                pairs=pairs)
+        print(f"     ({case})  {ms * 1e3:8.1f} {bnd * 1e6:9.1f}  {by:10} {plain_ms:9.1f} {dense_ms * 1e3:10.1f} "
+              f"{sdpa_ms * 1e3:10.1f}   {err:.3g} ({ref_max:.3g}; {row_err:.3g})   {what}; {pairs} visible pairs, "
+              f"{4 * d * hq * pairs / (ms * 1e-3) / 1e12:.0f} TFLOP/s")
+        del ops, q, k, v, got, want, mask
+    torch.cuda.empty_cache()
+    print("[3b] dense-vs-K7 grid at the Mistral heads (32/8, D 128, window 4096; us: dense / K7, dense/K7)")
+    grid = {}
+    for lq in (128, 256, 512):
+        cells = []
+        for lk in (1024, 2048, 4352, 8192):
+            q, k, v, qpos, valid, kpos = synth_attention(1, lq, lk, 32, 8, 128, lens=lk, seed=lq + lk, device=dev)
+            blocked = ~T.attention_mask(qpos, kpos, valid, 4096)
+            k7 = device_ms(lambda: A.flash_attention(q, k, v, qpos, valid, kpos, 4096), rep=20)
+            dn = timed(lambda: T._attention_chunked(q, k, v, blocked), rep=5)
+            grid[(lq, lk)] = (dn, k7)
+            cells.append(f"Lk {lk}: {dn * 1e3:7.1f} / {k7 * 1e3:7.1f} ({dn / k7:.2f}x)")
+        print(f"     Lq {lq:4}  " + "   ".join(cells))
+    del q, k, v, blocked
+    torch.cuda.empty_cache()
+
+    # -- phase 4: 2-layer full-width model, card vs CPU -------------------------------
 
     cfg2 = T.ModelConfig.mistral_7b()
     cfg2 = T.ModelConfig(**{**cfg2.__dict__, "n_layers": 2})
     p_gpu = synth_params(cfg2, seed=1, fuse=True, device=dev)
     p_cpu = T.params_to(p_gpu, "cpu")
     g_cpu = torch.Generator().manual_seed(2)
-    prompt = torch.randint(0, cfg2.vocab_size, (1, 300), generator=g_cpu, dtype=torch.int32)
-    c_gpu = T.KVCache.zeros(cfg2, 1, 304, device=dev)
-    c_cpu = T.KVCache.zeros(cfg2, 1, 304, device="cpu")
-    toks = prompt
-    for step in range(5):  # prefill, then 4 decode steps fed the CPU run's greedy token
-        with torch.no_grad():
-            lg_gpu, c_gpu = T.forward(p_gpu, cfg2, toks.to(dev), c_gpu, last_only=True)
-            lg_cpu, c_cpu = T.forward(p_cpu, cfg2, toks, c_cpu, last_only=True)
-        lg_gpu = lg_gpu.cpu()
-        d = (lg_gpu - lg_cpu).abs().max().item()
-        rel = ((lg_gpu - lg_cpu).norm() / lg_cpu.norm()).item()
-        # prefill takes the w4a8 path: a bf16 flip of one activation can move
-        # its K-tile's int8 scale (one step ~ 1/127 of the tile)
-        check(bool(torch.isfinite(lg_gpu).all()), "2-layer model: non-finite logits")
-        check(d <= 6e-2 * lg_cpu.abs().max().item() and rel <= 3e-2,
-              f"2-layer model step {step}: max|d| {d}, rel L2 {rel}")
-        print(f"[4] 2-layer full-width model step {step}: max|dlogit| {d:.4g} of max {lg_cpu.abs().max().item():.4g}, "
-              f"rel L2 {rel:.3g}, argmax gpu {int(lg_gpu.argmax())} cpu {int(lg_cpu.argmax())}")
-        toks = lg_cpu[:, -1].argmax(-1).to(torch.int32)[:, None]
+    for lp in (300, 1024):  # 1024^2 cells take the flash route: K7 on the card, its plain version on the CPU
+        # the 1024-token prompt has its own generator: phase 5 draws the same prompts from g_cpu as before
+        g = g_cpu if lp == 300 else torch.Generator().manual_seed(4)
+        prompt = torch.randint(0, cfg2.vocab_size, (1, lp), generator=g, dtype=torch.int32)
+        c_gpu = T.KVCache.zeros(cfg2, 1, lp + 4, device=dev)
+        c_cpu = T.KVCache.zeros(cfg2, 1, lp + 4, device="cpu")
+        toks = prompt
+        t_cpu = 0.0
+        for step in range(5):  # prefill, then 4 decode steps fed the CPU run's greedy token
+            K.reset_launch_counts()
+            with torch.no_grad():
+                lg_gpu, c_gpu = T.forward(p_gpu, cfg2, toks.to(dev), c_gpu, last_only=True)
+                t = time.perf_counter()
+                lg_cpu, c_cpu = T.forward(p_cpu, cfg2, toks, c_cpu, last_only=True)
+                t_cpu += time.perf_counter() - t
+            lg_gpu = lg_gpu.cpu()
+            flash = K.launch_counts()["flash_attention"]
+            check(flash == (cfg2.n_layers if step == 0 and T._use_flash(lp, lp + 4) else 0),
+                  f"2-layer model, {lp}-token prompt step {step}: {flash} K7 launches")
+            d = (lg_gpu - lg_cpu).abs().max().item()
+            rel = ((lg_gpu - lg_cpu).norm() / lg_cpu.norm()).item()
+            # prefill takes the w4a8 path: a bf16 flip of one activation can move
+            # its K-tile's int8 scale (one step ~ 1/127 of the tile)
+            check(bool(torch.isfinite(lg_gpu).all()), "2-layer model: non-finite logits")
+            check(d <= 6e-2 * lg_cpu.abs().max().item() and rel <= 3e-2,
+                  f"2-layer model, {lp}-token prompt step {step}: max|d| {d}, rel L2 {rel}")
+            print(f"[4] 2-layer full-width model, {lp}-token prompt, step {step}: max|dlogit| {d:.4g} of max "
+                  f"{lg_cpu.abs().max().item():.4g}, rel L2 {rel:.3g}, argmax gpu {int(lg_gpu.argmax())} "
+                  f"cpu {int(lg_cpu.argmax())}, K7 launches {flash}")
+            toks = lg_cpu[:, -1].argmax(-1).to(torch.int32)[:, None]
+        print(f"[4] {lp}-token prompt: CPU side {t_cpu:.1f} s")
     del p_gpu, p_cpu, c_gpu, c_cpu
     torch.cuda.empty_cache()
 
@@ -360,6 +519,95 @@ def main() -> int:
           f"{bf16_dev_ms:.3f} ms, ratio {bf16_dev_ms / fp4_dev_ms:.2f}; device busy "
           f"{fp4_dev_ms * fp4_tps / 10:.1f}% (FP4) and {bf16_dev_ms * bf16_tps / 10:.1f}% (bf16) of the eager step")
 
+    # -- phase 6: long prompts: chunked prefill on sliding-window rings -----------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = synth_params(cfg, seed=3, fuse=True, device=dev)
+    torch.cuda.synchronize()
+    print(f"[6] Mistral-7B geometry FP4 params built in {time.perf_counter() - t0:.1f} s")
+    long_prompts = [torch.randint(0, cfg.vocab_size, (lp,), generator=g_cpu).tolist() for lp in LONG_PROMPTS]
+    long_reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(long_prompts)]
+    short_uids = {r.uid for r in long_reqs if len(r.prompt) < 4096}
+    big = len(long_reqs) - 1  # the 6000-token request
+    ecfg6 = EngineConfig(max_batch=4, max_len=8192, inner_steps=8, prefill_chunk=256)
+    eng = Engine(params, cfg, ecfg6)
+    cache_rows = sorted({a.shape[1] for a in eng.cache.k + eng.cache.v})
+    check(cache_rows == [4352], f"ring engine: cache rows {cache_rows}, want 4352 on every layer")
+    for r in long_reqs:
+        eng.submit(r)
+    interleaved = 0
+    K.reset_launch_counts()
+    with Recorder(T, eng, big) as rec:
+        t0 = time.perf_counter()
+        while eng.pending or eng._pf is not None or any(r is not None for r in eng.slot_req):
+            before = {r.uid: len(eng.slot_tokens[i]) for i, r in enumerate(eng.slot_req)
+                      if r is not None and r.uid in short_uids and len(eng.slot_tokens[i]) < r.max_new_tokens}
+            eng.step()
+            if eng._pf is not None and eng._pf["req"].uid not in short_uids and before:
+                # this tick ran a chunk of a long prompt: every short request still decoding grew
+                after = {r.uid: len(eng.slot_tokens[i]) for i, r in enumerate(eng.slot_req) if r is not None}
+                for uid, n in before.items():
+                    check(after.get(uid, n) > n, f"request {uid} did not decode on a long-prefill tick")
+                interleaved += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches6 = K.launch_counts()
+    st6 = eng.stats()
+    res6 = {c.uid: c for c in eng.completions}
+    check(set(res6) == {r.uid for r in long_reqs}, "phase 6: the engine did not complete every request")
+    for r in long_reqs:
+        c = res6[r.uid]
+        check(len(c.tokens) == NEW_TOKENS and c.finish_reason == "length", f"phase 6 request {r.uid}: {c}")
+    check(interleaved > 0, "phase 6: no tick ran a long prompt's chunk while a short request decoded")
+    for name in ("flash_attention", "matmul_pk", "matmul_pk_minner", "matmul_pk_w4a8"):
+        check(launches6[name] > 0, f"phase 6 never launched {name}")
+    big_chunks = [(n, e0.elapsed_time(e1)) for uid, n, _, e0, e1 in rec.prefill if uid == big]
+    full_chunks = [ms for n, ms in big_chunks if n == ecfg6.prefill_chunk]
+    ring_lg = rec.logits(NEW_TOKENS)
+    ring_tokens = res6[big].tokens
+    print(f"[6] ring engine served prompts {LONG_PROMPTS} ({NEW_TOKENS} new tokens each) in {wall:.2f} s: "
+          f"{st6['tok_per_s']:.1f} tok/s, mean TTFT {st6['mean_ttft_s'] * 1e3:.1f} ms "
+          f"(TTFT per request ms: {[round(res6[r.uid].ttft_s * 1e3, 1) for r in long_reqs]}), decode "
+          f"{st6['step_p50_s'] * 1e3:.2f} ms/step p50, {st6['decode_steps']} decode steps; {interleaved} ticks ran "
+          f"a long prompt's chunk while a short request decoded")
+    print(f"[6] 6000-token prompt: {len(big_chunks)} chunks, 256-row chunk {sum(full_chunks) / len(full_chunks):.1f} ms "
+          f"mean (min {min(full_chunks):.1f}, max {max(full_chunks):.1f}; CUDA events around each chunk forward), "
+          f"final {big_chunks[-1][0]}-row chunk {big_chunks[-1][1]:.1f} ms")
+    print(f"[6] launches on the long-prompt path: {json.dumps(launches6)}")
+    del eng, rec
+    torch.cuda.empty_cache()
+
+    def serve_alone(ecfg_x, label):
+        """Serve the 6000-token request alone; returns (tokens, logits, stats, launches)."""
+        e = Engine(params, cfg, ecfg_x)
+        K.reset_launch_counts()
+        with Recorder(T, e, big) as r:
+            t = time.perf_counter()
+            out = e.run([Request(uid=big, prompt=long_prompts[big], max_new_tokens=NEW_TOKENS)])[big]
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t
+        stx, lx = e.stats(), K.launch_counts()
+        check(len(out.tokens) == NEW_TOKENS, f"{label}: {out}")
+        print(f"[6] {label}: cache rows {sorted({a.shape[1] for a in e.cache.k})}, kv_cache_bytes "
+              f"{stx['kv_cache_bytes']}, served in {t:.2f} s, TTFT {out.ttft_s * 1e3:.1f} ms, K7 launches "
+              f"{lx['flash_attention']}, K4 launches {lx['matmul_pk_w4a8']}")
+        return out.tokens, r.logits(NEW_TOKENS), stx, lx
+
+    full_tokens, full_lg, st_full, _ = serve_alone(
+        EngineConfig(max_batch=4, max_len=8192, inner_steps=8, prefill_chunk=256, sliding_kv=False),
+        "chunked, full 8192-row caches")
+    torch.cuda.empty_cache()
+    whole_tokens, whole_lg, _, l_whole = serve_alone(EngineConfig(max_batch=4, max_len=8192, inner_steps=8),
+                                                     "whole-prompt prefill (Lq = Lk = 6016)")
+    check(l_whole["flash_attention"] >= cfg.n_layers and l_whole["matmul_pk_w4a8"] > 0,
+          "whole-prompt prefill did not run K7 and K4")
+    print(f"[6] kv_cache_bytes: rings {st6['kv_cache_bytes']} vs full {st_full['kv_cache_bytes']} "
+          f"({st6['kv_cache_bytes'] / st_full['kv_cache_bytes']:.3f})")
+    hold_runs("[6]", ("ring run", "full-cache run"), ring_lg, ring_tokens, full_lg, full_tokens)
+    hold_runs("[6]", ("ring run", "whole-prompt run"), ring_lg, ring_tokens, whole_lg, whole_tokens)
+    del params
+    torch.cuda.empty_cache()
+
     # -- kernel table ------------------------------------------------------------------
     k_launch = launches["matmul_pk"] + launches["matmul_pk_minner"] + launches["matmul_pk_w4a8"]
     kernels_json.append(dict(
@@ -369,14 +617,28 @@ def main() -> int:
         ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound * 1e3, bound_by=k1_by, library_ms=None))
     meta = {"K2": ("matmul_pk", "matmul_pk.cu", 655), "K3": ("matmul_pk_minner", "matmul_pk_minner.cu", 702),
             "K4": ("matmul_pk_w4a8", "matmul_pk_w4a8.cu", 750)}
+    run_launches = {"main": (launches, "phase 5"), "ring": (launches6, "phase 6 ring run"),
+                    "whole": (l_whole, "phase 6 whole-prompt run")}
     for (kname, m), tot in rows.items():
         wrapper, src, line = meta[kname]
+        counts, run_name = run_launches[tot["run"]]
         bnd, by = P.bound_s(tot["bytes"], tot["ops"], P.H100_INT8_OPS if kname == "K4" else P.H100_BF16_FLOPS)
         kernels_json.append(dict(
-            name=f"{kname} {wrapper} (M={m}, the 4 fused matmuls of one Mistral-7B layer)", route="cuda",
-            source=f"torch_bnb_fp4_tpu_torch/csrc/{src}", replaces=f"torch_bnb_fp4_tpu/ops/kernels.py:{line}",
-            launches=launches[wrapper], max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
-            bound_ms=bnd * 1e3, bound_by=by, library_ms=None, bf16_matmul_ms=tot["bf16_ms"]))
+            name=f"{kname} {wrapper} (M={m}, the 4 fused matmuls of one Mistral-7B layer; launches of {run_name})",
+            route="cuda", source=f"torch_bnb_fp4_tpu_torch/csrc/{src}",
+            replaces=f"torch_bnb_fp4_tpu/ops/kernels.py:{line}", launches=counts[wrapper], max_abs_err=tot["err"],
+            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bnd * 1e3, bound_by=by, library_ms=None,
+            bf16_matmul_ms=tot["bf16_ms"]))
+    # the shapes the long-prompt path gives K7: ring chunks and a whole prompt
+    for case, run in (("a", "ring"), ("b", "whole")):
+        fr = flash_rows[case]
+        counts, run_name = run_launches[run]
+        kernels_json.append(dict(
+            name=f"K7 flash_attention ({fr['what']}; launches of {run_name})", route="cuda",
+            source="torch_bnb_fp4_tpu_torch/csrc/flash_attention.cu", replaces="torch_bnb_fp4_tpu/ops/attention.py:40",
+            launches=counts["flash_attention"], max_abs_err=fr["max_abs_err"], row_err=fr["row_err"], ms=fr["ms"],
+            plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"], bound_by=fr["bound_by"], library_ms=fr["library_ms"],
+            dense_path_ms=fr["dense_ms"]))
     print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

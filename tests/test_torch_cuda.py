@@ -11,7 +11,10 @@ these tests need no JAX.)
 
 Tolerances as in tests/test_torch_kernels.py: K1 bit-exact; bf16 outputs
 |dy| <= 2^-7 * max|y_plain|; f32 |dy| <= 1e-5 * max|y_plain|; K4 at most one
-bf16 ulp per element (its int8 dots are exact on both sides).
+bf16 ulp per element (its int8 dots are exact on both sides).  K7 against its
+plain version with the kernel's key blocks: |do| <= 2^-7 * max|o_plain| of
+its (query, head) row (bf16 output rounding, and the bf16 rounding of p after
+exp and summation orders that differ).
 """
 
 import numpy as np
@@ -137,3 +140,53 @@ def test_model_cuda_matches_cpu_tiny(dev):
     # differ by the same 1-3% at this shape
     _close(lg_gpu.cpu(), lg_cpu, 6e-2)
     assert (lg_gpu.cpu() - lg_cpu).norm() <= 3e-2 * lg_cpu.norm()
+
+
+# K7 at small shapes of the chip_smoke.py phase-3b cases: (B, Lq, Lk, Hq, Hk,
+# D, lens, q_offset, window, softcap, scale)
+FLASH_CASES = {
+    "mistral_ring_chunk": (1, 64, 576, 32, 8, 128, 700, None, 512, None, None),
+    "mistral_causal_prompt": (1, 400, 400, 32, 8, 128, 390, 0, 256, None, None),
+    "gemma2_softcap": (1, 96, 256, 16, 8, 256, 256, None, 100, 50.0, 1.0 / 16),
+    "tinyllama_mixed_lengths": (2, 128, 320, 32, 4, 64, [320, 200], None, None, None, None),
+    "rows_see_no_key": (1, 80, 128, 8, 8, 128, 128, -40, None, None, None),
+    "qwen2_group_7": (1, 40, 200, 28, 4, 128, 200, None, None, None, None),
+}
+
+
+@pytest.mark.parametrize("name", list(FLASH_CASES))
+def test_k7_vs_plain(dev, name):
+    from torch_bnb_fp4_tpu_torch.ops import attention as A
+    from torch_bnb_fp4_tpu_torch.utils.synth import synth_attention
+
+    b, lq, lk, hq, hk, d, lens, q_off, window, cap, scale = FLASH_CASES[name]
+    ops = synth_attention(b, lq, lk, hq, hk, d, lens=lens, q_offset=q_off, seed=lq + lk, device=dev)
+    before = K.launch_counts()["flash_attention"]
+    got = A.flash_attention(*ops, window, scale, cap)
+    assert K.launch_counts()["flash_attention"] == before + 1
+    want = A.flash_attention_plain(*ops, window, scale, cap, block_q=A.kernel_blocks(hq, hk)[0],
+                                   block_k=A.BLOCK_K)
+    torch.cuda.synchronize()
+    # each (query, head) row against its own max|o|: rows that see many keys
+    # have small |o| and would hide a dropped key tile under a global scale;
+    # a row that sees no key is exactly 0 on both sides
+    d = (got.float() - want.float()).abs()
+    row = want.float().abs().amax(-1, keepdim=True)
+    assert bool((d <= 2.0**-7 * row).all()), (d / row.clamp_min(2.0**-126)).max().item()
+    if name == "rows_see_no_key":  # queries at positions < 0: their rows are exactly 0
+        assert not got[:, :40].any() and got[:, 40:].abs().max() > 0
+
+
+def test_k7_reads_strided_q(dev):
+    """q as the model passes it: a head-slice view of the fused q|k tensor."""
+    from torch_bnb_fp4_tpu_torch.ops import attention as A
+    from torch_bnb_fp4_tpu_torch.utils.synth import synth_attention
+
+    q, k, v, qpos, valid, kpos = synth_attention(1, 130, 300, 32, 8, 128, lens=300, device=dev)
+    qk = torch.cat([q, torch.zeros_like(q[:, :, :8])], dim=2)
+    qv = torch.split(qk, [32, 8], dim=2)[0]
+    assert not qv.is_contiguous()
+    torch.testing.assert_close(A.flash_attention(qv, k, v, qpos, valid, kpos, 256),
+                               A.flash_attention(q, k, v, qpos, valid, kpos, 256), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="tiles"):
+        A.flash_attention(q, k, v, qpos, valid, kpos, block_k=128)

@@ -4,7 +4,9 @@ Oracle, as in tests/test_serve.py: each request's engine output equals a
 standalone greedy ``generate`` of the same prompt on the same params, with
 more requests than slots (slot recycling) and mixed prompt lengths in flight
 together.  One request is also held against the JAX package's ``generate``
-on the same weights, carried across with convert/from_numpy.py.
+on the same weights, carried across with convert/from_numpy.py.  Chunked
+prefill interleaves with decoding and matches ``generate``; the ring engine
+matches the full-cache engine (as tests/test_sliding.py:193-209).
 """
 
 import jax.numpy as jnp
@@ -79,7 +81,7 @@ def test_capacity_limits_generation(params):
     assert res[1].tokens == _oracle(params, list(range(1, 13)), 4)
 
 
-@pytest.mark.parametrize("field,value", [("temperature", 0.7), ("prefill_chunk", 32), ("spec_tokens", 2),
+@pytest.mark.parametrize("field,value", [("temperature", 0.7), ("admit_budget", 2), ("spec_tokens", 2),
                                          ("prefix_cache", True), ("kv_dtype", "float8_e4m3fn"),
                                          ("batch_buckets", True), ("logprobs", True)])
 def test_unported_engine_features_raise(field, value):
@@ -95,3 +97,61 @@ def test_submit_validation(params):
         eng.submit(Request(uid=2, prompt=list(range(8))))
     with pytest.raises(NotImplementedError):
         eng.submit(Request(uid=3, prompt=[1], temperature=0.5))
+
+
+def test_chunked_prefill_matches_generate_and_interleaves(params):
+    """prefill_chunk=32: a 3-chunk prompt goes in one chunk per tick while an
+    already-decoding request gains a token on every one of those ticks, and
+    both completions equal generate (tests/test_serve.py:491-513)."""
+    eng = Engine(params, CFG, EngineConfig(max_batch=2, max_len=128, inner_steps=1, prefill_chunk=32))
+    eng.submit(Request(uid=1, prompt=[5, 6, 7], max_new_tokens=12))
+    for _ in range(3):
+        eng.step()
+    n_before = len(eng.slot_tokens[0])
+    long_prompt = list(range(1, 90))  # 89 tokens -> bucket 96 -> 3 chunks
+    eng.submit(Request(uid=2, prompt=long_prompt, max_new_tokens=4))
+    ticks = 0
+    while eng._pf is not None or eng.pending:
+        eng.step()
+        ticks += 1
+        assert len(eng.slot_tokens[0]) > n_before
+        n_before = len(eng.slot_tokens[0])
+        assert ticks < 20
+    assert ticks == 3
+    res = eng.run([])
+    assert res[1].tokens == _oracle(params, [5, 6, 7], 12)
+    assert res[2].tokens == _oracle(params, long_prompt, 4)
+
+
+CFG_E = T.ModelConfig.tiny_test(sliding_window=32, n_layers=1)
+ECFG_E = dict(max_batch=2, max_len=96, inner_steps=2, prefill_chunk=32)
+
+
+def test_engine_ring_matches_full():
+    params = T.quantize_params(CFG_E, T.random_weights(CFG_E, seed=11), fuse=True, device="cpu")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, CFG_E.vocab_size, n).tolist() for n in (40, 61)]
+
+    def serve(sliding_kv):
+        eng = Engine(params, CFG_E, EngineConfig(sliding_kv=sliding_kv, **ECFG_E))
+        assert [a.shape[1] for a in eng.cache.k] == ([64] if sliding_kv else [96])  # (ceil(32/32)+1)*32
+        out = eng.run([Request(uid=i, prompt=p, max_new_tokens=20) for i, p in enumerate(prompts)])
+        return [out[i].tokens for i in range(len(prompts))], eng.stats()["kv_cache_bytes"]
+
+    (ring, ring_bytes), (full, full_bytes) = serve(True), serve(False)
+    assert ring == full and ring_bytes * 3 == full_bytes * 2
+
+
+def test_rings_need_chunked_prefill():
+    """Whole-prompt writes are not ring-aligned: without prefill_chunk the
+    engine keeps full caches whatever sliding_kv says."""
+    params = T.quantize_params(CFG_E, T.random_weights(CFG_E, seed=11), fuse=True, device="cpu")
+    assert Engine(params, CFG_E, EngineConfig(**dict(ECFG_E, prefill_chunk=0))).cache.min_rows == 96
+    assert Engine(params, CFG_E, EngineConfig(**ECFG_E)).cache.min_rows == 64
+    assert Engine(params, CFG, EngineConfig(**ECFG_E)).cache.min_rows == 96  # no sliding window
+
+
+@pytest.mark.parametrize("chunk", [16, 33, 100, -32])
+def test_prefill_chunk_must_be_a_multiple_of_32(chunk):
+    with pytest.raises(ValueError, match="multiple of 32"):
+        EngineConfig(prefill_chunk=chunk)

@@ -154,7 +154,7 @@ def test_not_yet_ported_features_raise():
     with pytest.raises(NotImplementedError):
         T.random_weights(T.ModelConfig.tiny_test(n_experts=4))
     with pytest.raises(NotImplementedError):
-        T.KVCache.zeros(T.ModelConfig.tiny_test(), 1, 64, write_chunk=32, device="cpu")
+        T.quantize_params(T.ModelConfig.tiny_test(n_layers=1, n_experts=4), {}, device="cpu")
     cfg = T.ModelConfig.tiny_test(n_layers=1, quantize_embed=True)
     with pytest.raises(NotImplementedError):
         T.quantize_params(cfg, T.random_weights(cfg), device="cpu")

@@ -6,10 +6,14 @@ eagerly and writes the KV cache IN PLACE (the JAX version is functional and
 returns a fresh cache; here the returned ``KVCache`` shares the per-layer
 tensors with the one passed in and only ``length`` is new).
 
+Sliding-window layers may keep rolling rings of ``ring_rows`` rows
+(``KVCache.zeros(write_chunk > 0)``).  Attention takes the flash route (K7,
+``ops/attention.py``) at Lq * Lk >= ``_FLASH_MIN_CELLS`` with Lq >= 128, on
+either device: the card runs the CUDA kernel and the CPU its plain version.
+Shorter shapes take the dense, query-chunked path.
+
 Not yet ported (raise ``NotImplementedError``): mixture-of-experts layers,
-LoRA adapters, the quantized embedding table, tensor parallelism, rolling
-sliding-window rings (``write_chunk > 0``) and the flash-attention route:
-attention always takes the dense, query-chunked path.
+LoRA adapters, the quantized embedding table and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.attention import flash_attention
 from ..utils.device import resolve_device
 from .linear import DenseLinear, QuantLinear, dense_linear, fuse_linears, quantize_linear
 
@@ -178,11 +183,30 @@ def params_to(params: ModelParams, device) -> ModelParams:
                        lm_head=mv(params.lm_head))
 
 
+def ring_rows(cap: int, window: int | None, write_chunk: int) -> int:
+    """KV rows of one layer: ``cap`` for global attention, or a rolling ring of
+    ``ceil(window / c + 1) * c`` rows (c = ``write_chunk``) for a sliding-window
+    layer.  ``R % c == 0`` and ``R >= window + c`` keep every write of up to c
+    rows at a multiple of c (chunked prefill), or of one row anywhere
+    (decode), inside the ring without wrapping, and keep every key a chunk's
+    oldest query may see."""
+    if window is None or write_chunk <= 0:
+        return cap
+    c = write_chunk
+    return min(cap, (-(-window // c) + 1) * c)
+
+
 @dataclasses.dataclass
 class KVCache:
-    """bf16 KV cache, one (B, rows, n_kv, head_dim) pair per layer, with a
+    """bf16 KV cache, one (B, rows_i, n_kv, head_dim) pair per layer, with a
     per-sequence ``length`` (B,) int32 (continuous batching needs one write
-    offset per slot)."""
+    offset per slot).
+
+    ``rows_i`` is ``max_len``, or with ``write_chunk > 0`` a rolling ring of
+    ``ring_rows`` rows on sliding-window layers (Mistral-7B at max_len 8192 and
+    chunk 256: 4352 rows on all 32 layers).  Writes land at ``length % rows``;
+    :func:`kv_slot_positions` recovers each slot's position, so ring and
+    full-size caches share one code path."""
 
     k: list[torch.Tensor]
     v: list[torch.Tensor]
@@ -191,13 +215,37 @@ class KVCache:
     @classmethod
     def zeros(cls, cfg: ModelConfig, batch: int, max_len: int, dtype=torch.bfloat16, write_chunk: int = 0,
               device=None) -> "KVCache":
-        if write_chunk:
-            raise NotImplementedError("rolling sliding-window rings (write_chunk > 0) are not yet ported")
+        """``write_chunk > 0``: the caller promises every multi-row write is at
+        most ``write_chunk`` rows starting at a multiple of it."""
         device = resolve_device(device)
-        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        ks = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.n_layers)]
-        vs = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(cfg.n_layers)]
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            shape = (batch, ring_rows(max_len, cfg.layer_sliding_window(i), write_chunk), cfg.n_kv_heads,
+                     cfg.head_dim)
+            ks.append(torch.zeros(shape, dtype=dtype, device=device))
+            vs.append(torch.zeros(shape, dtype=dtype, device=device))
         return cls(k=ks, v=vs, length=torch.zeros((batch,), dtype=torch.int32, device=device))
+
+    @property
+    def max_len(self) -> int:
+        return max(a.shape[1] for a in self.k)
+
+    @property
+    def min_rows(self) -> int:
+        """Smallest per-layer row count: positions older than this many steps
+        back may be evicted (ring layers)."""
+        return min(a.shape[1] for a in self.k)
+
+
+def kv_slot_positions(new_len: torch.Tensor, rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(positions, valid), each (B, rows): slot s of an R-row cache holds the
+    latest position p < new_len with p = s (mod R); a slot whose residue has
+    no such position gets p < 0 (invalid).  For a cache that never wrapped
+    this is arange with valid = p < new_len."""
+    last = new_len[:, None] - 1
+    s = torch.arange(rows, dtype=torch.int32, device=new_len.device)[None, :]
+    p = last - torch.remainder(last - s, rows)
+    return p, p >= 0
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, offset: bool = False) -> torch.Tensor:
@@ -244,6 +292,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 _ATTN_QUERY_CHUNK = 512
+# Lq * Lk at which attention takes the flash route (the JAX package's value,
+# models/transformer.py:500); the H100's own crossover is measured by
+# chip_smoke.py phase 3b and written in PERF.md
+_FLASH_MIN_CELLS = 256 * 4096
+
+
+def _use_flash(lq: int, lk: int) -> bool:
+    """By shape alone, on either device (the JAX package also requires a TPU
+    backend, so on the CPU it stays dense where the port does not)."""
+    return lq * lk >= _FLASH_MIN_CELLS and lq >= 128
 
 
 def attention_mask(q_positions, kv_positions, kv_valid, sliding_window):
@@ -257,11 +315,22 @@ def attention_mask(q_positions, kv_positions, kv_valid, sliding_window):
     return mask
 
 
-def _attention(q, k, v, blocked, scale=None, logit_softcap=None):
-    """Causal GQA attention, dense, chunked over the query axis at 512 rows.
-    ``blocked`` is the negation of :func:`attention_mask`.  (The JAX package sends
-    Lq*Lk >= 256*4096 to its Pallas flash kernel on a TPU; that route is not
-    yet ported.)"""
+def _attention_route(q_positions, kv_positions, kv_valid, sliding_window):
+    """Causal GQA attention over one (cache rows, window), routed once by
+    shape: long shapes (:func:`_use_flash`) go to ``flash_attention`` (K7),
+    the others to the dense route over the mask built here.  Returns
+    ``attend(q, k, v, scale, logit_softcap)``."""
+    if _use_flash(q_positions.shape[1], kv_positions.shape[1]):
+        return lambda q, k, v, scale, cap: flash_attention(q, k, v, q_positions, kv_valid, kv_positions,
+                                                           sliding_window, scale, cap)
+    blocked = ~attention_mask(q_positions, kv_positions, kv_valid, sliding_window)
+    return lambda q, k, v, scale, cap: _attention_chunked(q, k, v, blocked, scale, cap)
+
+
+def _attention_chunked(q, k, v, blocked, scale=None, logit_softcap=None):
+    """The dense route, chunked over the query axis at 512 rows (exact: each
+    query row's softmax is independent), so the f32 logits stay (B, Hk, G,
+    512, Lk)."""
     lq = q.shape[1]
     if lq > _ATTN_QUERY_CHUNK:
         c = _ATTN_QUERY_CHUNK
@@ -291,14 +360,14 @@ def _attn_scale(cfg: ModelConfig) -> float | None:
 
 @dataclasses.dataclass
 class _StepContext:
-    """What every layer of one forward shares: RoPE tables, the KV write rows,
-    and the slot->position masks per (cache rows, sliding window)."""
+    """What every layer of one forward shares: RoPE tables, the KV write
+    rows, and the attention of each (cache rows, sliding window)."""
 
     cos: torch.Tensor
     sin: torch.Tensor
     write_b: torch.Tensor  # (B, L) batch index of each written row
     write_rows: dict  # cache rows -> (B, L) row index (start clamped as JAX's dynamic_update_slice)
-    blocked: dict  # (cache rows, window) -> (B, 1, 1, L, rows) bool, True = masked out
+    attend: dict  # (cache rows, window) -> attend(q, k, v, scale, logit_softcap), from _attention_route
 
 
 def _write_kv(cache: torch.Tensor, new: torch.Tensor, ctx: _StepContext) -> None:
@@ -330,8 +399,8 @@ def _layer_forward(lp: LayerParams, cfg: ModelConfig, x, k_cache, v_cache, ctx: 
     q, k = torch.split(apply_rope(torch.cat([q, k], dim=2), ctx.cos, ctx.sin), [n_heads, n_kv], dim=2)
     _write_kv(k_cache, k, ctx)
     _write_kv(v_cache, v, ctx)
-    blocked = ctx.blocked[(k_cache.shape[1], cfg.layer_sliding_window(layer_idx))]
-    attn = _attention(q, k_cache, v_cache, blocked, _attn_scale(cfg), cfg.attn_logit_softcap)
+    rows, window = k_cache.shape[1], cfg.layer_sliding_window(layer_idx)
+    attn = ctx.attend[(rows, window)](q, k_cache, v_cache, _attn_scale(cfg), cfg.attn_logit_softcap)
     y = lp.wo(attn.reshape(b, l, n_heads * hd)).to(x.dtype)
     if lp.post_attn_norm is not None:
         y = rms_norm(y, lp.post_attn_norm, cfg.rms_eps, cfg.norm_offset)
@@ -366,20 +435,18 @@ def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor, cache: 
     dev = tokens.device
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     ctx = _StepContext(cos=cos, sin=sin, write_b=torch.arange(b, device=dev)[:, None].expand(b, l),
-                       write_rows={}, blocked={})
+                       write_rows={}, attend={})
+    kv_pos = {}  # cache rows -> (kv_positions, kv_valid), each (B, rows)
     for i in range(cfg.n_layers):
         rows, window = cache.k[i].shape[1], cfg.layer_sliding_window(i)
         if rows not in ctx.write_rows:
+            # a ring write never straddles the wrap (ring_rows), so the clamp
+            # only matters where JAX's dynamic_update_slice clamps too
             start = torch.clamp(torch.remainder(cache.length, rows), max=rows - l).to(torch.int64)
             ctx.write_rows[rows] = start[:, None] + torch.arange(l, device=dev)[None, :]
-        if (rows, window) not in ctx.blocked:
-            # slot s of an R-row cache holds the latest position p < new_len
-            # with p = s (mod R); for a full-size cache this is arange with
-            # valid = pos < new_len
-            last = new_len[:, None] - 1
-            s = torch.arange(rows, dtype=torch.int32, device=dev)[None, :]
-            p = last - torch.remainder(last - s, rows)
-            ctx.blocked[(rows, window)] = ~attention_mask(positions, p, p >= 0, window)
+            kv_pos[rows] = kv_slot_positions(new_len, rows)
+        if (rows, window) not in ctx.attend:
+            ctx.attend[(rows, window)] = _attention_route(positions, *kv_pos[rows], window)
 
     for i, lp in enumerate(params.layers):
         x = _layer_forward(lp, cfg, x, cache.k[i], cache.v[i], ctx, layer_idx=i)

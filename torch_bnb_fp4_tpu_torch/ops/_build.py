@@ -21,7 +21,7 @@ import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("decode_pairs.cu", "matmul_pk.cu", "matmul_pk_minner.cu", "matmul_pk_w4a8.cu")
+SOURCES = ("decode_pairs.cu", "matmul_pk.cu", "matmul_pk_minner.cu", "matmul_pk_w4a8.cu", "flash_attention.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -30,12 +30,14 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 # C entry point of each source: (function name, argtypes)
 SIGNATURES = {
     "decode_pairs.cu": ("pk_decode_pairs", [_P, _P, _I64, _I, _P, _P]),
     "matmul_pk.cu": ("pk_matmul_pk", [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "matmul_pk_minner.cu": ("pk_matmul_pk_minner", [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "matmul_pk_w4a8.cu": ("pk_matmul_pk_w4a8", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "flash_attention.cu": ("pk_flash_attention", [_P] * 7 + [_I] * 6 + [_I64] * 9 + [_F, _F, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -38,8 +38,9 @@ A8_BLOCK_K = 1024
 # kernel at M = 1 and 8 over the four Mistral-7B shapes)
 K2_BLOCKS_PER_SM = 4
 
-# launches per wrapper: each CUDA launch adds one (plain CPU calls do not)
-LAUNCHES = {"decode_pairs": 0, "matmul_pk": 0, "matmul_pk_minner": 0, "matmul_pk_w4a8": 0}
+# launches per wrapper: each CUDA launch adds one (plain CPU calls do not);
+# "flash_attention" is K7's, counted by ops/attention.py
+LAUNCHES = {"decode_pairs": 0, "matmul_pk": 0, "matmul_pk_minner": 0, "matmul_pk_w4a8": 0, "flash_attention": 0}
 
 
 def reset_launch_counts() -> None:

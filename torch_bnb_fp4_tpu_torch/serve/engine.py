@@ -7,6 +7,12 @@ Counterpart of the greedy core of ``torch_bnb_fp4_tpu/serve/engine.py``:
     tick as a Python loop with ONE host fetch of the tokens per tick;
   * prefill runs per request at batch 1 on a small cache of the prompt's
     32-row bucket, and its KV rows are copied into the slot;
+  * chunked prefill (``prefill_chunk``): a pending prompt goes through that
+    small cache one chunk per tick, interleaved with the decode ticks, so a
+    long prompt delays each tick by one chunk instead of its whole prefill;
+    it is copied into its slot once, when complete;
+  * sliding-window layers keep rolling rings of ``ring_rows`` rows
+    (``sliding_kv``, with chunked prefill: its writes are ring-aligned);
   * the host loop only moves token ids and bookkeeping.
 
 KV writes are in place (``index_put_`` / ``copy_`` on the engine's cache
@@ -15,9 +21,9 @@ A finished slot's stale rows need no clearing: the next prefill overwrites
 rows [0, Lp) and resets the length, and attention masks past the length.
 
 Not yet ported (setting them raises ``NotImplementedError``): sampling,
-logprobs, chunked prefill, admission budgets, batch buckets, the fp8 KV
-cache, speculative decoding, prefix caching and the retired-prefix store,
-LoRA adapters and multi-device meshes.
+logprobs, admission budgets, batch buckets, the fp8 KV cache, speculative
+decoding, prefix caching and the retired-prefix store, warmup, abort, LoRA
+adapters and multi-device meshes.
 """
 
 from __future__ import annotations
@@ -61,9 +67,11 @@ class Completion:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine settings.  Only ``max_batch``, ``max_len``, ``inner_steps`` and
-    ``seed`` are ported; every other field keeps the JAX engine's name and
-    default and raises when set to anything else."""
+    """Engine settings.  ``max_batch``, ``max_len``, ``inner_steps``, ``seed``,
+    ``prefill_chunk`` (0 = whole-prompt prefill; else a multiple of 32) and
+    ``sliding_kv`` (rings on sliding-window layers; takes effect only with
+    chunked prefill) are ported; every other field keeps the JAX engine's name
+    and default and raises when set to anything else."""
 
     max_batch: int = 8  # decode slots
     max_len: int = 2048  # per-slot KV capacity
@@ -84,7 +92,7 @@ class EngineConfig:
     sliding_kv: bool = True
     logprobs: bool = False
 
-    _PORTED = ("max_batch", "max_len", "inner_steps", "seed")
+    _PORTED = ("max_batch", "max_len", "inner_steps", "seed", "prefill_chunk", "sliding_kv")
 
     def __post_init__(self):
         for f in dataclasses.fields(self):
@@ -92,6 +100,8 @@ class EngineConfig:
                 raise NotImplementedError(f"EngineConfig.{f.name} is not yet ported (greedy core only)")
         if self.max_batch < 1 or self.max_len < 2 or self.inner_steps < 1:
             raise ValueError(f"need max_batch >= 1, max_len >= 2, inner_steps >= 1, got {self}")
+        if self.prefill_chunk < 0 or self.prefill_chunk % 32:
+            raise ValueError(f"prefill_chunk must be a multiple of 32, got {self.prefill_chunk}")
 
 
 class Engine:
@@ -104,7 +114,10 @@ class Engine:
         self.params, self.cfg, self.ecfg, self.on_token = params, cfg, ecfg, on_token
         self.device = params.embed.device
         b = ecfg.max_batch
-        self.cache = T.KVCache.zeros(cfg, b, ecfg.max_len, device=self.device)
+        # rings only when every multi-row cache write is chunk-aligned
+        self._ring_chunk = (ecfg.prefill_chunk if ecfg.sliding_kv and ecfg.prefill_chunk
+                            and any(cfg.layer_sliding_window(i) is not None for i in range(cfg.n_layers)) else 0)
+        self.cache = T.KVCache.zeros(cfg, b, ecfg.max_len, write_chunk=self._ring_chunk, device=self.device)
         self.slot_req: list[Request | None] = [None] * b
         self.slot_tokens: list[list[int]] = [[] for _ in range(b)]
         self.slot_t0: list[float] = [0.0] * b  # first-token wall time per slot
@@ -120,6 +133,8 @@ class Engine:
         # admission prefills, over the inner depth), trailing window
         self.step_times: deque[float] = deque(maxlen=4096)
         self._mask_dev: torch.Tensor | None = None  # active-slot mask, rebuilt on admit/retire
+        # in-flight chunked admission: req, slot, small cache, tokens done, bucket
+        self._pf: dict | None = None
 
     # -- device work -------------------------------------------------------
 
@@ -147,10 +162,27 @@ class Engine:
         lp_pad = tokens.shape[1]
         small = T.KVCache.zeros(self.cfg, 1, lp_pad, device=self.device)
         logits, small = T.forward(self.params, self.cfg, tokens, small, last_index=true_len - 1)
-        for big, sm in zip(self.cache.k + self.cache.v, small.k + small.v):
-            big[slot, :lp_pad].copy_(sm[0])
-        self.cache.length[slot] = true_len
+        self._splice_fn(small, slot, true_len)
         return torch.argmax(logits[0, -1], dim=-1)
+
+    @torch.no_grad()
+    def _chunk_fn(self, tokens: torch.Tensor, small: T.KVCache, last_index: int) -> tuple[torch.Tensor, T.KVCache]:
+        """One prefill chunk on the private batch-1 cache: its KV lands at
+        small.length, which advances; ``last_index`` is the chunk-local
+        position of the prompt's true last token (only the final chunk's token
+        is used).  Returns (token as a device scalar, cache)."""
+        logits, small = T.forward(self.params, self.cfg, tokens, small, last_index=last_index)
+        return torch.argmax(logits[0, -1], dim=-1), small
+
+    def _splice_fn(self, small: T.KVCache, slot: int, true_len: int) -> None:
+        """Copy a completed prefill's KV rows into ``slot``, layer by layer:
+        ``sm.shape[1]`` rows each (a ring layer of the small cache may hold
+        fewer rows than the prompt's bucket).  Slot s holds the same position
+        in both caches: either the small layer never wrapped, or it has the big
+        layer's ring size.  Rows past ``true_len`` are masked by kv_valid."""
+        for big, sm in zip(self.cache.k + self.cache.v, small.k + small.v):
+            big[slot, : sm.shape[1]].copy_(sm[0])
+        self.cache.length[slot] = true_len
 
     # -- host API ----------------------------------------------------------
 
@@ -171,6 +203,16 @@ class Engine:
         """Prefill length bucket: 32-row steps, clamped to the cache."""
         return min((lp + 31) // 32 * 32, self.ecfg.max_len)
 
+    def _bind(self, slot: int, req: Request, first: int) -> None:
+        """Start decoding ``req`` in ``slot`` from its first token."""
+        self.slot_req[slot] = req
+        self.slot_tokens[slot] = [first]
+        self.slot_cur[slot] = first
+        self.slot_t0[slot] = time.perf_counter()
+        self._mask_dev = None
+        if self.on_token is not None:
+            self.on_token(req.uid, first)
+
     def _admit(self) -> None:
         for slot in self._free_slots():
             if not self.pending:
@@ -180,14 +222,37 @@ class Engine:
             padded = np.zeros((1, self._bucket(lp)), np.int32)
             padded[0, :lp] = req.prompt
             first = int(self._prefill_fn(torch.from_numpy(padded).to(self.device), slot, lp))
-            self.slot_req[slot] = req
-            self.slot_tokens[slot] = [first]
-            self.slot_cur[slot] = first
-            self.slot_t0[slot] = time.perf_counter()
-            self._mask_dev = None
-            if self.on_token is not None:
-                self.on_token(req.uid, first)
+            self._bind(slot, req, first)
             log.debug("admit uid=%d slot=%d prompt_len=%d", req.uid, slot, lp)
+
+    def _admit_chunked(self) -> None:
+        """Advance the in-flight prefill by ONE chunk (starting the next
+        pending request when idle): each tick pays at most one chunk."""
+        c = self.ecfg.prefill_chunk
+        if self._pf is None:
+            slots = self._free_slots()
+            if not self.pending or not slots:
+                return
+            req = self.pending.popleft()
+            lp_pad = self._bucket(len(req.prompt))
+            # the small cache covers the whole bucket (ring layers keep fewer rows)
+            small = T.KVCache.zeros(self.cfg, 1, lp_pad, write_chunk=self._ring_chunk, device=self.device)
+            self._pf = dict(req=req, slot=slots[0], small=small, done=0, lp_pad=lp_pad)
+        pf = self._pf
+        req, lp = pf["req"], len(pf["req"].prompt)
+        lo = pf["done"]
+        hi = min(lo + c, pf["lp_pad"])
+        toks = np.zeros((1, hi - lo), np.int32)
+        real = req.prompt[lo:hi]
+        toks[0, : len(real)] = real
+        first, pf["small"] = self._chunk_fn(torch.from_numpy(toks).to(self.device), pf["small"], min(lp, hi) - 1 - lo)
+        pf["done"] = hi
+        if hi < lp:
+            return  # more chunks to go; decode proceeds this tick
+        self._splice_fn(pf["small"], pf["slot"], lp)
+        self._bind(pf["slot"], req, int(first))
+        log.debug("admit(chunked) uid=%d slot=%d prompt_len=%d chunks=%d", req.uid, pf["slot"], lp, -(-lp // c))
+        self._pf = None
 
     def _retire(self, slot: int, reason: str) -> None:
         req = self.slot_req[slot]
@@ -205,7 +270,10 @@ class Engine:
         """One tick: admit pending requests, retire finished slots, run up to
         ``inner_steps`` batched decode steps.  Returns the active slot count."""
         t_tick = time.perf_counter()
-        self._admit()
+        if self.ecfg.prefill_chunk:
+            self._admit_chunked()
+        else:
+            self._admit()
         for i, req in enumerate(self.slot_req):
             if req is None:
                 continue
@@ -276,7 +344,7 @@ class Engine:
         """Serve a list of requests to completion; returns uid -> Completion."""
         for r in requests:
             self.submit(r)
-        while self.pending or any(r is not None for r in self.slot_req):
-            if self.step() == 0 and not self.pending:
+        while self.pending or self._pf is not None or any(r is not None for r in self.slot_req):
+            if self.step() == 0 and not self.pending and self._pf is None:
                 break
         return {c.uid: c for c in self.completions}

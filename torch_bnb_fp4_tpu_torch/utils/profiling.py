@@ -70,3 +70,26 @@ def bound_s(bytes_moved: float, ops: float, peak_ops: float) -> tuple[float, str
     t_mem = bytes_moved / H100_HBM_BYTES_PER_S
     t_ops = ops / peak_ops
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def visible_pairs(q_positions, kv_valid, kv_positions, sliding_window=None, chunk: int = 1024) -> int:
+    """(query, key) pairs the causal / validity / window mask admits, summed
+    over the batch: the work an attention call's data needs."""
+    total = 0
+    kpos, kval = kv_positions[:, None, :], kv_valid[:, None, :]
+    for q0 in range(0, q_positions.shape[1], chunk):
+        qpos = q_positions[:, q0 : q0 + chunk, None]
+        mask = (kpos <= qpos) & kval
+        if sliding_window is not None:
+            mask = mask & (kpos > qpos - sliding_window)
+        total += int(mask.sum())
+    return total
+
+
+def attention_bound_s(q, k, pairs: int) -> tuple[float, str]:
+    """Bound of one attention call, q (B, Lq, Hq, D), k (B, Lk, Hk, D): q, o,
+    k and v each read or written once; 4 * D * Hq bf16 tensor-core operations
+    (the QK and PV products) per visible pair (:func:`visible_pairs`)."""
+    d, hq = q.shape[3], q.shape[2]
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return bound_s(nbytes, 4 * d * hq * pairs, H100_BF16_FLOPS)

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..models.linear import DenseLinear, QuantLinear
-from ..models.transformer import LayerParams, ModelConfig, ModelParams, fuse_params
+from ..models.transformer import LayerParams, ModelConfig, ModelParams, fuse_params, kv_slot_positions
 from ..utils.device import resolve_device
 
 
@@ -76,3 +76,26 @@ def synth_params(cfg: ModelConfig, *, quantized: bool = True, seed: int = 0, fus
     params = ModelParams(embed=embed, layers=layers, final_norm=ones(cfg.dim),
                          lm_head=synth_dense_linear(gen, cfg.vocab_size, cfg.dim, device=device))
     return fuse_params(params) if fuse and quantized else params
+
+
+def synth_attention(b: int, lq: int, lk: int, hq: int, hk: int, d: int, *, lens, q_offset=None, seed: int = 0,
+                    device=None) -> tuple[torch.Tensor, ...]:
+    """Operands of one attention call over an Lk-row KV cache: (q, k, v,
+    q_positions, kv_valid, kv_positions).  q (B, Lq, Hq, D) and k, v (B, Lk,
+    Hk, D) are bf16 standard normals from ``seed``; row i of the cache has
+    seen ``lens[i]`` positions (in ring order once lens[i] > Lk, as
+    :func:`kv_slot_positions` recovers them); the queries sit at ``q_offset``
+    + arange(Lq), by default the last Lq positions of each row."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+    q, k, v = randn(b, lq, hq, d), randn(b, lk, hk, d), randn(b, lk, hk, d)
+    lens = torch.as_tensor(lens, dtype=torch.int32, device=device).expand(b).contiguous()
+    start = lens - lq if q_offset is None else torch.as_tensor(q_offset, dtype=torch.int32, device=device).expand(b)
+    q_positions = start[:, None] + torch.arange(lq, dtype=torch.int32, device=device)[None, :]
+    kv_positions, kv_valid = kv_slot_positions(lens, lk)
+    return q, k, v, q_positions.contiguous(), kv_valid, kv_positions
