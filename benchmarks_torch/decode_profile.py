@@ -3,11 +3,12 @@
 torch.profiler over eager greedy decode steps of the Mistral-7B geometry
 (synth_params, fused FP4), batch 1 and the engine's batch 8 over a 1024-row
 cache, and over one 256-row chunk of a long prompt (positions 5632-5887) on
-the 4352-row sliding-window rings of chunked prefill.  Prints the host wall
-time per step, the summed device time of the kernels per step, and the
-kernels ranked by device time, grouped as the port's kernels (K2 and its
-split reduction, K3, K4, K7), attention (einsum/bmm, softmax, masking), the
-dense lm_head GEMM, and everything else.
+the 4352-row sliding-window rings of chunked prefill: fused, then unfused as
+the CLI loads a checkpoint, without and with int8 prefill shadows (K5).
+Prints the host wall time per step, the summed device time of the kernels
+per step, and the kernels ranked by device time, grouped as the port's
+kernels (K2 and its split reduction, K3, K4, K5, K7), attention (einsum/bmm,
+softmax, masking), the dense lm_head GEMM, and everything else.
 
     python3 benchmarks_torch/decode_profile.py
 """
@@ -26,6 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from torch_bnb_fp4_tpu_torch.models import transformer as T  # noqa: E402
+from torch_bnb_fp4_tpu_torch.models.linear import attach_prefill_shadow  # noqa: E402
 from torch_bnb_fp4_tpu_torch.ops import _build  # noqa: E402
 from torch_bnb_fp4_tpu_torch.utils.synth import synth_params  # noqa: E402
 
@@ -39,6 +41,8 @@ def group(name: str) -> str:
         return "pair-K K3"
     if "w4a8" in name:
         return "pair-K K4 (w4a8)"
+    if "w8_kernel" in name:
+        return "K5 int8-shadow GEMM"
     if "flash_kernel" in name:
         return "K7 flash attention"
     if "gemm" in name.lower() or "gemv" in name.lower() or "cutlass" in name.lower() or "sm90" in name:
@@ -89,7 +93,7 @@ def profile_decode(params, cfg, batch: int, cache_rows: int, fill: int) -> None:
     profile_steps(f"decode, batch {batch}, {cache_rows}-row cache filled to {fill}", step)
 
 
-def profile_chunk(params, cfg, chunk: int, max_len: int, fill: int) -> None:
+def profile_chunk(params, cfg, chunk: int, max_len: int, fill: int, label: str = "") -> None:
     """One ``chunk``-row prefill chunk at position ``fill`` of a batch-1 cache
     with the engine's rings (write_chunk = chunk)."""
     cache = T.KVCache.zeros(cfg, 1, max_len, write_chunk=chunk, device=torch.device("cuda"))
@@ -100,7 +104,7 @@ def profile_chunk(params, cfg, chunk: int, max_len: int, fill: int) -> None:
     def step():  # every call rewrites the same ring rows
         T.forward(params, cfg, tokens, cache, last_index=chunk - 1)
 
-    profile_steps(f"prefill chunk of {chunk} rows at position {fill}, {rows}-row rings", step)
+    profile_steps(f"prefill chunk of {chunk} rows at position {fill}, {rows}-row rings{label}", step)
 
 
 def main() -> int:
@@ -114,7 +118,12 @@ def main() -> int:
     params = synth_params(cfg, seed=0, fuse=True)
     profile_decode(params, cfg, batch=1, cache_rows=97, fill=21)
     profile_decode(params, cfg, batch=8, cache_rows=1024, fill=500)
-    profile_chunk(params, cfg, chunk=256, max_len=8192, fill=5632)
+    profile_chunk(params, cfg, chunk=256, max_len=8192, fill=5632, label=", fused")
+    del params
+    unfused = synth_params(cfg, seed=0)
+    profile_chunk(unfused, cfg, chunk=256, max_len=8192, fill=5632, label=", unfused")
+    profile_chunk(attach_prefill_shadow(unfused), cfg, chunk=256, max_len=8192, fill=5632,
+                  label=", unfused with int8 prefill shadows")
     return 0
 
 

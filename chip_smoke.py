@@ -13,8 +13,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and every kernel instance phases 5 and 6 run: M in {1, 4, 8} (decode at
      batch 1, 4 and 8) and {32, 64, 128} (prefill buckets and final chunks)
      for K2, 160 and 224 for K3, 256 (every prefill chunk), 320, 704 and 6016
-     (a whole 6000-token prompt) for K4; kernel time, bound, plain time and a
-     dense bf16 torch.matmul of the same shape as the yardstick;
+     (a whole 6000-token prompt) for K4; and at the seven unfused shapes phase
+     7 serves, K2 at M in {4, 64, 128}, K3 at 160 and K4 at 256; kernel time,
+     bound, plain time and a dense bf16 torch.matmul of the same shape as the
+     yardstick;
   3b. K7 (flash attention) vs its plain version with the kernel's blocks,
      |do| <= 2^-7 * max|o| of each (query, head) row, in five cases: (a) a 256-query Mistral chunk over
      a 4352-row ring of 6000 positions, (b) a causal 6016-token Mistral
@@ -44,6 +46,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      The 6000-token request is served again with full 8192-row caches and as
      one whole-prompt prefill (Lq = Lk = 6016: K7, and K4 at M = 6016); each
      run's logits are held against the ring run's as in phase 5.
+  3c. K6 (pair-K dequantize) vs its plain version, bit-exact, on the four
+     fused shapes at f32 and bf16 out and on the seven unfused shapes at f32
+     out (the shadow build); K5 (the int8-shadow GEMM) vs its plain
+     version, one bf16 ulp, on the fused shapes at M = 256 and 6016 and on the
+     seven unfused shapes the CLI serves at M = 256; kernel time, bound, plain
+     time, a dense bf16 torch.matmul and (K5) one torch._int_mm of the same
+     int8 product as yardsticks;
+  7. the served prefill-shadow path: the 32-layer Mistral-7B geometry
+     (unfused) written as a packed checkpoint under build/, then served by
+     ``python -m torch_bnb_fp4_tpu_torch.serve --ckpt DIR --prefill-shadow
+     --prefill-chunk 256`` in a child process over HTTP: prompts of 100, 300
+     (streaming) and 4500 tokens at once, /v1/stats and /health, a streaming
+     4500-token request aborted on its first event, one short request after
+     it, SIGINT and exit code 0.  The same requests are replayed in this
+     process on load_checkpoint + attach_prefill_shadow: tokens equal the
+     HTTP ones, K2, K3, K5, K6 and K7 launch and K4 does not (in both
+     processes); the shadowed logits are held against the unshadowed engine's
+     (which launches K4) as in phase 5.  Then one 256-row chunk
+     alone, without and with shadows in turns, eager and as a CUDA graph.
 Prints the kernel table as one JSON line, then the final status line.
 Kernel times are CUDA-graph replays timed with CUDA events (the card's own
 time, without the Python wrappers' launch cost, which is printed beside them
@@ -54,9 +75,14 @@ from __future__ import annotations
 
 import json
 import math
+import queue
+import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 SHAPES = (("qkv", 4096, 6144), ("o", 4096, 4096), ("gate_up", 4096, 28672), ("down", 14336, 4096))
@@ -64,14 +90,25 @@ L2_BYTES = 50 * 2**20
 PROMPTS = (20, 100, 200, 300, 500, 700)
 NEW_TOKENS = 32
 LONG_PROMPTS = (100, 300, 4500, 6000)  # phase 6
+SERVED_PROMPTS = (100, 300, 4500)  # phase 7, sent together; then an aborted 4500 and a short one
+# phases 3 and 3c: the shapes the CLI's unfused checkpoint gives the kernels (name, K, N, linears per layer)
+UNFUSED_SHAPES = (("wq|wo", 4096, 4096, 2), ("wk|wv", 4096, 1024, 2), ("w_gate|w_up", 4096, 14336, 2),
+                  ("w_down", 14336, 4096, 1))
+FUSED_SHAPES = tuple((nm, k, n, 1) for nm, k, n in SHAPES)
 # phase 3: (kernel, M, the run whose launch count its kernels-JSON row reports):
 # phase 5's engine and generate ("main": decode at batch 8 and 1, prefill
 # buckets), phase 6's ring run ("ring": decode at batch 4, the 256-row chunks,
 # the final 64- and 160-row chunks of the 300- and 4500-token prompts; 128 rows
-# end the 100- and 6000-token ones) and its whole-prompt run ("whole")
+# end the 100- and 6000-token ones), its whole-prompt run ("whole"), and phase
+# 7's replays on the unfused checkpoint: the shadowed one ("served": decode at
+# batch 4, the 128-row prompt of 100 tokens, the 64-row final chunks of the 300-
+# and 50-token prompts, the 160-row final chunk of the 4500-token one; its
+# 256-row chunks take K5) and the unshadowed one ("unshadowed": K4 at 256)
 PK_INSTANCES = (("K2", 1, "main"), ("K2", 8, "main"), ("K2", 32, "main"), ("K2", 128, "main"), ("K3", 224, "main"),
                 ("K4", 320, "main"), ("K4", 704, "main"), ("K2", 4, "ring"), ("K2", 64, "ring"), ("K3", 160, "ring"),
-                ("K4", 256, "ring"), ("K4", 6016, "whole"))
+                ("K4", 256, "ring"), ("K4", 6016, "whole"), ("K2", 4, "served"), ("K2", 64, "served"),
+                ("K2", 128, "served"), ("K3", 160, "served"), ("K4", 256, "unshadowed"))
+UNFUSED_RUNS = ("served", "unshadowed")
 # phase 3b: (case, what, B, Lq, Lk, Hq, Hk, D, lens, q_offset, window, softcap, scale)
 FLASH_CASES = (
     ("a", "Mistral chunk: 256 queries, 4352-row ring of 6000 positions, window 4096",
@@ -201,6 +238,92 @@ def engine_vs_generate(T, Engine, params, cfg, ecfg, reqs, eng_tokens, gen_token
     hold_runs("[5]", ("batch-1 generate", "engine (20-token prompt)"), gen_lg, gen_tokens, eng_lg, eng_tokens)
 
 
+def http_post(url, body, path="/v1/completions"):
+    req = urllib.request.Request(url + path, data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def http_get(url, path):
+    with urllib.request.urlopen(url + path, timeout=600) as r:
+        return json.loads(r.read())
+
+
+def http_stream(url, body, on_event=None):
+    """The server-sent events of a streaming completion, in order."""
+    req = urllib.request.Request(url + "/v1/completions", data=json.dumps(dict(body, stream=True)).encode(),
+                                 headers={"Content-Type": "application/json"})
+    events = []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            line = line.strip()
+            if line.startswith(b"data: "):
+                events.append(json.loads(line[6:]))
+                if on_event is not None:
+                    on_event(events[-1])
+    return events
+
+
+def serve_over_http(root, ckpt, prompts, aborted_prompt, short_prompt, log_path):
+    """Phase 7's HTTP half: start the CLI on the checkpoint in a child
+    process, send ``prompts`` at once (the second one streaming), read
+    /v1/stats and /health, abort a streaming ``aborted_prompt`` request on its
+    first event, serve ``short_prompt``, then SIGINT.  Returns (tokens of each
+    prompt, short tokens, the child's final /v1/stats, seconds to the serving
+    line).  The child is killed in ``finally`` if it is still running."""
+    cmd = [sys.executable, "-m", "torch_bnb_fp4_tpu_torch.serve", "--ckpt", str(ckpt), "--prefill-shadow",
+           "--max-batch", "4", "--max-len", "8192", "--prefill-chunk", "256", "--port", "0"]
+    with open(log_path, "w") as err:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=err, text=True)
+        try:
+            lines = queue.Queue()
+            threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+            line = lines.get(timeout=600)
+            check(line.startswith("serving on http://"), f"the server printed {line!r}")
+            url, startup_s = line.split()[-1], time.perf_counter() - t0
+            out = {}
+
+            def go(i):
+                body = {"prompt": prompts[i], "max_tokens": NEW_TOKENS}
+                out[i] = http_stream(url, body)[-1]["done"] if i == 1 else http_post(url, body)
+
+            threads = [threading.Thread(target=go, args=(i,)) for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            check(sorted(out) == list(range(len(prompts))), "phase 7: a request over HTTP did not complete")
+            for i, c in out.items():
+                check(len(c["tokens"]) == NEW_TOKENS and c["finish_reason"] == "length", f"phase 7 request {i}: {c}")
+            stats, health = http_get(url, "/v1/stats"), http_get(url, "/health")
+            check(health == {"status": "ok"} and stats["completions"] == len(prompts), f"phase 7 stats {stats}")
+            aborted = {}
+
+            def on_event(e):
+                if set(e) == {"uid"}:
+                    aborted.update(http_post(url, {"uid": e["uid"]}, path="/v1/abort"))
+
+            done = http_stream(url, {"prompt": aborted_prompt, "max_tokens": NEW_TOKENS}, on_event)[-1]["done"]
+            check(aborted.get("aborted") is True and done["finish_reason"] == "abort" and done["tokens"] == [],
+                  f"phase 7: the aborted request ended {done} (abort answer {aborted})")
+            short = http_post(url, {"prompt": short_prompt, "max_tokens": NEW_TOKENS})
+            check(len(short["tokens"]) == NEW_TOKENS, f"phase 7 short request after the abort: {short}")
+            stats = http_get(url, "/v1/stats")
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=120)
+            check(rc == 0, f"the server exited with {rc} on SIGINT")
+        except BaseException:
+            err.flush()
+            print("[7] server log (tail):\n" + Path(log_path).read_text()[-4000:], file=sys.stderr)
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return [out[i]["tokens"] for i in range(len(prompts))], short["tokens"], stats, startup_s
+
+
 def main() -> int:
     import torch
 
@@ -301,12 +424,12 @@ def main() -> int:
         return (lambda i: K.matmul_pk_w4a8(x8, rs, packed[i], scale[i], **kw),
                 lambda: K.matmul_pk_w4a8_plain(x8, rs, packed[0], scale[0], **kw), x8.numel() + rs.numel() * 4)
 
-    print("[3] kernel  shape     M    us      GB/s    bound_us  by          eager_us   plain_us   bf16_matmul_us"
+    print("[3] kernel  shape        M    us      GB/s    bound_us  by          eager_us   plain_us   bf16_matmul_us"
           "  max_abs_err   (us: CUDA-graph replay; eager_us: back-to-back Python calls)")
     rows = {}
     for kname, m, run in PK_INSTANCES:
-        tot = dict(run=run, ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0, bf16_ms=0.0, err=0.0)
-        for sname, k, n in SHAPES:
+        tot = dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0, bf16_ms=0.0, err=0.0)
+        for sname, k, n, count in UNFUSED_SHAPES if run in UNFUSED_RUNS else FUSED_SHAPES:
             w_bytes = k * n // 2 + (k // 64) * n * 4
             copies = max(1, math.ceil(2.5 * L2_BYTES / w_bytes))
             x, packed, scale = operands(m, k, n, seed=k + n + m, copies=copies)
@@ -334,15 +457,15 @@ def main() -> int:
             nbytes = w_bytes + in_bytes + m * n * 2
             ops = 2 * m * k * n
             bnd, by = P.bound_s(nbytes, ops, P.H100_INT8_OPS if kname == "K4" else P.H100_BF16_FLOPS)
-            print(f"    {kname:6} {sname:8} {m:4} {ms * 1e3:8.1f} {nbytes / (ms * 1e-3) / 1e9:7.0f} "
+            print(f"    {kname:6} {sname:11} {m:4} {ms * 1e3:8.1f} {nbytes / (ms * 1e-3) / 1e9:7.0f} "
                   f"{bnd * 1e6:9.1f}  {by:10} {eager_ms * 1e3:8.1f} {plain_ms * 1e3:10.1f} {bf16_ms * 1e3:12.1f}"
-                  f"   {err:.3g}")
+                  f"   {err:.3g}" + (f"   (x{count} per layer)" if count > 1 else ""))
             for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", nbytes), ("ops", ops),
                            ("bf16_ms", bf16_ms)):
-                tot[key] += v
+                tot[key] += count * v
             tot["err"] = max(tot["err"], err)
             del x, packed, scale
-        rows[(kname, m)] = tot
+        rows[(kname, m, run)] = tot
     torch.cuda.empty_cache()
 
     # -- phase 3b: K7 flash attention ----------------------------------------------------
@@ -402,6 +525,81 @@ def main() -> int:
         print(f"     Lq {lq:4}  " + "   ".join(cells))
     del q, k, v, blocked
     torch.cuda.empty_cache()
+
+    # -- phase 3c: K6 and K5, the int8 prefill shadow -----------------------------------------
+    print("[3c] kernel  out   shape          M     us        bound_us  by          plain_ms   bf16_matmul_us  "
+          "int_mm_us   max_abs_err   (us: CUDA-graph replay)")
+    shadow_rows = {}
+    # K6: f32 out builds the shadow (phase 7's attach runs it on the unfused shapes); bf16 is dequantize_weight's
+    k6_instances = (("fused", torch.float32, FUSED_SHAPES), ("fused", torch.bfloat16, FUSED_SHAPES),
+                    ("unfused", torch.float32, UNFUSED_SHAPES))
+    for kind, out_dtype, shapes in k6_instances:
+        oname = {torch.float32: "f32", torch.bfloat16: "bf16"}[out_dtype]
+        tot = dict(ms=0.0, plain_ms=0.0, bound=0.0, by={}, err=0.0, bf16_ms=None, int_mm_ms=None)
+        for sname, k, n, count in shapes:
+            w_bytes = k * n // 2 + (k // 64) * n * 4
+            copies = max(1, math.ceil(2.5 * L2_BYTES / w_bytes))
+            _, packed, scale = operands(1, k, n, seed=k + n + 3, copies=copies)
+            call = cycler(lambda i: K.dequantize_tpu_pk(packed[i], scale[i], out_dtype=out_dtype, variant="ramp"))
+            got = K.dequantize_tpu_pk(packed[0], scale[0], out_dtype=out_dtype, variant="ramp")
+            want = K.dequantize_pk_plain(packed[0], scale[0], out_dtype=out_dtype, variant="ramp")
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"K6 {sname} out {out_dtype} not bit-exact")
+            del got, want
+            ms = device_ms(call, copies, rep=10)
+            plain_ms = timed(lambda: K.dequantize_pk_plain(packed[0], scale[0], out_dtype=out_dtype, variant="ramp"),
+                             rep=2)
+            bnd, by = P.dequant_pk_bound_s(k, n, 4, torch.empty((), dtype=out_dtype).element_size())
+            print(f"    K6     {oname:5} {sname:12} {'-':>6} {ms * 1e3:9.1f} {bnd * 1e6:9.1f}  {by:10} "
+                  f"{plain_ms:9.2f}   {'-':>14} {'-':>10}   0 (bit-exact)" + (f"   (x{count} per layer)" if count > 1 else ""))
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * plain_ms
+            tot["bound"] += count * bnd
+            tot["by"][by] = tot["by"].get(by, 0.0) + count * bnd
+            del packed, scale
+            torch.cuda.empty_cache()
+        shadow_rows[("K6", kind, oname)] = tot
+    k5_instances = (("fused", 256, FUSED_SHAPES), ("fused", 6016, FUSED_SHAPES), ("unfused", 256, UNFUSED_SHAPES))
+    for kind, m, shapes in k5_instances:
+        tot = dict(ms=0.0, plain_ms=0.0, bound=0.0, by={}, err=0.0, bf16_ms=0.0, int_mm_ms=0.0)
+        for sname, k, n, count in shapes:
+            bk = 1024
+            w_bytes = k * n
+            copies = max(1, math.ceil(2.5 * L2_BYTES / w_bytes))
+            x, packed, scale = operands(m, k, n, seed=k + n + m, copies=copies)
+            shadows = [K.make_int8_shadow(packed[i], scale[i], variant="ramp", block_k=bk) for i in range(copies)]
+            del packed, scale
+            x8, rs = K.quantize_activations(x, bk)
+            call = lambda i, x8=x8, rs=rs, sh=shadows: K.matmul_w8_int8(  # noqa: E731
+                x8, rs, sh[i][0], sh[i][1], out_dtype=torch.bfloat16, block_k=bk)
+            plain = lambda x8=x8, rs=rs, sh=shadows: K.matmul_w8_plain(  # noqa: E731
+                x8, rs, sh[0][0], sh[0][1], out_dtype=torch.bfloat16, block_k=bk)
+            y, y_ref = call(0), plain()
+            torch.cuda.synchronize()
+            err = (y.float() - y_ref.float()).abs().max().item()
+            ulp = torch.exp2(torch.floor(torch.log2(y_ref.float().abs().clamp_min(1e-30))) - 7)
+            check(bool(((y.float() - y_ref.float()).abs() <= ulp * 1.0001).all()),
+                  f"K5 {sname} M={m} off by more than one bf16 ulp")
+            check(bool(torch.isfinite(y).all()), f"K5 {sname} M={m}: non-finite output")
+            del y, y_ref
+            rep = 30 if m <= 256 else 5
+            ms = device_ms(cycler(call), copies, rep=rep)
+            plain_ms = timed(plain, rep=2)
+            int_mm_ms = device_ms(cycler(lambda i, x8=x8, sh=shadows: torch._int_mm(x8, sh[i][0])), copies, rep=rep)
+            wd = [torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(max(1, math.ceil(2.5 * L2_BYTES / (2 * k * n))))]
+            bf16_ms = device_ms(cycler(lambda i, x=x, wd=wd: torch.matmul(x, wd[i])), len(wd), rep=rep)
+            bnd, by = P.matmul_w8_bound_s(m, k, n, bk, 2)
+            print(f"    K5     bf16  {sname:12} {m:6} {ms * 1e3:9.1f} {bnd * 1e6:9.1f}  {by:10} {plain_ms:9.2f}   "
+                  f"{bf16_ms * 1e3:14.1f} {int_mm_ms * 1e3:10.1f}   {err:.3g}" + (f"   (x{count} per layer)" if count > 1 else ""))
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound", bnd), ("bf16_ms", bf16_ms),
+                           ("int_mm_ms", int_mm_ms)):
+                tot[key] += count * v
+            tot["by"][by] = tot["by"].get(by, 0.0) + count * bnd
+            tot["err"] = max(tot["err"], err)
+            del x, x8, rs, shadows, wd
+            torch.cuda.empty_cache()
+        shadow_rows[("K5", kind, m)] = tot
 
     # -- phase 4: 2-layer full-width model, card vs CPU -------------------------------
 
@@ -608,6 +806,113 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # -- phase 7: packed checkpoint -> HTTP server CLI with the prefill shadow -----------------
+    from torch_bnb_fp4_tpu_torch.convert import load_checkpoint, save_checkpoint
+    from torch_bnb_fp4_tpu_torch.models.linear import QuantLinear, attach_prefill_shadow
+
+    ckpt = root / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    print(f"[7] disk free under {ckpt.parent}: {shutil.disk_usage(ckpt.parent).free / 2**30:.1f} GiB")
+    g7 = torch.Generator().manual_seed(7)
+    served = [torch.randint(0, cfg.vocab_size, (lp,), generator=g7).tolist() for lp in SERVED_PROMPTS]
+    aborted_prompt = torch.randint(0, cfg.vocab_size, (4500,), generator=g7).tolist()
+    short_prompt = torch.randint(0, cfg.vocab_size, (50,), generator=g7).tolist()
+    try:
+        params = synth_params(cfg, seed=5, device=dev)  # unfused, as the CLI loads a checkpoint
+        t0 = time.perf_counter()
+        save_checkpoint(str(ckpt), cfg, params)
+        write_s = time.perf_counter() - t0
+        del params
+        torch.cuda.empty_cache()
+        ckpt_bytes = sum(f.stat().st_size for f in ckpt.iterdir())
+        print(f"[7] wrote the 32-layer Mistral-7B geometry as a packed checkpoint: {ckpt_bytes / 1e9:.2f} GB in "
+              f"{write_s:.1f} s")
+        http_tokens, http_short, child_stats, startup_s = serve_over_http(
+            root, ckpt, served, aborted_prompt, short_prompt, root / "build" / "chip_smoke_server.log")
+        child_launches = child_stats["launches"]
+        served_kernels = ("matmul_w8", "dequant_pk", "matmul_pk", "matmul_pk_minner", "flash_attention")
+        check(all(child_launches[nm] > 0 for nm in served_kernels) and child_launches["matmul_pk_w4a8"] == 0,
+              f"phase 7 server launches {child_launches}")
+        print(f"[7] CLI server: serving line after {startup_s:.1f} s (start, checkpoint load, shadow attach); "
+              f"served prompts {SERVED_PROMPTS} at once ({NEW_TOKENS} new tokens each, the 300-token one streaming), "
+              f"aborted a streaming 4500-token request on its first event, then a 50-token one; SIGINT -> rc 0; "
+              f"server launches {json.dumps(child_launches)}")
+
+        # the same requests in this process: load, attach, serve (the counted run of K5 and K6)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        cfg7, params7 = load_checkpoint(str(ckpt), device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        shadowed = attach_prefill_shadow(params7)
+        torch.cuda.synchronize()
+        attach_s = time.perf_counter() - t0
+        lins = [getattr(lp, f) for lp in shadowed.layers for f in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
+        check(all(isinstance(q, QuantLinear) and q.w8 is not None for q in lins), "a linear has no shadow")
+        shadow_bytes = sum(q.w8.numel() + q.w8_scale.numel() * 4 for q in lins)
+        packed_bytes = sum(q.packed.numel() + q.scale.numel() * q.scale.element_size() for q in lins)
+        reqs7 = [Request(uid=i, prompt=pr, max_new_tokens=NEW_TOKENS) for i, pr in enumerate(served + [short_prompt])]
+        big7 = SERVED_PROMPTS.index(4500)
+        ecfg7 = EngineConfig(max_batch=4, max_len=8192, inner_steps=8, prefill_chunk=256)
+
+        def replay(p, label):
+            e = Engine(p, cfg7, ecfg7)
+            with Recorder(T, e, big7) as r:
+                t = time.perf_counter()
+                out = e.run(reqs7)
+                torch.cuda.synchronize()
+                t = time.perf_counter() - t
+            chunk_ms = [e0.elapsed_time(e1) for uid, n, _, e0, e1 in r.prefill if uid == big7 and n == 256]
+            print(f"[7] {label}: served in {t:.2f} s, 4500-token prompt: {len(chunk_ms)} 256-row chunks, "
+                  f"{sum(chunk_ms) / len(chunk_ms):.2f} ms mean (min {min(chunk_ms):.2f}, max {max(chunk_ms):.2f}; "
+                  f"CUDA events around each chunk forward), TTFT {out[big7].ttft_s * 1e3:.1f} ms")
+            return out, r.logits(NEW_TOKENS), sum(chunk_ms) / len(chunk_ms)
+
+        res7, shadow_lg, shadow_chunk_ms = replay(shadowed, "in-process replay with shadows")
+        launches7 = K.launch_counts()
+        for i in range(len(served)):
+            check(res7[i].tokens == http_tokens[i], f"phase 7: request {i} over HTTP differs from the replay")
+        check(res7[len(served)].tokens == http_short, "phase 7: the short request over HTTP differs from the replay")
+        check(all(launches7[nm] > 0 for nm in served_kernels) and launches7["matmul_pk_w4a8"] == 0,
+              f"phase 7 replay launches {launches7}")
+        print(f"[7] HTTP tokens equal the replay's for all {len(served) + 1} completed requests; checkpoint load "
+              f"{load_s:.1f} s, shadow attach {attach_s:.2f} s ({launches7['dequant_pk']} K6 launches); shadow "
+              f"{shadow_bytes / 1e9:.3f} GB vs packed {packed_bytes / 1e9:.3f} GB ({shadow_bytes / packed_bytes:.2f}x); "
+              f"launches {json.dumps(launches7)}")
+        K.reset_launch_counts()
+        res0, plain_lg, plain_chunk_ms = replay(params7, "the same engine without shadows")
+        launches7_plain = K.launch_counts()
+        check(launches7_plain["matmul_pk_w4a8"] > 0 and launches7_plain["matmul_w8"] == 0,
+              f"phase 7 unshadowed replay launches {launches7_plain}")
+        hold_runs("[7]", ("unshadowed engine", "shadowed engine"), plain_lg, res0[big7].tokens, shadow_lg,
+                  res7[big7].tokens)
+        print(f"[7] 256-row chunk in the engine runs: {shadow_chunk_ms:.2f} ms with shadows (K5) vs "
+              f"{plain_chunk_ms:.2f} ms without (K4)")
+        # the same chunk alone, the two params in turns (K4 K5 K5 K4, three rounds): the host's share
+        # drifts between calls, so one reading of each side does not compare them
+        ring = T.KVCache.zeros(cfg7, 1, 8192, write_chunk=256, device=dev)
+        ring.length.fill_(4096)
+        chunk_tokens = torch.randint(0, cfg7.vocab_size, (1, 256), generator=g7, dtype=torch.int32).to(dev)
+        sides = {"K4": params7, "K5": shadowed}
+        eager = {"K4": [], "K5": []}
+        with torch.no_grad():
+            for side in ("K4", "K5", "K5", "K4") * 3:
+                eager[side].append(timed(lambda p=sides[side]: T.forward(p, cfg7, chunk_tokens, ring, last_index=255),
+                                         rep=5))
+            alone = {side: device_ms(lambda p=p: T.forward(p, cfg7, chunk_tokens, ring, last_index=255), rep=3)
+                     for side, p in sides.items()}
+        med = {side: sorted(v)[len(v) // 2] for side, v in eager.items()}
+        print(f"[7] one 256-row chunk at positions 4096-4351 (4352-row rings), eager ms per chunk, CUDA events "
+              f"over 5 back-to-back chunks, in turns K4 K5 K5 K4 x3: K4 {[round(v, 2) for v in eager['K4']]} "
+              f"(median {med['K4']:.2f}), K5 {[round(v, 2) for v in eager['K5']]} (median {med['K5']:.2f}); "
+              f"on the card alone (CUDA graph): K4 {alone['K4']:.2f} ms, K5 {alone['K5']:.2f} ms")
+        del params7, shadowed, res0, ring
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     # -- kernel table ------------------------------------------------------------------
     k_launch = launches["matmul_pk"] + launches["matmul_pk_minner"] + launches["matmul_pk_w4a8"]
     kernels_json.append(dict(
@@ -618,13 +923,16 @@ def main() -> int:
     meta = {"K2": ("matmul_pk", "matmul_pk.cu", 655), "K3": ("matmul_pk_minner", "matmul_pk_minner.cu", 702),
             "K4": ("matmul_pk_w4a8", "matmul_pk_w4a8.cu", 750)}
     run_launches = {"main": (launches, "phase 5"), "ring": (launches6, "phase 6 ring run"),
-                    "whole": (l_whole, "phase 6 whole-prompt run")}
-    for (kname, m), tot in rows.items():
+                    "whole": (l_whole, "phase 6 whole-prompt run"),
+                    "served": (launches7, "phase 7's shadowed replay: load, attach, serve"),
+                    "unshadowed": (launches7_plain, "phase 7's unshadowed replay")}
+    for (kname, m, run), tot in rows.items():
         wrapper, src, line = meta[kname]
-        counts, run_name = run_launches[tot["run"]]
+        counts, run_name = run_launches[run]
         bnd, by = P.bound_s(tot["bytes"], tot["ops"], P.H100_INT8_OPS if kname == "K4" else P.H100_BF16_FLOPS)
+        matmuls = "7 unfused" if run in UNFUSED_RUNS else "4 fused"
         kernels_json.append(dict(
-            name=f"{kname} {wrapper} (M={m}, the 4 fused matmuls of one Mistral-7B layer; launches of {run_name})",
+            name=f"{kname} {wrapper} (M={m}, the {matmuls} matmuls of one Mistral-7B layer; launches of {run_name})",
             route="cuda", source=f"torch_bnb_fp4_tpu_torch/csrc/{src}",
             replaces=f"torch_bnb_fp4_tpu/ops/kernels.py:{line}", launches=counts[wrapper], max_abs_err=tot["err"],
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bnd * 1e3, bound_by=by, library_ms=None,
@@ -639,6 +947,25 @@ def main() -> int:
             launches=counts["flash_attention"], max_abs_err=fr["max_abs_err"], row_err=fr["row_err"], ms=fr["ms"],
             plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"], bound_by=fr["bound_by"], library_ms=fr["library_ms"],
             dense_path_ms=fr["dense_ms"]))
+    # only the instances phase 7 runs (unfused; K6 at f32 out); the fused K5/K6 instances of phase 3c are
+    # yardsticks that no served run launches, printed above and left out of the table
+    for key, tot in shadow_rows.items():
+        if key[1] != "unfused":
+            continue
+        if key[0] == "K6":
+            name = (f"K6 dequantize_tpu_pk ({key[2]} out, the 7 unfused shapes of one Mistral-7B layer; launches of "
+                    f"phase 7's shadowed replay, whose attach_prefill_shadow runs it)")
+            wrapper, src, line = "dequant_pk", "dequant_pk.cu", 1329
+        else:
+            name = (f"K5 matmul_w8 (M={key[2]}, the 7 unfused matmuls of one Mistral-7B layer; launches of "
+                    f"phase 7's shadowed replay)")
+            wrapper, src, line = "matmul_w8", "matmul_w8.cu", 813
+        kernels_json.append(dict(
+            name=name, route="cuda", source=f"torch_bnb_fp4_tpu_torch/csrc/{src}",
+            replaces=f"torch_bnb_fp4_tpu/ops/kernels.py:{line}", launches=launches7[wrapper],
+            max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound"] * 1e3,
+            bound_by=max(tot["by"], key=tot["by"].get), library_ms=None, bf16_matmul_ms=tot["bf16_ms"],
+            int_mm_ms=tot["int_mm_ms"]))
     print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -11,7 +11,9 @@ these tests need no JAX.)
 
 Tolerances as in tests/test_torch_kernels.py: K1 bit-exact; bf16 outputs
 |dy| <= 2^-7 * max|y_plain|; f32 |dy| <= 1e-5 * max|y_plain|; K4 at most one
-bf16 ulp per element (its int8 dots are exact on both sides).  K7 against its
+bf16 ulp per element (its int8 dots are exact on both sides), and K5 the same
+(f32 out within 1e-6 of max|y|).  K6 and the int8 shadow built on the card:
+bit-exact with the plain versions on the CPU.  K7 against its
 plain version with the kernel's key blocks: |do| <= 2^-7 * max|o_plain| of
 its (query, head) row (bf16 output rounding, and the bf16 rounding of p after
 exp and summation orders that differ).
@@ -122,6 +124,71 @@ def test_k4_vs_plain(dev, k, n, m):
                                   a8_block_k=bk).float()
     ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
     assert ((got.float() - want).abs() <= ulp * 1.0001).all()
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("variant", ["exact", "zramp", "ramp", "lut"])
+@pytest.mark.parametrize("k,n", [(1024, 384), (14336, 4096)])
+def test_k6_bit_exact(dev, k, n, variant, out_dtype, scale_dtype):
+    _, packed, scale, _ = _operands(1, k, n, dev, seed=k + n, scale_dtype=scale_dtype)
+    cb = np.linspace(-1.0, 1.0, 16, dtype=np.float32) if variant == "lut" else None
+    before = K.launch_counts()["dequant_pk"]
+    got = K.dequantize_tpu_pk(packed, scale, cb, out_dtype=out_dtype, variant=variant)
+    assert K.launch_counts()["dequant_pk"] == before + 1 and got.dtype == out_dtype
+    want = K.dequantize_tpu_pk(packed.cpu(), scale.cpu(), cb, out_dtype=out_dtype, variant=variant)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("variant", ["ramp", "lut"])
+def test_int8_shadow_on_card_equals_cpu(dev, variant):
+    _, packed, scale, _ = _operands(1, 1536, 512, dev, seed=5)
+    cb = np.linspace(-1.0, 1.0, 16, dtype=np.float32) if variant == "lut" else None
+    w8, g = K.make_int8_shadow(packed, scale, cb, variant=variant, block_k=512)
+    w8_c, g_c = K.make_int8_shadow(packed.cpu(), scale.cpu(), cb, variant=variant, block_k=512)
+    assert torch.equal(w8.cpu(), w8_c) and torch.equal(g.cpu(), g_c)
+
+
+def _ulp_close(got, want):
+    """At most one ulp of the output type (bf16 or f16, subnormals included)."""
+    mant, min_exp = {torch.bfloat16: (7, -126), torch.float16: (10, -14)}[want.dtype]
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))).clamp_min(min_exp) - mant)
+    assert ((got - want).abs() <= ulp * 1.0001).all(), (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize("m,k,n,bk", [(256, 4096, 14336, 1024), (300, 1536, 512, 512), (1000, 14336, 4096, 1024)])
+def test_k5_vs_plain(dev, m, k, n, bk, out_dtype, bias):
+    x, packed, scale, b = _operands(m, k, n, dev, seed=m + k)
+    w8, g = K.make_int8_shadow(packed, scale, variant="ramp", block_k=bk)
+    x8, rs = K.quantize_activations(x, bk)
+    b = b if bias else None
+    before = K.launch_counts()["matmul_w8"]
+    got = K.matmul_w8_int8(x8, rs, w8, g, b, out_dtype=out_dtype, block_k=bk)
+    assert K.launch_counts()["matmul_w8"] == before + 1 and got.dtype == out_dtype
+    want = K.matmul_w8_plain(x8, rs, w8, g, b, out_dtype=out_dtype, block_k=bk)
+    torch.cuda.synchronize()
+    if out_dtype == torch.float32:
+        _close(got, want, 1e-6)
+    else:
+        _ulp_close(got, want)
+
+
+def test_k5_f16_input_through_the_shadow_route(dev):
+    """apply_linear's shadow branch on the card vs on the CPU, f16 x."""
+    from torch_bnb_fp4_tpu_torch.models import linear as L
+
+    rng = np.random.default_rng(0)
+    w = (rng.standard_normal((768, 1500)) * 0.02).astype(np.float32)
+    q = L.attach_int8_shadow(L.quantize_linear(w, device=dev))
+    x = torch.from_numpy(rng.standard_normal((257, 1500)).astype(np.float32)).to(torch.float16)
+    before = K.launch_counts()["matmul_w8"]
+    got = q(x.to(dev))
+    assert K.launch_counts()["matmul_w8"] == before + 1 and got.dtype == torch.float16
+    _ulp_close(got.cpu(), L.attach_int8_shadow(q.to("cpu"))(x))
 
 
 def test_model_cuda_matches_cpu_tiny(dev):

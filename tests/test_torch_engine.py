@@ -6,7 +6,10 @@ more requests than slots (slot recycling) and mixed prompt lengths in flight
 together.  One request is also held against the JAX package's ``generate``
 on the same weights, carried across with convert/from_numpy.py.  Chunked
 prefill interleaves with decoding and matches ``generate``; the ring engine
-matches the full-cache engine (as tests/test_sliding.py:193-209).
+matches the full-cache engine (as tests/test_sliding.py:193-209).  ``submit``
+rejects the sampling parameters and adapters a greedy engine cannot honour
+with the JAX engine's exception type, and ``abort`` cancels a request
+queued, between prefill chunks or decoding (as tests/test_serve.py).
 """
 
 import jax.numpy as jnp
@@ -95,8 +98,50 @@ def test_submit_validation(params):
         eng.submit(Request(uid=1, prompt=[]))
     with pytest.raises(ValueError):
         eng.submit(Request(uid=2, prompt=list(range(8))))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         eng.submit(Request(uid=3, prompt=[1], temperature=0.5))
+
+
+@pytest.fixture(scope="module")
+def jax_engine():
+    from torch_bnb_fp4_tpu.serve import Engine as JEngine, EngineConfig as JEngineConfig
+
+    jcfg = JT.ModelConfig.tiny_test(n_layers=1)
+    jp = JT.quantize_params(jcfg, JT.random_weights(jcfg, seed=9), fuse=True)
+    return JEngine(jp, jcfg, JEngineConfig(max_batch=1, max_len=8))
+
+
+BAD_SAMPLING = [dict(temperature="hot"), dict(temperature=True), dict(temperature=-1.0),
+                dict(temperature=float("nan")), dict(temperature=float("inf")), dict(temperature=0.5),
+                dict(top_p=0.0), dict(top_p=1.5), dict(top_p=0.9), dict(top_p="x"), dict(top_p=False),
+                dict(adapter="a")]
+
+
+@pytest.mark.parametrize("bad", BAD_SAMPLING, ids=lambda d: "-".join(f"{k}={v}" for k, v in d.items()))
+def test_submit_rejects_bad_sampling_as_jax_does(params, jax_engine, bad):
+    """A greedy engine rejects per-request sampling and adapters it cannot
+    honour with the JAX engine's exception type (ValueError): the HTTP
+    server turns that into a 400 and keeps serving the other requests."""
+    from torch_bnb_fp4_tpu.serve import Request as JRequest
+
+    eng = Engine(params, CFG, EngineConfig(max_batch=1, max_len=8))
+    with pytest.raises(Exception) as want:
+        jax_engine.submit(JRequest(uid=1, prompt=[1], **bad))
+    with pytest.raises(Exception) as got:
+        eng.submit(Request(uid=1, prompt=[1], **bad))
+    assert got.type is want.type is ValueError
+    assert not eng.pending
+
+
+@pytest.mark.parametrize("ok", [dict(temperature=0), dict(temperature=0.0, top_p=1), dict(top_p=1.0)])
+def test_submit_accepts_greedy_sampling_values(params, jax_engine, ok):
+    from torch_bnb_fp4_tpu.serve import Request as JRequest
+
+    jax_engine.submit(JRequest(uid=1, prompt=[1], **ok))
+    jax_engine.pending.clear()
+    eng = Engine(params, CFG, EngineConfig(max_batch=1, max_len=8))
+    eng.submit(Request(uid=1, prompt=[1], **ok))
+    assert len(eng.pending) == 1
 
 
 def test_chunked_prefill_matches_generate_and_interleaves(params):
@@ -155,3 +200,46 @@ def test_rings_need_chunked_prefill():
 def test_prefill_chunk_must_be_a_multiple_of_32(chunk):
     with pytest.raises(ValueError, match="multiple of 32"):
         EngineConfig(prefill_chunk=chunk)
+
+
+def test_abort(params):
+    """tests/test_serve.py::test_abort: abort() cancels queued and decoding
+    requests; unaffected requests stay equal to generate; unknown uids
+    return False."""
+    eng = Engine(params, CFG, EngineConfig(max_batch=1, max_len=32))
+    eng.submit(Request(uid=1, prompt=[1, 2], max_new_tokens=6))
+    eng.submit(Request(uid=2, prompt=[3, 4], max_new_tokens=6))
+    assert eng.abort(2)  # still queued -> empty completion
+    eng.step()  # admits uid 1
+    assert eng.abort(1)  # decoding -> keeps its tokens so far
+    assert not eng.abort(99)
+    eng.submit(Request(uid=3, prompt=[5, 6], max_new_tokens=4))
+    while len(eng.completions) < 3:
+        eng.step()
+    res = {c.uid: c for c in eng.completions}
+    assert res[2].finish_reason == "abort" and res[2].tokens == []
+    assert res[1].finish_reason == "abort" and len(res[1].tokens) >= 1
+    assert res[3].tokens == _oracle(params, [5, 6], 4) and res[3].logprobs is None
+    assert eng.stats()["completions"] == 3 and eng.slot_req == [None]
+
+
+def test_abort_mid_chunked_prefill(params):
+    """A request aborted between two prefill chunks completes empty; its slot
+    was never bound, and the next request is served as generate serves it."""
+    eng = Engine(params, CFG, EngineConfig(max_batch=1, max_len=128, prefill_chunk=32))
+    eng.submit(Request(uid=1, prompt=list(range(1, 90)), max_new_tokens=4))
+    eng.step()  # first of three chunks
+    assert eng._pf is not None and eng._pf["req"].uid == 1
+    assert eng.abort(1) and eng._pf is None and eng.slot_req == [None]
+    assert not eng.abort(1)
+    res = eng.run([Request(uid=2, prompt=[7, 8, 9], max_new_tokens=5)])
+    assert res[1].finish_reason == "abort" and res[1].tokens == [] and res[1].prompt_len == 89
+    assert res[2].tokens == _oracle(params, [7, 8, 9], 5)
+
+
+def test_submit_rejects_out_of_vocab_tokens(params):
+    eng = Engine(params, CFG, EngineConfig(max_batch=1, max_len=8))
+    for bad in ([CFG.vocab_size], [-1]):
+        with pytest.raises(ValueError, match="token ids"):
+            eng.submit(Request(uid=1, prompt=bad))
+    assert not eng.pending

@@ -46,6 +46,10 @@ def flatten_jax_params(params):
             linears[prefix] = dict(kind="quant", n_out=lin.n_out, k_in=lin.k_in, blocksize=lin.blocksize,
                                    variant=lin.variant,
                                    scale_dtype="bfloat16" if lin.absmax_hi.dtype == jnp.bfloat16 else "float32")
+            if lin.w8 is not None:  # int8 prefill shadow
+                arrays[prefix + ".w8"] = np.asarray(lin.w8)
+                arrays[prefix + ".w8_scale"] = np.asarray(lin.w8_scale)
+                linears[prefix]["w8_block_k"] = lin.w8_block_k
         else:
             arrays[prefix + ".w"] = _f32(lin.w)
             if lin.bias is not None:

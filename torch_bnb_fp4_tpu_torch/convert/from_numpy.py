@@ -13,6 +13,8 @@ w_up w_down wqkv w_gateup; absent linears are simply missing):
   layers.i.L.scale           (k_pad/bs, n_pad)   f32 (or bf16 leaf, see below)
   layers.i.L.bias            (n_out,)            f32, optional
   layers.i.L.codebook        (16,)               f32, lut variant only
+  layers.i.L.w8              (k_pad, n_pad)      int8       int8 prefill shadow, optional
+  layers.i.L.w8_scale        (k_pad/w8_block_k, n_pad)  f32  its per-K-tile column scales
   layers.i.L.w               (k_in, n_out)       bf16 leaf  dense linear
   layers.i.L.bias            (n_out,)            bf16 leaf  dense linear, optional
   lm_head.*                  as a linear (``lm_head.w`` for the dense head)
@@ -21,7 +23,8 @@ bf16 leaves arrive as float32, which holds every bf16 value exactly, and are
 cast back to bf16 here.  ``meta["linears"]`` maps each linear's prefix
 (``layers.3.wqkv``, ``lm_head``) to its static fields:
 ``{"kind": "quant", "n_out", "k_in", "blocksize", "variant", "scale_dtype":
-"float32" | "bfloat16"}`` or ``{"kind": "dense", "n_out", "k_in"}``.
+"float32" | "bfloat16", "w8_block_k"}`` (``w8_block_k``, the shadow's K-tile
+depth, only with ``.w8``) or ``{"kind": "dense", "n_out", "k_in"}``.
 """
 
 from __future__ import annotations
@@ -65,11 +68,17 @@ def params_from_numpy(arrays: dict[str, np.ndarray], meta: dict, cfg: ModelConfi
         if arrays[prefix + ".packed"].dtype != np.uint8:
             raise ValueError(f"{prefix}.packed must be uint8")
         cb_key = prefix + ".codebook"
+        shadow = {}
+        if prefix + ".w8" in arrays:
+            if arrays[prefix + ".w8"].dtype != np.int8:
+                raise ValueError(f"{prefix}.w8 must be int8")
+            shadow = dict(w8=t(prefix + ".w8"), w8_scale=t(prefix + ".w8_scale", torch.float32),
+                          w8_block_k=m["w8_block_k"])
         return QuantLinear(
             packed=t(prefix + ".packed"), scale=t(prefix + ".scale", _DTYPES[m.get("scale_dtype", "float32")]),
             bias=t(bias_key, torch.float32) if bias_key in arrays else None,
             n_out=m["n_out"], k_in=m["k_in"], blocksize=m.get("blocksize", 64), variant=m["variant"],
-            codebook=t(cb_key, torch.float32) if cb_key in arrays else None,
+            codebook=t(cb_key, torch.float32) if cb_key in arrays else None, **shadow,
         )
 
     layers = []

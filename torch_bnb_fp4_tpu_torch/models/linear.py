@@ -6,6 +6,11 @@ and N to the kernels' quanta and picks a kernel by the row count M through
 ``ops.kernels.matmul_fp4_pk``.  Padding: the pack step zero-pads N to 128 and
 K to 512 (code 0 with a zero scale decodes to 0); apply pads x with zeros and
 slices the result.
+
+The int8 prefill shadow (:func:`attach_int8_shadow`) decodes and requantizes
+a layer's weights once (K6) into ``w8`` / ``w8_scale``; prefill GEMMs of 256
+rows or more then run as a pure int8 GEMM (K5).  Only the pair-K layout is
+ported: split-K (K9a/K9b) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,7 +37,9 @@ class QuantLinear:
     ``packed`` uint8 (k_pad/2, n_pad) and ``scale`` (k_pad/blocksize, n_pad)
     f32|bf16 (the JAX package's ``absmax_hi``; its ``absmax_lo`` is None for
     pair-K).  ``variant`` names the stored codebook; ``codebook`` (16,) f32 is
-    set for ``variant="lut"`` only.
+    set for ``variant="lut"`` only.  Optional int8 prefill shadow: ``w8``
+    (k_pad, n_pad) int8 and ``w8_scale`` (k_pad / w8_block_k, n_pad) f32
+    per-K-tile column scales (:func:`attach_int8_shadow`).
     """
 
     packed: torch.Tensor
@@ -43,6 +50,9 @@ class QuantLinear:
     blocksize: int = 64
     variant: str = "exact"
     codebook: torch.Tensor | None = None
+    w8: torch.Tensor | None = None
+    w8_scale: torch.Tensor | None = None
+    w8_block_k: int = 1024
 
     @property
     def n_pad(self) -> int:
@@ -55,7 +65,7 @@ class QuantLinear:
     def to(self, device) -> "QuantLinear":
         mv = lambda t: None if t is None else t.to(device)  # noqa: E731
         return dataclasses.replace(self, packed=mv(self.packed), scale=mv(self.scale), bias=mv(self.bias),
-                                   codebook=mv(self.codebook))
+                                   codebook=mv(self.codebook), w8=mv(self.w8), w8_scale=mv(self.w8_scale))
 
     def __call__(self, x: torch.Tensor, **kw) -> torch.Tensor:
         return apply_linear(self, x, **kw)
@@ -117,7 +127,7 @@ def quantize_linear(w: np.ndarray, bias: np.ndarray | None = None, *, blocksize:
     if quant_type not in ("fp4", "nf4"):
         raise ValueError(f"quant_type must be 'fp4' or 'nf4', got {quant_type!r}")
     if layout not in (None, "pairk"):
-        raise NotImplementedError(f"layout={layout!r} is not yet ported (pairk only)")
+        raise NotImplementedError(f"layout={layout!r} is not yet ported (pairk only; split-K needs K9a/K9b)")
     if quant_type == "nf4":
         variant = "lut"
     elif variant not in fmt.PAIRK_VARIANTS:
@@ -145,7 +155,10 @@ def quantize_linear(w: np.ndarray, bias: np.ndarray | None = None, *, blocksize:
 
 def apply_linear(q: QuantLinear, x: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
     """Forward pass, x (..., k_in) -> (..., n_out): one row goes through the
-    batch-1 route, more rows through ``matmul_fp4_pk``'s M-based choice."""
+    batch-1 route; with a shadow attached, M >= ``A8_MIN_M`` rows of non-f32
+    x through K5 (any variant, lut included); other rows through
+    ``matmul_fp4_pk``'s M-based choice (the JAX package's
+    models/linear.py:475-498)."""
     *lead, k = x.shape
     if k != q.k_in:
         raise ValueError(f"input feature dim {k} does not match layer k_in={q.k_in} "
@@ -163,6 +176,9 @@ def apply_linear(q: QuantLinear, x: torch.Tensor, *, out_dtype=None) -> torch.Te
     kw = dict(blocksize=q.blocksize, out_dtype=out_dtype, variant=q.variant)
     if m == 1:
         out = K.gemv_fp4_pk(x2, q.packed, q.scale, bias, cb, **kw)
+    elif q.w8 is not None and m >= K.A8_MIN_M and x2.dtype != torch.float32:
+        # f16 x is quantized from its own values (matmul_fp4_pk would round it to bf16 first)
+        out = K.matmul_w8(x2, q.w8, q.w8_scale, bias, block_k=q.w8_block_k, out_dtype=out_dtype)
     else:
         out = K.matmul_fp4_pk(x2, q.packed, q.scale, bias, cb, **kw)
     if q.n_pad != q.n_out:
@@ -195,3 +211,48 @@ def fuse_linears(linears: list[QuantLinear]) -> QuantLinear:
         bias=bias, n_out=sum(l.n_out for l in linears), k_in=q0.k_in, blocksize=q0.blocksize,
         variant=q0.variant, codebook=q0.codebook,
     )
+
+
+def dequantize_weight(q: QuantLinear, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Materialize W (n_out, k_in) through K6 (the JAX package's
+    ``dequantize_weight``, pair-K layout)."""
+    wt = K.dequantize_tpu_pk(q.packed, q.scale, q.codebook if q.variant == "lut" else None, blocksize=q.blocksize,
+                             out_dtype=out_dtype, variant=q.variant)
+    return wt[: q.k_in, : q.n_out].T
+
+
+def attach_int8_shadow(q: QuantLinear, tp: int = 1) -> QuantLinear:
+    """Attach the int8 prefill shadow to a pair-K QuantLinear: K6 and the
+    requantization run once (``ops.kernels.make_int8_shadow``) so that
+    prefill GEMMs of M >= 256 rows run as pure int8 GEMMs (K5).  Costs one
+    byte per weight on the device (twice the packed FP4); the FP4 bytes stay
+    the decode path.  The tile depth ``w8_block_k`` is 1024 where it divides
+    k_pad, else 512 (the pair-K layout pads K to a multiple of 512)."""
+    if tp != 1:
+        raise NotImplementedError("tensor parallelism is not yet ported (tp must be 1)")
+    if q.packed.ndim != 2:
+        raise ValueError("stacked (expert) linears are not supported yet")
+    bk = 1024 if q.k_pad % 1024 == 0 else 512
+    w8, g = K.make_int8_shadow(q.packed, q.scale, q.codebook if q.variant == "lut" else None,
+                               blocksize=q.blocksize, variant=q.variant, block_k=bk)
+    return dataclasses.replace(q, w8=w8, w8_scale=g, w8_block_k=bk)
+
+
+def attach_prefill_shadow(params, tp: int = 1):
+    """A copy of ``params`` (a ``ModelParams``, or any dataclass or list
+    holding linears) in which every 2-D pair-K QuantLinear, a quantized
+    lm_head included, carries an int8 prefill shadow.  Dense layers and
+    stacked (expert) packings are left as they are."""
+    if tp != 1:
+        raise NotImplementedError("tensor parallelism is not yet ported (tp must be 1)")
+
+    def walk(v):
+        if isinstance(v, QuantLinear):
+            return attach_int8_shadow(v) if v.packed.ndim == 2 else v
+        if isinstance(v, list):
+            return [walk(x) for x in v]
+        if dataclasses.is_dataclass(v) and not isinstance(v, (type, DenseLinear)):
+            return dataclasses.replace(v, **{f.name: walk(getattr(v, f.name)) for f in dataclasses.fields(v)})
+        return v
+
+    return walk(params)

@@ -1,5 +1,6 @@
-"""Pair-K FP4 kernels K1-K4: CUDA wrappers, plain PyTorch versions, launch
-counts, and the M-based path choice of ``matmul_fp4_pk``.
+"""Pair-K FP4 kernels K1-K6: CUDA wrappers, plain PyTorch versions, launch
+counts, the M-based path choice of ``matmul_fp4_pk`` and the int8 prefill
+shadow.
 
 Counterpart of ``torch_bnb_fp4_tpu/ops/kernels.py`` (pair-K part).  Every
 wrapper takes its kernel's plain version for a tensor on the CPU and launches
@@ -12,6 +13,8 @@ against its plain version on the card.
   K2 matmul_pk          csrc/matmul_pk.cu          GEMV / small-M (m-outer)
   K3 matmul_pk_minner   csrc/matmul_pk_minner.cu   decode-once GEMM (m-inner)
   K4 matmul_pk_w4a8     csrc/matmul_pk_w4a8.cu     int8 tensor-core GEMM
+  K5 matmul_w8          csrc/matmul_w8.cu          int8 GEMM over a prefill shadow
+  K6 dequantize_tpu_pk  csrc/dequant_pk.cu         pair-K dequantize (Wt = w * s)
 
 Block shapes are constants of the kernels; there is no per-chip table.
 """
@@ -40,7 +43,8 @@ K2_BLOCKS_PER_SM = 4
 
 # launches per wrapper: each CUDA launch adds one (plain CPU calls do not);
 # "flash_attention" is K7's, counted by ops/attention.py
-LAUNCHES = {"decode_pairs": 0, "matmul_pk": 0, "matmul_pk_minner": 0, "matmul_pk_w4a8": 0, "flash_attention": 0}
+LAUNCHES = {"decode_pairs": 0, "matmul_pk": 0, "matmul_pk_minner": 0, "matmul_pk_w4a8": 0, "flash_attention": 0,
+            "matmul_w8": 0, "dequant_pk": 0}
 
 
 def reset_launch_counts() -> None:
@@ -258,19 +262,25 @@ def matmul_pk_w4a8_plain(x8, rs, packed, scale, bias=None, *, blocksize=64, out_
 # ---------------------------------------------------------------------------
 
 
+def _check_buffers(**tensors) -> None:
+    """Every given tensor on the first one's device, contiguous and 16-byte
+    aligned (None entries are skipped)."""
+    first, dev = next((n, t.device) for n, t in tensors.items() if t is not None)
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, {first} on {dev}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned for the CUDA kernels")
+
+
 def _check_cuda_operands(x, x_dtypes, packed, scale, bias, blocksize, **extra):
     """What the CUDA kernels assume and do not check themselves: dtypes, one
     device, contiguous 16-byte-aligned buffers, blocksize 64 and N % 128."""
     if x.dtype not in x_dtypes:
         raise ValueError(f"the CUDA kernel takes x in {x_dtypes}, got {x.dtype}")
-    dev = x.device
-    for name, t in (("x", x), ("packed", packed), ("scale", scale), ("bias", bias), *extra.items()):
-        if t is None:
-            continue
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, x on {dev}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned for the CUDA kernels")
+    _check_buffers(x=x, packed=packed, scale=scale, bias=bias, **extra)
     if packed.dtype != torch.uint8 or scale.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"packed must be uint8 and scale f32/bf16, got {packed.dtype}, {scale.dtype}")
     if blocksize != 64:
@@ -453,3 +463,124 @@ def gemv_fp4_pk(x, packed, scale, bias=None, codebook=None, *, blocksize=64, out
         raise ValueError(f"gemv_fp4_pk is the batch-1 fast path; got x.shape={tuple(x.shape)} (use matmul_fp4_pk)")
     return matmul_fp4_pk(x, packed, scale, bias, codebook, blocksize=blocksize, out_dtype=out_dtype,
                          variant=variant)
+
+
+# ---------------------------------------------------------------------------
+# K6: pair-K dequantize, and the int8 prefill shadow built from it
+# ---------------------------------------------------------------------------
+
+
+def dequantize_pk_plain(packed, scale, lut=None, *, blocksize=64, out_dtype=torch.bfloat16, variant):
+    """Plain K6: Wt (K, N) = w * s in f32, cast once to ``out_dtype``; w is
+    192*code (bf16(code) for lut), s the scale row of the weight's block."""
+    w = pairs_weight_tile(packed, variant, lut).float()
+    return (w * scale.float().repeat_interleave(blocksize, dim=0)).to(out_dtype)
+
+
+def dequantize_tpu_pk(packed, scale, codebook=None, *, blocksize=64, out_dtype=torch.bfloat16, variant):
+    """K6: materialize Wt (K, N) from a pair-K packing (the JAX package's
+    ``dequantize_tpu_pk``, ops/kernels.py:1339); bit-exact with
+    :func:`dequantize_pk_plain`."""
+    if variant == "lut":
+        if codebook is None:
+            raise ValueError("variant='lut' requires a 16-entry codebook array")
+    elif variant not in fmt.PAIRK_VARIANTS:
+        raise ValueError(f"unknown pairk variant {variant!r}; expected one of {fmt.PAIRK_VARIANTS} or 'lut'")
+    kp, n = packed.shape
+    if scale.shape != (2 * kp // blocksize, n):
+        raise ValueError(f"scale must be {(2 * kp // blocksize, n)} for blocksize={blocksize}, got {tuple(scale.shape)}")
+    lut = make_pairk_lut(codebook, packed.device) if variant == "lut" else None
+    if not packed.is_cuda:
+        return dequantize_pk_plain(packed, scale, lut, blocksize=blocksize, out_dtype=out_dtype, variant=variant)
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"the CUDA kernel writes f32, bf16 or f16, got {out_dtype}")
+    # packed stands in for x: the checks need a tensor on the operands' device
+    _check_cuda_operands(packed, (torch.uint8,), packed, scale, None, blocksize, lut=lut)
+    out = torch.empty((2 * kp, n), dtype=out_dtype, device=packed.device)
+    fn = _build.kernel("dequant_pk.cu")
+    LAUNCHES["dequant_pk"] += 1
+    _check_status("dequant_pk", fn(packed.data_ptr(), scale.data_ptr(), _DTYPE_CODE[scale.dtype], _ptr(lut),
+                                   out.data_ptr(), _DTYPE_CODE[out_dtype], kp, n, VARIANT_CODE[variant],
+                                   _stream(packed)))
+    return out
+
+
+def make_int8_shadow(packed, scale, codebook=None, *, blocksize=64, variant, block_k=1024):
+    """(w8 (K, N) int8, g (K/block_k, N) f32): the int8 prefill shadow of a
+    pair-K packing (the JAX package's ``make_int8_shadow``, :928): K6 at f32,
+    then per (block_k tile, column) g = max|Wt| (0 -> 1), w8 =
+    round_half_even(Wt * (127 / g)), and g / 127.  Torch ops on the weights'
+    device after K6; the division is written out, as in
+    :func:`quantize_activations`, so the bytes equal the JAX package's."""
+    wt = dequantize_tpu_pk(packed, scale, codebook, blocksize=blocksize, out_dtype=torch.float32, variant=variant)
+    k, n = wt.shape
+    if k % block_k:
+        raise ValueError(f"K={k} must divide by block_k={block_k}")
+    wr = wt.reshape(k // block_k, block_k, n)
+    g = wr.abs().amax(dim=1)
+    g = torch.where(g == 0.0, torch.ones_like(g), g)
+    q = torch.full_like(g, 127.0).div(g)
+    w8 = torch.round(wr.mul_(q[:, None, :])).to(torch.int8).reshape(k, n)
+    return w8.contiguous(), (g * (1.0 / 127.0)).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K5: int8 GEMM over a prefill shadow
+# ---------------------------------------------------------------------------
+
+
+def matmul_w8_plain(x8, rs, w8, g, bias=None, *, out_dtype, block_k):
+    """Plain K5: exact per-K-tile integer dots (float64 holds them exactly),
+    then acc = acc + (d * rs) * g tile by tile in f32."""
+    m, k = x8.shape
+    n = w8.shape[1]
+    nk = k // block_k
+    xt = x8.double().reshape(m, nk, block_k).transpose(0, 1)  # (nk, m, bk)
+    d = torch.bmm(xt, w8.double().reshape(nk, block_k, n)).float()  # (nk, m, n) exact
+    acc = torch.zeros((m, n), dtype=torch.float32, device=x8.device)
+    for t in range(nk):
+        acc = acc + (d[t] * rs[:, t : t + 1]) * g[t][None, :]
+    return _finish(acc, bias, out_dtype)
+
+
+def matmul_w8_int8(x8, rs, w8, g, bias=None, *, out_dtype, block_k):
+    """K5 on pre-quantized activations: the CUDA kernel on a CUDA tensor,
+    :func:`matmul_w8_plain` on a CPU one."""
+    if not x8.is_cuda:
+        return matmul_w8_plain(x8, rs, w8, g, bias, out_dtype=out_dtype, block_k=block_k)
+    m, k = x8.shape
+    n = w8.shape[1]
+    if x8.dtype != torch.int8 or w8.dtype != torch.int8 or g.dtype != torch.float32 or rs.dtype != torch.float32:
+        raise ValueError(f"K5 takes int8 x8 and w8 and f32 rs and g, got {x8.dtype}, {w8.dtype}, {rs.dtype}, {g.dtype}")
+    if k % block_k or block_k % 64 or n % 128:
+        raise ValueError(f"K5 needs block_k | K, block_k % 64 == 0 and N % 128 == 0, got K={k} block_k={block_k} N={n}")
+    if bias is not None and bias.dtype != torch.float32:
+        raise ValueError(f"bias must be float32, got {bias.dtype}")
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"the CUDA kernel writes f32, bf16 or f16, got {out_dtype}")
+    _check_buffers(x8=x8, rs=rs, w8=w8, g=g, bias=bias)
+    out = torch.empty((m, n), dtype=out_dtype, device=x8.device)
+    fn = _build.kernel("matmul_w8.cu")
+    LAUNCHES["matmul_w8"] += 1
+    _check_status("matmul_w8", fn(x8.data_ptr(), rs.data_ptr(), w8.data_ptr(), g.data_ptr(), _ptr(bias),
+                                  out.data_ptr(), _DTYPE_CODE[out_dtype], m, k, n, block_k, _stream(x8)))
+    return out
+
+
+def matmul_w8(x, w8, g, bias=None, *, block_k=1024, out_dtype=None):
+    """y[M, N] = x[M, K] @ dequant8(w8)[K, N] (+ bias): the int8-shadow GEMM
+    (the JAX package's ``matmul_w8``, ops/kernels.py:852).  ``g`` has one row
+    per ``block_k`` rows of the shadow.  x (any float dtype) is quantized per
+    (row, block_k tile) from its own values widened to f32, so f16 input is
+    not rounded to bf16 first; the result has x's dtype unless ``out_dtype``
+    says otherwise."""
+    k, n = w8.shape
+    if x.ndim != 2 or x.shape[1] != k:
+        raise ValueError(f"x must be (M, {k}), got {tuple(x.shape)}")
+    if k % block_k:
+        raise ValueError(f"K={k} must divide by block_k={block_k}")
+    if g.shape != (k // block_k, n):
+        raise ValueError(f"g must be {(k // block_k, n)} (block_k={block_k}), got {tuple(g.shape)}")
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    x8, rs = quantize_activations(x, block_k)
+    return matmul_w8_int8(x8, rs, w8, g, bias, out_dtype=out_dtype, block_k=block_k)

@@ -1,5 +1,6 @@
-"""Greedy continuous-batching engine."""
+"""Greedy continuous-batching engine and its HTTP server."""
 
 from .engine import Completion, Engine, EngineConfig, Request
+from .server import EngineServer
 
-__all__ = ["Completion", "Engine", "EngineConfig", "Request"]
+__all__ = ["Completion", "Engine", "EngineConfig", "EngineServer", "Request"]

@@ -22,14 +22,16 @@ rows [0, Lp) and resets the length, and attention masks past the length.
 
 Not yet ported (setting them raises ``NotImplementedError``): sampling,
 logprobs, admission budgets, batch buckets, the fp8 KV cache, speculative
-decoding, prefix caching and the retired-prefix store, warmup, abort, LoRA
-adapters and multi-device meshes.
+decoding, prefix caching and the retired-prefix store, warmup, LoRA adapters
+and multi-device meshes.  A request that asks for sampling or an adapter is a
+bad request (``ValueError``), as on the JAX package's greedy engine.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import time
 from collections import deque
 
@@ -48,8 +50,9 @@ class Request:
     max_new_tokens: int = 64
     eos_id: int | None = None
     stop_ids: list[int] | None = None  # extra stop tokens; finish_reason "stop"
-    # per-request sampling / adapter overrides: not yet ported (a greedy
-    # engine accepts temperature 0 and top_p 1, which change nothing)
+    # per-request sampling / adapter overrides: a greedy engine accepts
+    # temperature 0 and top_p 1, which change nothing, and rejects the rest
+    # with ValueError, as the JAX engine does
     temperature: float | None = None
     top_p: float | None = None
     adapter: str | None = None
@@ -60,9 +63,10 @@ class Completion:
     uid: int
     tokens: list[int]
     prompt_len: int
-    finish_reason: str  # "eos" | "stop" | "length"
+    finish_reason: str  # "eos" | "stop" | "length" | "abort"
     ttft_s: float = 0.0  # submit -> first token (queue wait + prefill), host clock
     total_s: float = 0.0  # submit -> completion
+    logprobs: list[float] | None = None  # per-token logprobs: not yet ported, always None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,10 +195,55 @@ class Engine:
             raise ValueError("empty prompt (need at least one token to prefill)")
         if len(req.prompt) >= self.ecfg.max_len:
             raise ValueError(f"prompt len {len(req.prompt)} >= max_len {self.ecfg.max_len}")
-        if req.temperature not in (None, 0, 0.0) or req.top_p not in (None, 1, 1.0) or req.adapter is not None:
-            raise NotImplementedError("per-request sampling and LoRA adapters are not yet ported (greedy only)")
+        if not all(0 <= t < self.cfg.vocab_size for t in req.prompt):
+            # torch indexing raises on the engine thread, failing every request in flight
+            raise ValueError(f"prompt token ids must be in [0, {self.cfg.vocab_size})")
+        t = req.temperature
+        if t is not None:
+            if not isinstance(t, (int, float)) or isinstance(t, bool) or not math.isfinite(t) or t < 0:
+                raise ValueError(f"temperature must be a finite number >= 0, got {t!r}")
+            if t > 0:
+                raise ValueError("the engine is greedy (sampling is not yet ported); a per-request temperature "
+                                 "cannot enable sampling")
+        tp = req.top_p
+        if tp is not None:
+            if not isinstance(tp, (int, float)) or isinstance(tp, bool) or not (0.0 < tp <= 1.0):
+                raise ValueError(f"top_p must be in (0, 1], got {tp!r}")
+            if tp < 1.0:
+                raise ValueError("the engine has no nucleus path (sampling is not yet ported); a per-request "
+                                 "top_p cannot enable it")
+        if req.adapter is not None:
+            raise ValueError(f"unknown adapter {req.adapter!r} (engine has []; LoRA adapters are not yet ported)")
         self._submit_t[req.uid] = time.perf_counter()
         self.pending.append(req)
+
+    def abort(self, uid: int) -> bool:
+        """Cancel a request wherever it is (queued, mid-chunked-prefill, or
+        decoding).  A request that already produced tokens completes with
+        finish_reason "abort" and the tokens so far; a queued one completes
+        empty.  Returns False if the uid is unknown (e.g. already finished).
+        Host-side only: the freed slot just stops being fed."""
+        for i, r in enumerate(self.pending):
+            if r.uid == uid:
+                del self.pending[i]
+                self._complete_empty(r)
+                return True
+        if self._pf is not None and self._pf["req"].uid == uid:
+            r = self._pf["req"]
+            self._pf = None  # its small cache is dropped; the slot was never bound
+            self._complete_empty(r)
+            return True
+        for i, r in enumerate(self.slot_req):
+            if r is not None and r.uid == uid:
+                self._retire(i, "abort")
+                return True
+        return False
+
+    def _complete_empty(self, req: Request) -> None:
+        t = self._submit_t.pop(req.uid, time.perf_counter())
+        self._completed += 1
+        self.completions.append(Completion(uid=req.uid, tokens=[], prompt_len=len(req.prompt), finish_reason="abort",
+                                           ttft_s=0.0, total_s=time.perf_counter() - t))
 
     def _free_slots(self) -> list[int]:
         return [i for i, r in enumerate(self.slot_req) if r is None]

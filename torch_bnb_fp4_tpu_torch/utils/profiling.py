@@ -93,3 +93,19 @@ def attention_bound_s(q, k, pairs: int) -> tuple[float, str]:
     d, hq = q.shape[3], q.shape[2]
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     return bound_s(nbytes, 4 * d * hq * pairs, H100_BF16_FLOPS)
+
+
+def matmul_w8_bound_s(m: int, k: int, n: int, block_k: int, out_bytes: int, bias: bool = False) -> tuple[float, str]:
+    """Bound of one K5 call: the shadow w8 (K*N bytes) and its scales g
+    ((K/block_k)*N f32), x8 (M*K) and rs (M*(K/block_k) f32) and the bias
+    read once, the output written once; 2*M*K*N int8 tensor-core ops."""
+    nk = k // block_k
+    nbytes = k * n + nk * n * 4 + m * k + m * nk * 4 + (n * 4 if bias else 0) + m * n * out_bytes
+    return bound_s(nbytes, 2 * m * k * n, H100_INT8_OPS)
+
+
+def dequant_pk_bound_s(k: int, n: int, scale_bytes: int, out_bytes: int) -> tuple[float, str]:
+    """Bound of one K6 call: the packed bytes (K*N/2) and scales
+    ((K/64)*N*scale_bytes) read once, Wt (K*N*out_bytes) written once; one
+    f32 multiply per weight on the CUDA cores."""
+    return bound_s(k * n // 2 + (k // 64) * n * scale_bytes + k * n * out_bytes, k * n, H100_F32_FLOPS)
