@@ -5,16 +5,24 @@ torch.profiler over eager greedy decode steps of the Mistral-7B geometry
 cache, and over one 256-row chunk of a long prompt (positions 5632-5887) on
 the 4352-row sliding-window rings of chunked prefill: fused, then unfused as
 the CLI loads a checkpoint, without and with int8 prefill shadows (K5).
-Prints the host wall time per step, the summed device time of the kernels
-per step, and the kernels ranked by device time, grouped as the port's
-kernels (K2 and its split reduction, K3, K4, K5, K7), attention (einsum/bmm,
-softmax, masking), the dense lm_head GEMM, and everything else.
+With ``--model mixtral_8x7b``: the 32-layer Mixtral-8x7B (fused gate|up
+experts) at batch 1 (per-token dispatch, two experts per layer), batch 8
+(all experts) and one 256-row chunk at position 4096 of an 8192-row cache
+(all experts), with the device time of the K8 launches (the expert forms of
+K2-K4, inside a ``record_function`` range around each expert call) beside the
+rest.  Prints the host wall time per step, the summed device time of the
+kernels per step, launches per step, and the kernels ranked by device time,
+grouped as the port's kernels (K2 and its split reduction, K3, K4, K5, K7),
+attention (einsum/bmm, softmax, masking), the dense lm_head GEMM, and
+everything else.
 
-    python3 benchmarks_torch/decode_profile.py
+    python3 benchmarks_torch/decode_profile.py [--model mixtral_8x7b]
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import subprocess
 import sys
 import time
@@ -22,16 +30,18 @@ from collections import defaultdict
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from torch_bnb_fp4_tpu_torch.models import transformer as T  # noqa: E402
 from torch_bnb_fp4_tpu_torch.models.linear import attach_prefill_shadow  # noqa: E402
 from torch_bnb_fp4_tpu_torch.ops import _build  # noqa: E402
+from torch_bnb_fp4_tpu_torch.ops import kernels as K  # noqa: E402
 from torch_bnb_fp4_tpu_torch.utils.synth import synth_params  # noqa: E402
 
 STEPS = 8
+K8_RANGE = "K8 expert forms"
 
 
 def group(name: str) -> str:
@@ -56,23 +66,57 @@ def group(name: str) -> str:
     return "other"
 
 
+@contextlib.contextmanager
+def k8_ranges():
+    """Wrap every expert-form call of K2-K4 in a ``K8_RANGE`` profiler range
+    (the 2-D calls are left alone), so the profile attributes the kernels
+    launched inside to K8."""
+    names = ("matmul_pk", "matmul_pk_minner", "matmul_pk_w4a8")
+    originals = {n: getattr(K, n) for n in names}
+
+    def ranged(fn):
+        def call(*args, expert=None, **kw):
+            if expert is None:
+                return fn(*args, **kw)
+            with record_function(K8_RANGE):
+                return fn(*args, expert=expert, **kw)
+        return call
+
+    for n in names:
+        setattr(K, n, ranged(originals[n]))
+    try:
+        yield
+    finally:
+        for n, fn in originals.items():
+            setattr(K, n, fn)
+
+
 def profile_steps(label: str, step) -> None:
     """Profile ``STEPS`` calls of ``step()`` after two warm-up calls."""
-    with torch.no_grad():
+    with torch.no_grad(), k8_ranges():
         for _ in range(2):
             step()
         torch.cuda.synchronize()
+        K.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(STEPS):
                 step()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) / STEPS * 1e3
-    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA") and e.device_time_total > 0]
+    averages = prof.key_averages()
+    # the K8 ranges appear twice (the host range and its span on the device): neither is a kernel
+    kernels = [e for e in averages if str(e.device_type).endswith("CUDA") and e.device_time_total > 0
+               and e.key != K8_RANGE]
     dev_ms = sum(e.device_time_total for e in kernels) / 1e3 / STEPS
     print(f"{label}: host wall {wall_ms:.3f} ms/step, "
           f"device kernels {dev_ms:.3f} ms/step (device idle {100 * (1 - dev_ms / wall_ms):.1f}%), "
           f"{sum(e.count for e in kernels) / STEPS:.0f} kernel launches/step")
+    k8 = [e.device_time_total for e in averages if e.key == K8_RANGE]
+    if k8:
+        n8 = sum(v for n, v in K.launch_counts().items() if n.endswith("_expert"))
+        print(f"    K8 (expert forms, {K8_RANGE!r} ranges): {n8 / STEPS:.0f} launches/step (+ K2's split reductions), "
+              f"{max(k8) / 1e3 / STEPS:.3f} ms/step of device time (their span on the device)")
     groups = defaultdict(float)
     for e in kernels:
         groups[group(e.key)] += e.device_time_total / 1e3 / STEPS
@@ -104,16 +148,26 @@ def profile_chunk(params, cfg, chunk: int, max_len: int, fill: int, label: str =
     def step():  # every call rewrites the same ring rows
         T.forward(params, cfg, tokens, cache, last_index=chunk - 1)
 
-    profile_steps(f"prefill chunk of {chunk} rows at position {fill}, {rows}-row rings{label}", step)
+    profile_steps(f"prefill chunk of {chunk} rows at position {fill}, {rows}-row KV caches{label}", step)
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--model", choices=("mistral_7b", "mixtral_8x7b"), default="mistral_7b")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("decode_profile: needs a CUDA device", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     _build.build_all()
+    if args.model == "mixtral_8x7b":
+        cfg = T.ModelConfig.mixtral_8x7b()
+        params = synth_params(cfg, seed=0, fuse=True)
+        profile_decode(params, cfg, batch=1, cache_rows=97, fill=21)
+        profile_decode(params, cfg, batch=8, cache_rows=1024, fill=500)
+        profile_chunk(params, cfg, chunk=256, max_len=8192, fill=4096, label=", fused experts")
+        return 0
     cfg = T.ModelConfig.mistral_7b()
     params = synth_params(cfg, seed=0, fuse=True)
     profile_decode(params, cfg, batch=1, cache_rows=97, fill=21)

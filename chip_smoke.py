@@ -65,6 +65,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      processes); the shadowed logits are held against the unshadowed engine's
      (which launches K4) as in phase 5.  Then one 256-row chunk
      alone, without and with shadows in turns, eager and as a CUDA graph.
+  3d. K8, the expert forms of K2/K3/K4, on stacks of 8 experts at the
+     Mixtral-8x7B shapes (gate|up fused 4096->28672 and unfused 4096->14336,
+     down 14336->4096), the expert index in device memory, experts 0 and 7:
+     bit-equal to the 2-D kernel on packed[e] and within K2/K3/K4's
+     tolerances of the plain version; K2 form at M in {1, 8, 64, 128}, K3 at
+     160, K4 at 256; kernel time, bound, plain time, dense bf16 yardstick;
+  8. Mixtral-8x7B (sparse MoE) on one card: (c) a 2-layer cut at full width
+     on the card and on the CPU, a 300-token prompt and 4 decode steps,
+     logits within phase 4's tolerance, each layer's MoE on the CPU given the
+     card's input equal to the card's output within 2^-7, and any routing
+     difference a near-tie (2nd-3rd probability margin < 1e-2, at most 1% of
+     the decisions); (a) the full 32-layer model
+     (synth_params, fused) served by the Engine (max_batch 4, max_len 8192,
+     chunk 256) with prompts of 100, 300 and 4500 tokens: every K8 form and
+     K7 launch; (b) a batch-8 generate (all-experts decode, K2 form at M =
+     8); (d) a batch-1 decode step under set_sync_debug_mode("error"),
+     replayed as a CUDA graph with the eager logits, eager and card-alone
+     ms against the byte bound, and the batch-8 step likewise; (e) a 4-layer
+     full-width checkpoint served by the CLI with --prefill-shadow over
+     HTTP, tokens equal to an in-process replay, K8 and K5 launching.
 Prints the kernel table as one JSON line, then the final status line.
 Kernel times are CUDA-graph replays timed with CUDA events (the card's own
 time, without the Python wrappers' launch cost, which is printed beside them
@@ -73,6 +93,7 @@ as eager_us); serving times are host clocks around synchronized work.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import queue
@@ -109,6 +130,21 @@ PK_INSTANCES = (("K2", 1, "main"), ("K2", 8, "main"), ("K2", 32, "main"), ("K2",
                 ("K4", 256, "ring"), ("K4", 6016, "whole"), ("K2", 4, "served"), ("K2", 64, "served"),
                 ("K2", 128, "served"), ("K3", 160, "served"), ("K4", 256, "unshadowed"))
 UNFUSED_RUNS = ("served", "unshadowed")
+# phases 3d and 8: Mixtral-8x7B's experts (name, K, N, matmuls per expert): gate|up fused as the engine
+# serves synth_params(fuse=True), unfused as the CLI loads a checkpoint
+MOE_EXPERTS = 8
+MOE_FUSED_SHAPES = (("gate|up", 4096, 28672, 1), ("down", 14336, 4096, 1))
+MOE_UNFUSED_SHAPES = (("gate|up", 4096, 14336, 2), ("down", 14336, 4096, 1))
+# phase 3d: (K8 form, M, the run whose launch count its kernels-JSON row reports): phase 8a's engine
+# ("moe": per-token decode at M = 1, the 128-row prompt of 100 tokens, the 64-row final chunk of the
+# 300-token prompt, the 160-row final chunk and the 256-row chunks of the 4500-token one, every chunk
+# all-experts), 8b's batch-8 generate ("moe_b8": all-experts decode at M = 8) and 8e's in-process replay
+# of the served 4-layer checkpoint ("moe_served", unfused: the same M but 8 and 160)
+EXPERT_INSTANCES = (("K2", 1, "moe"), ("K2", 64, "moe"), ("K2", 128, "moe"), ("K3", 160, "moe"), ("K4", 256, "moe"),
+                    ("K2", 8, "moe_b8"), ("K2", 1, "moe_served"), ("K2", 64, "moe_served"),
+                    ("K2", 128, "moe_served"), ("K4", 256, "moe_served"))
+MOE_PROMPTS = (100, 300, 4500)  # phase 8a
+MOE_SERVED_PROMPTS = (100, 300)  # phase 8e, sent together; then an aborted 300 and a short one
 # phase 3b: (case, what, B, Lq, Lk, Hq, Hk, D, lens, q_offset, window, softcap, scale)
 FLASH_CASES = (
     ("a", "Mistral chunk: 256 queries, 4352-row ring of 6000 positions, window 4096",
@@ -127,6 +163,19 @@ FLASH_CASES = (
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of every tensor held by ``obj`` (params, a layer, a linear)."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (list, tuple)):
+        return sum(tensor_bytes(v) for v in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return sum(tensor_bytes(getattr(obj, f.name)) for f in dataclasses.fields(obj))
+    return 0
 
 
 def attention_err(got, want):
@@ -410,19 +459,29 @@ def main() -> int:
     del pk_list
 
     # -- phase 3: K2/K3/K4 at the Mistral fused shapes ------------------------------
-    def kernel_calls(kname, x, packed, scale, k):
-        """(kernel on weight copy i, plain version on copy 0, activation bytes)."""
-        if kname == "K2":
-            return (lambda i: K.matmul_pk(x, packed[i], scale[i], variant="ramp"),
-                    lambda: K.matmul_pk_plain(x, packed[0], scale[0], variant="ramp"), x.numel() * 2)
-        if kname == "K3":
-            return (lambda i: K.matmul_pk_minner(x, packed[i], scale[i], variant="ramp"),
-                    lambda: K.matmul_pk_minner_plain(x, packed[0], scale[0], variant="ramp"), x.numel() * 2)
-        bk = K.a8_block_k(k, torch.float32)
-        x8, rs = K.quantize_activations(x, bk)
-        kw = dict(out_dtype=torch.bfloat16, variant="ramp", a8_block_k=bk)
-        return (lambda i: K.matmul_pk_w4a8(x8, rs, packed[i], scale[i], **kw),
-                lambda: K.matmul_pk_w4a8_plain(x8, rs, packed[0], scale[0], **kw), x8.numel() + rs.numel() * 4)
+    def kernel_calls(kname, x, packed, scale, k, experts=None):
+        """(kernel on weight copy i, plain version on copy i (default 0),
+        activation bytes).  With ``experts`` (K8), ``packed`` and ``scale``
+        are one stack and "copy i" is its expert ``experts[i]``, an index in
+        device memory."""
+        if kname == "K4":
+            bk = K.a8_block_k(k, torch.float32)
+            x8, rs = K.quantize_activations(x, bk)
+            fn, fn_plain, lead = K.matmul_pk_w4a8, K.matmul_pk_w4a8_plain, (x8, rs)
+            kw, in_bytes = dict(out_dtype=torch.bfloat16, variant="ramp", a8_block_k=bk), x8.numel() + rs.numel() * 4
+        else:
+            fn, fn_plain = ((K.matmul_pk, K.matmul_pk_plain) if kname == "K2" else
+                            (K.matmul_pk_minner, K.matmul_pk_minner_plain))
+            lead, kw, in_bytes = (x,), dict(variant="ramp"), x.numel() * 2
+
+        def on_copy(f):
+            def call(i=0):
+                if experts is None:
+                    return f(*lead, packed[i], scale[i], **kw)
+                return f(*lead, packed, scale, expert=experts[i], **kw)
+            return call
+
+        return on_copy(fn), on_copy(fn_plain), in_bytes
 
     print("[3] kernel  shape        M    us      GB/s    bound_us  by          eager_us   plain_us   bf16_matmul_us"
           "  max_abs_err   (us: CUDA-graph replay; eager_us: back-to-back Python calls)")
@@ -456,7 +515,7 @@ def main() -> int:
             del wd
             nbytes = w_bytes + in_bytes + m * n * 2
             ops = 2 * m * k * n
-            bnd, by = P.bound_s(nbytes, ops, P.H100_INT8_OPS if kname == "K4" else P.H100_BF16_FLOPS)
+            bnd, by = P.pk_matmul_bound_s(m, k, n, x_bytes=in_bytes, out_bytes=2, a8=kname == "K4")
             print(f"    {kname:6} {sname:11} {m:4} {ms * 1e3:8.1f} {nbytes / (ms * 1e-3) / 1e9:7.0f} "
                   f"{bnd * 1e6:9.1f}  {by:10} {eager_ms * 1e3:8.1f} {plain_ms * 1e3:10.1f} {bf16_ms * 1e3:12.1f}"
                   f"   {err:.3g}" + (f"   (x{count} per layer)" if count > 1 else ""))
@@ -473,7 +532,7 @@ def main() -> int:
 
     from torch_bnb_fp4_tpu_torch.models import transformer as T
     from torch_bnb_fp4_tpu_torch.ops import attention as A
-    from torch_bnb_fp4_tpu_torch.utils.synth import synth_attention, synth_params
+    from torch_bnb_fp4_tpu_torch.utils.synth import synth_attention, synth_dense_linear, synth_params
 
     def sdpa(q, k, v, mask, scale):  # the yardstick: one PyTorch call, never used by the port
         return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -600,6 +659,54 @@ def main() -> int:
             del x, x8, rs, shadows, wd
             torch.cuda.empty_cache()
         shadow_rows[("K5", kind, m)] = tot
+
+    # -- phase 3d: K8, the expert forms of K2/K3/K4 on stacked Mixtral experts ------------------
+    print("[3d] kernel  shape          M     us        bound_us  by          eager_us   plain_us   bf16_matmul_us  "
+          "max_abs_err   (per call, one expert of a stack of 8; us: CUDA-graph replay cycling the 8 experts)")
+    expert_rows = {}
+    e_idx = torch.arange(MOE_EXPERTS, dtype=torch.int32, device=dev)  # expert indices in device memory
+    for kname, m, run in EXPERT_INSTANCES:
+        tot = dict(ms=0.0, plain_ms=0.0, bound=0.0, by={}, bf16_ms=0.0, err=0.0)
+        for sname, k, n, count in MOE_UNFUSED_SHAPES if run == "moe_served" else MOE_FUSED_SHAPES:
+            gen.manual_seed(k + n + m)
+            packed = torch.randint(0, 256, (MOE_EXPERTS, k // 2, n), generator=gen, dtype=torch.uint8, device=dev)
+            scale = (torch.rand((MOE_EXPERTS, k // 64, n), generator=gen, device=dev) + 0.5) * (0.01 / 192.0)
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            flat, plain, in_bytes = kernel_calls(kname, x, [packed[e] for e in range(MOE_EXPERTS)],
+                                                 [scale[e] for e in range(MOE_EXPERTS)], k)
+            stacked, stacked_plain, _ = kernel_calls(kname, x, packed, scale, k, experts=e_idx)
+            err = 0.0
+            for e in (0, MOE_EXPERTS - 1):
+                y, y_flat, y_ref = stacked(e), flat(e), stacked_plain(e)
+                torch.cuda.synchronize()
+                check(torch.equal(y, y_flat), f"K8 {kname} {sname} M={m} expert {e}: not bit-equal to the 2-D kernel")
+                check(bool(torch.isfinite(y).all()), f"K8 {kname} {sname} M={m}: non-finite output")
+                d = (y.float() - y_ref.float()).abs()
+                if kname == "K4":
+                    ulp = torch.exp2(torch.floor(torch.log2(y_ref.float().abs().clamp_min(1e-30))) - 7)
+                    check(bool((d <= ulp * 1.0001).all()), f"K8 {kname} {sname} M={m}: off by more than one bf16 ulp")
+                else:
+                    check(d.max().item() <= 2.0**-7 * y_ref.float().abs().max().item(),
+                          f"K8 {kname} {sname} M={m} expert {e}: err {d.max().item()}")
+                err = max(err, d.max().item())
+            rep = 100 if m < 64 else 30
+            ms = device_ms(cycler(stacked), MOE_EXPERTS, rep=rep)
+            eager_ms = timed(cycler(stacked), MOE_EXPERTS, rep=rep)
+            plain_ms = timed(lambda: stacked_plain(0), rep=3)
+            wd = [torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(max(1, math.ceil(2.5 * L2_BYTES / (2 * k * n))))]
+            bf16_ms = device_ms(cycler(lambda i, x=x, wd=wd: torch.matmul(x, wd[i])), len(wd), rep=rep)
+            bnd, by = P.pk_matmul_bound_s(m, k, n, x_bytes=in_bytes, out_bytes=2, a8=kname == "K4")
+            print(f"    K8/{kname} {sname:12} {m:6} {ms * 1e3:9.1f} {bnd * 1e6:9.1f}  {by:10} {eager_ms * 1e3:8.1f} "
+                  f"{plain_ms * 1e3:10.1f} {bf16_ms * 1e3:14.1f}   {err:.3g}"
+                  + (f"   (x{count} per expert)" if count > 1 else ""))
+            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound", bnd), ("bf16_ms", bf16_ms)):
+                tot[key] += count * v
+            tot["by"][by] = tot["by"].get(by, 0.0) + count * bnd
+            tot["err"] = max(tot["err"], err)
+            del x, packed, scale, wd
+            torch.cuda.empty_cache()
+        expert_rows[(kname, m, run)] = tot
 
     # -- phase 4: 2-layer full-width model, card vs CPU -------------------------------
 
@@ -913,6 +1020,239 @@ def main() -> int:
         shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # -- phase 8: Mixtral-8x7B, the sparse-MoE path (K8) ------------------------------------------
+    mcfg = T.ModelConfig.mixtral_8x7b()
+    k_act = mcfg.experts_per_tok
+
+    # (c) a 2-layer cut at full width, on the card and on the CPU; each side's routing is recorded.
+    # synth_params' router (scale 1, as the JAX package's) spreads its logits ~64 apart, so the 0.5%
+    # drift bf16 flips leave in a layer's input move the top-2 weights by tens of percent (measured on
+    # an H100 at layer 1 of this cut: 0.04/0.96 on the card vs 0.28/0.72 on the CPU for one token; the
+    # last position's logits then differ by 15% rel L2): this cut takes a router of random_weights'
+    # scale 0.02 (logits ~1.3 apart).  Each layer's MoE is also run on the CPU on the
+    # card's own input and must give the card's output: that holds the expert path itself at any router.
+    mcfg2 = T.ModelConfig(**{**mcfg.__dict__, "n_layers": 2})
+    p_gpu = synth_params(mcfg2, seed=11, fuse=True, device=dev)
+    gen.manual_seed(12)
+    for lp in p_gpu.layers:
+        lp.moe.router = synth_dense_linear(gen, mcfg.n_experts, mcfg.dim, scale=0.02, device=dev)
+    p_cpu = T.params_to(p_gpu, "cpu")
+    moe_forward, routes, moe_io = T.moe_forward, [], []
+
+    def recorded(moe, c, x, force_dense=None):
+        routes.append(torch.softmax(moe.router(x.reshape(-1, x.shape[-1]), out_dtype=torch.float32), -1).cpu())
+        y = moe_forward(moe, c, x, force_dense)
+        if x.is_cuda:
+            moe_io.append((x.cpu(), y.cpu()))
+        return y
+
+    toks = torch.randint(0, mcfg.vocab_size, (1, 300), generator=torch.Generator().manual_seed(8), dtype=torch.int32)
+    c_gpu, c_cpu = T.KVCache.zeros(mcfg2, 1, 304, device=dev), T.KVCache.zeros(mcfg2, 1, 304, device="cpu")
+    t_cpu, flips, decisions = 0.0, 0, 0
+    T.moe_forward = recorded
+    try:
+        for step in range(5):  # prefill (all experts, K4 form), then 4 decode steps (per-token, K2 form)
+            routes.clear()
+            moe_io.clear()
+            K.reset_launch_counts()
+            with torch.no_grad():
+                lg_gpu, c_gpu = T.forward(p_gpu, mcfg2, toks.to(dev), c_gpu, last_only=True)
+                lc = K.launch_counts()
+                t = time.perf_counter()
+                lg_cpu, c_cpu = T.forward(p_cpu, mcfg2, toks, c_cpu, last_only=True)
+                t_cpu += time.perf_counter() - t
+            lg_gpu = lg_gpu.cpu()
+            form = "matmul_pk_w4a8_expert" if step == 0 else "matmul_pk_expert"
+            check(lc[form] == 2 * mcfg2.n_layers * (mcfg.n_experts if step == 0 else k_act),
+                  f"[8c] step {step}: launches {lc}")
+            # a routing flip must be a near-tie: the 2nd-3rd probability margin under 1e-2 on both sides.  The
+            # ~0.5% drift P2 leaves in a layer's input at M >= 256 moves this router's logits (spread ~1.3) by up
+            # to ~0.03, so a flipped pair's margin reaches p * 0.03 ~ 1e-2 (measured on an H100: 2.7e-3); the
+            # cross-check below holds the routing itself exactly, on identical inputs
+            for layer, (a, b) in enumerate(zip(routes[: mcfg2.n_layers], routes[mcfg2.n_layers :])):
+                decisions += a.shape[0]
+                top_a, top_b = (r.topk(k_act, dim=-1).indices.sort(-1).values for r in (a, b))
+                for ti in (top_a != top_b).any(-1).nonzero().flatten().tolist():
+                    margins = [(v[k_act - 1] - v[k_act]).item() for v in (r[ti].topk(k_act + 1).values for r in (a, b))]
+                    print(f"[8c] step {step} layer {layer} token {ti}: top-{k_act} experts card {top_a[ti].tolist()}, "
+                          f"CPU {top_b[ti].tolist()}; margin of the {k_act}nd over the next probability: card "
+                          f"{margins[0]:.3g}, CPU {margins[1]:.3g}; router drift max|dp| "
+                          f"{(a[ti] - b[ti]).abs().max().item():.3g}")
+                    check(max(margins) < 1e-2, f"[8c] routing differs without a near-tie (margins {margins})")
+                    flips += 1
+            worst_moe = 0.0
+            with torch.no_grad():
+                for lp, (x_card, y_card) in zip(p_cpu.layers, moe_io):
+                    y_cpu = moe_forward(lp.moe, mcfg2, x_card)
+                    e = (y_card - y_cpu).abs().max().item() / y_cpu.abs().max().item()
+                    check(e <= 2.0**-7, f"[8c] step {step}: the MoE on the card's input differs by {e} of max|y|")
+                    worst_moe = max(worst_moe, e)
+            d = (lg_gpu - lg_cpu).abs().max().item()
+            rel = ((lg_gpu - lg_cpu).norm() / lg_cpu.norm()).item()
+            check(bool(torch.isfinite(lg_gpu).all()), "[8c] non-finite logits")
+            check(d <= 6e-2 * lg_cpu.abs().max().item() and rel <= 3e-2, f"[8c] step {step}: max|d| {d}, rel L2 {rel}")
+            print(f"[8c] 2-layer full-width Mixtral, 300-token prompt, step {step}: max|dlogit| {d:.4g} of max "
+                  f"{lg_cpu.abs().max().item():.4g}, rel L2 {rel:.3g}, argmax gpu {int(lg_gpu.argmax())} cpu "
+                  f"{int(lg_cpu.argmax())}; K8 launches {lc[form]} ({form}); the CPU's MoE on the card's inputs: "
+                  f"worst max|d| {worst_moe:.3g} of max|y|")
+            toks = lg_cpu[:, -1].argmax(-1).to(torch.int32)[:, None]
+    finally:
+        T.moe_forward = moe_forward
+    check(flips <= 0.01 * decisions, f"[8c] {flips} of {decisions} routing decisions differ between card and CPU")
+    print(f"[8c] routing: {flips} of {decisions} (token, layer) decisions differ between card and CPU, each a "
+          f"near-tie; CPU side {t_cpu:.1f} s")
+    del p_gpu, p_cpu, c_gpu, c_cpu
+    torch.cuda.empty_cache()
+
+    # (a) the full model served by the engine
+    t0 = time.perf_counter()
+    params = synth_params(mcfg, seed=13, fuse=True, device=dev)
+    torch.cuda.synchronize()
+    lay = params.layers
+    expert_bytes = sum(tensor_bytes(lp.moe.gateup) + tensor_bytes(lp.moe.down) for lp in lay)
+    attn_bytes = sum(tensor_bytes(lp.wqkv) + tensor_bytes(lp.wo) for lp in lay)
+    other_bytes = tensor_bytes(params) - expert_bytes - attn_bytes
+    print(f"[8a] Mixtral-8x7B FP4 params ({mcfg.n_layers} layers, {mcfg.n_experts} experts, gate|up fused) built in "
+          f"{time.perf_counter() - t0:.1f} s: {tensor_bytes(params) / 1e9:.2f} GB (experts {expert_bytes / 1e9:.2f}, "
+          f"attention {attn_bytes / 1e9:.3f}, embedding, router, norms and dense lm_head {other_bytes / 1e9:.3f}), "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the card")
+    g8 = torch.Generator().manual_seed(9)
+    moe_prompts = [torch.randint(0, mcfg.vocab_size, (lp,), generator=g8).tolist() for lp in MOE_PROMPTS]
+    reqs8 = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(moe_prompts)]
+    big8 = MOE_PROMPTS.index(4500)
+    eng = Engine(params, mcfg, EngineConfig(max_batch=4, max_len=8192, inner_steps=8, prefill_chunk=256))
+    K.reset_launch_counts()
+    with Recorder(T, eng, big8) as rec:
+        t0 = time.perf_counter()
+        res8 = eng.run(reqs8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches8 = K.launch_counts()
+    st8 = eng.stats()
+    for r in reqs8:
+        c = res8[r.uid]
+        check(len(c.tokens) == NEW_TOKENS and c.finish_reason == "length", f"[8a] request {r.uid}: {c}")
+    for name in ("matmul_pk_expert", "matmul_pk_minner_expert", "matmul_pk_w4a8_expert", "flash_attention"):
+        check(launches8[name] > 0, f"[8a] the Mixtral engine never launched {name}")
+    chunks8 = [(n, e0.elapsed_time(e1)) for uid, n, _, e0, e1 in rec.prefill if uid == big8]
+    full8 = [ms for n, ms in chunks8 if n == 256]
+    print(f"[8a] engine served prompts {MOE_PROMPTS} ({NEW_TOKENS} new tokens each) in {wall:.2f} s: "
+          f"{st8['tok_per_s']:.1f} tok/s, TTFT per request ms {[round(res8[r.uid].ttft_s * 1e3, 1) for r in reqs8]}, "
+          f"decode {st8['step_p50_s'] * 1e3:.2f} ms/step p50 (batch 4, per-token dispatch); 4500-token prompt: "
+          f"{len(chunks8)} chunks, 256-row chunk {sum(full8) / len(full8):.1f} ms mean (min {min(full8):.1f}, max "
+          f"{max(full8):.1f}), final {chunks8[-1][0]}-row chunk {chunks8[-1][1]:.1f} ms")
+    print(f"[8a] launches on the Mixtral path: {json.dumps(launches8)}")
+    del eng, rec
+    torch.cuda.empty_cache()
+
+    # (b) a batch-8 generate: 8 * k > n_experts, so decode runs every expert at M = 8
+    K.reset_launch_counts()
+    short8 = torch.randint(0, mcfg.vocab_size, (8, 8), generator=g8, dtype=torch.int32).to(dev)
+    out_b8 = T.generate(params, mcfg, short8, 8)
+    torch.cuda.synchronize()
+    launches_b8 = K.launch_counts()
+    check(tuple(out_b8.shape) == (8, 8) and launches_b8["matmul_pk_expert"] > 0, f"[8b] {launches_b8}")
+    print(f"[8b] batch-8 generate (8-token prompts, 8 new tokens): launches {json.dumps(launches_b8)}")
+
+    # (d) decode steps: no host sync, CUDA-graph replay, times against the byte bound
+    def graph_of(fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        return graph, out
+
+    def replay_ms(graph, rep=10):
+        graph.replay()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(rep):
+            graph.replay()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / rep
+
+    head_bytes = tensor_bytes(params.lm_head) + sum(tensor_bytes(lp.moe.router) for lp in lay)
+    with torch.no_grad():
+        cache1 = T.KVCache.zeros(mcfg, 1, 64, device=dev)
+        lg, cache1 = T.forward(params, mcfg, torch.tensor([moe_prompts[0][:20]], dtype=torch.int32, device=dev),
+                               cache1, last_only=True)
+        tok1 = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager_lg, _ = T.forward(params, mcfg, tok1, cache1)  # raises on any device -> host sync
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        b1_eager = timed(lambda: T.forward(params, mcfg, tok1, cache1), rep=10)
+        graph, graph_lg = graph_of(lambda: T.forward(params, mcfg, tok1, cache1)[0])
+        b1_card = replay_ms(graph)
+        check(torch.equal(graph_lg, eager_lg), "[8d] the graph's decode-step logits differ from the eager step's")
+        del graph
+        b1_bytes = attn_bytes + expert_bytes * k_act / mcfg.n_experts + head_bytes
+        cache8 = T.KVCache.zeros(mcfg, 8, 64, device=dev)
+        tok8 = out_b8[:, :1].contiguous()
+        b8_eager = timed(lambda: T.forward(params, mcfg, tok8, cache8), rep=5)
+        graph, _ = graph_of(lambda: T.forward(params, mcfg, tok8, cache8)[0])
+        b8_card = replay_ms(graph)
+        del graph
+        b8_bytes = attn_bytes + expert_bytes + head_bytes
+    b1_bound, b8_bound = b1_bytes / P.H100_HBM_BYTES_PER_S * 1e3, b8_bytes / P.H100_HBM_BYTES_PER_S * 1e3
+    print(f"[8d] batch-1 decode step: no device->host sync (set_sync_debug_mode('error')); CUDA graph replay gives "
+          f"the eager logits; {b1_eager:.2f} ms eager, {b1_card:.3f} ms on the card alone (CUDA graph) vs the byte "
+          f"bound {b1_bound:.3f} ms ({b1_bytes / 1e9:.2f} GB: {k_act} of {mcfg.n_experts} experts per layer, "
+          f"attention, router, lm_head; {b1_bound / b1_card:.1%} of it)")
+    print(f"[8d] batch-8 decode step (all experts): {b8_eager:.2f} ms eager, {b8_card:.3f} ms on the card alone vs "
+          f"the byte bound {b8_bound:.3f} ms ({b8_bytes / 1e9:.2f} GB; {b8_bound / b8_card:.1%} of it)")
+    del params, cache1, cache8
+    torch.cuda.empty_cache()
+
+    # (e) a 4-layer Mixtral at full width as a packed checkpoint, served by the CLI with --prefill-shadow
+    mcfg4 = T.ModelConfig(**{**mcfg.__dict__, "n_layers": 4})
+    ckpt8 = root / "build" / "chip_smoke_moe_ckpt"
+    shutil.rmtree(ckpt8, ignore_errors=True)
+    g8e = torch.Generator().manual_seed(10)
+    served8 = [torch.randint(0, mcfg.vocab_size, (lp,), generator=g8e).tolist() for lp in MOE_SERVED_PROMPTS]
+    aborted8 = torch.randint(0, mcfg.vocab_size, (300,), generator=g8e).tolist()
+    short8p = torch.randint(0, mcfg.vocab_size, (50,), generator=g8e).tolist()
+    try:
+        p4 = synth_params(mcfg4, seed=15, device=dev)  # unfused, as the CLI loads a checkpoint
+        t0 = time.perf_counter()
+        save_checkpoint(str(ckpt8), mcfg4, p4)
+        write_s = time.perf_counter() - t0
+        del p4
+        torch.cuda.empty_cache()
+        print(f"[8e] wrote a 4-layer full-width Mixtral-8x7B checkpoint: "
+              f"{sum(f.stat().st_size for f in ckpt8.iterdir()) / 1e9:.2f} GB in {write_s:.1f} s")
+        http8, http_short8, child8, startup8 = serve_over_http(root, ckpt8, served8, aborted8, short8p,
+                                                               root / "build" / "chip_smoke_moe_server.log")
+        moe_served = ("matmul_pk_expert", "matmul_pk_w4a8_expert", "matmul_w8", "dequant_pk")
+        check(all(child8["launches"][nm] > 0 for nm in moe_served), f"[8e] server launches {child8['launches']}")
+        K.reset_launch_counts()
+        cfg8e, p8e = load_checkpoint(str(ckpt8), device=dev)
+        check(p8e.layers[0].moe is not None and p8e.layers[0].moe.gate is not None, "[8e] the checkpoint lost its MoE")
+        shadowed8 = attach_prefill_shadow(p8e)
+        reqs8e = [Request(uid=i, prompt=pr, max_new_tokens=NEW_TOKENS) for i, pr in enumerate(served8 + [short8p])]
+        res8e = Engine(shadowed8, cfg8e, EngineConfig(max_batch=4, max_len=8192, inner_steps=8,
+                                                      prefill_chunk=256)).run(reqs8e)
+        launches8e = K.launch_counts()
+        for i, toks_http in enumerate(http8 + [http_short8]):
+            check(res8e[i].tokens == toks_http, f"[8e] request {i} over HTTP differs from the in-process replay")
+        check(all(launches8e[nm] > 0 for nm in moe_served), f"[8e] replay launches {launches8e}")
+        print(f"[8e] CLI server (--prefill-shadow): serving line after {startup8:.1f} s; prompts {MOE_SERVED_PROMPTS} "
+              f"at once, an aborted 300-token request and a 50-token one; HTTP tokens equal the in-process replay's "
+              f"(load_checkpoint + attach_prefill_shadow) for all {len(reqs8e)}; server launches "
+              f"{json.dumps(child8['launches'])}; replay launches {json.dumps(launches8e)}")
+        del p8e, shadowed8
+    finally:
+        shutil.rmtree(ckpt8, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     # -- kernel table ------------------------------------------------------------------
     k_launch = launches["matmul_pk"] + launches["matmul_pk_minner"] + launches["matmul_pk_w4a8"]
     kernels_json.append(dict(
@@ -966,6 +1306,23 @@ def main() -> int:
             max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound"] * 1e3,
             bound_by=max(tot["by"], key=tot["by"].get), library_ms=None, bf16_matmul_ms=tot["bf16_ms"],
             int_mm_ms=tot["int_mm_ms"]))
+    # K8: the expert forms, per expert of one Mixtral-8x7B layer (times of phase 3d), launches of phase 8
+    run_launches.update(moe=(launches8, "phase 8a's engine"), moe_b8=(launches_b8, "phase 8b's batch-8 generate"),
+                        moe_served=(launches8e, "phase 8e's in-process replay of the served checkpoint"))
+    k8_meta = {"K2": ("matmul_pk_expert", "matmul_pk.cu", 1295),
+               "K3": ("matmul_pk_minner_expert", "matmul_pk_minner.cu", 1215),
+               "K4": ("matmul_pk_w4a8_expert", "matmul_pk_w4a8.cu", 1215)}
+    for (kname, m, run), tot in expert_rows.items():
+        wrapper, src, line = k8_meta[kname]
+        counts, run_name = run_launches[run]
+        shapes = "unfused gate, up and down" if run == "moe_served" else "fused gate|up and down"
+        kernels_json.append(dict(
+            name=f"K8 {kname} form {wrapper} (M={m}, the {shapes} matmuls of one expert of a Mixtral-8x7B layer, "
+                 f"the index in device memory; launches of {run_name})",
+            route="cuda", source=f"torch_bnb_fp4_tpu_torch/csrc/{src}",
+            replaces=f"torch_bnb_fp4_tpu/ops/kernels.py:{line}", launches=counts[wrapper], max_abs_err=tot["err"],
+            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound"] * 1e3,
+            bound_by=max(tot["by"], key=tot["by"].get), library_ms=None, bf16_matmul_ms=tot["bf16_ms"]))
     print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -12,7 +12,9 @@ these tests need no JAX.)
 Tolerances as in tests/test_torch_kernels.py: K1 bit-exact; bf16 outputs
 |dy| <= 2^-7 * max|y_plain|; f32 |dy| <= 1e-5 * max|y_plain|; K4 at most one
 bf16 ulp per element (its int8 dots are exact on both sides), and K5 the same
-(f32 out within 1e-6 of max|y|).  K6 and the int8 shadow built on the card:
+(f32 out within 1e-6 of max|y|).  K8 (the expert forms of K2-K4) bit-equal
+to the 2-D kernel on the same expert, and within K2-K4's tolerances of its
+plain version.  K6 and the int8 shadow built on the card:
 bit-exact with the plain versions on the CPU.  K7 against its
 plain version with the kernel's key blocks: |do| <= 2^-7 * max|o_plain| of
 its (query, head) row (bf16 output rounding, and the bf16 rounding of p after
@@ -191,6 +193,41 @@ def test_k5_f16_input_through_the_shadow_route(dev):
     _ulp_close(got.cpu(), L.attach_int8_shadow(q.to("cpu"))(x))
 
 
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("m,path", [(1, "mouter"), (8, "mouter"), (128, "mouter"), (160, "minner"), (256, "w4a8")])
+@pytest.mark.parametrize("k,n", [(4096, 28672), (14336, 4096)])
+def test_k8_expert_forms(dev, k, n, m, path, bias):
+    """K8: the expert form of K2/K3/K4 on a stacked packing of 8 experts,
+    the index in device memory, is bit-equal to the 2-D kernel on packed[e]
+    and holds its plain version as K2-K4 do; the launch is counted under
+    the expert name."""
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    packed = torch.randint(0, 256, (8, k // 2, n), generator=g, dtype=torch.uint8, device=dev)
+    scale = (torch.rand((8, k // 64, n), generator=g, device=dev) + 0.5) * (0.01 / 192)
+    b = torch.randn((8, n), generator=g, device=dev) if bias else None
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    idx = torch.arange(8, dtype=torch.int32, device=dev)
+    assert K.select_path(m, torch.bfloat16, "ramp", None) == path
+    name = {"mouter": "matmul_pk", "minner": "matmul_pk_minner", "w4a8": "matmul_pk_w4a8"}[path]
+    for e in (0, 7):
+        before = K.launch_counts()
+        got = K.matmul_fp4_pk(x, packed, scale, b, variant="ramp", expert=idx[e])
+        after = K.launch_counts()
+        assert after[name + "_expert"] == before[name + "_expert"] + 1 and after[name] == before[name]
+        flat = K.matmul_fp4_pk(x, packed[e], scale[e], None if b is None else b[e], variant="ramp")
+        assert torch.equal(got, flat)
+        assert torch.equal(K.matmul_fp4_pk(x, packed, scale, b, variant="ramp", expert=e), got)
+        if path == "w4a8":
+            bk = K.a8_block_k(k, scale.dtype)
+            x8, rs = K.quantize_activations(x, bk)
+            want = K.matmul_pk_w4a8_plain(x8, rs, packed, scale, b, out_dtype=torch.bfloat16, variant="ramp",
+                                          a8_block_k=bk, expert=idx[e])
+            _ulp_close(got, want)
+        else:
+            plain = K.matmul_pk_plain if path == "mouter" else K.matmul_pk_minner_plain
+            _close(got, plain(x, packed, scale, b, variant="ramp", expert=idx[e]), 2.0**-7)
+
+
 def test_model_cuda_matches_cpu_tiny(dev):
     from torch_bnb_fp4_tpu_torch.models import transformer as T
 
@@ -207,6 +244,56 @@ def test_model_cuda_matches_cpu_tiny(dev):
     # differ by the same 1-3% at this shape
     _close(lg_gpu.cpu(), lg_cpu, 6e-2)
     assert (lg_gpu.cpu() - lg_cpu).norm() <= 3e-2 * lg_cpu.norm()
+
+
+def test_moe_model_cuda_matches_cpu_tiny(dev):
+    """A tiny Mixtral-style model on the card (K8) and on the CPU (plain
+    versions): a 40-token prefill (all experts) and a batch-1 decode step
+    (per-token dispatch); logits within 2^-7 * max, as the bf16 path."""
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+
+    cfg = T.ModelConfig.tiny_test(n_layers=2, n_experts=4, experts_per_tok=2)
+    w = T.random_weights(cfg, seed=3)
+    p_gpu = T.quantize_params(cfg, w, fuse=True, device=dev)
+    p_cpu = T.quantize_params(cfg, w, fuse=True, device="cpu")
+    prompt = torch.tensor([[i % 250 + 1 for i in range(40)]], dtype=torch.int32)
+    c_gpu, c_cpu = T.KVCache.zeros(cfg, 1, 48, device=dev), T.KVCache.zeros(cfg, 1, 48, device="cpu")
+    K.reset_launch_counts()
+    for toks in (prompt, torch.tensor([[5]], dtype=torch.int32)):
+        lg_gpu, c_gpu = T.forward(p_gpu, cfg, toks.to(dev), c_gpu, last_only=True)
+        lg_cpu, c_cpu = T.forward(p_cpu, cfg, toks, c_cpu, last_only=True)
+        _close(lg_gpu.cpu(), lg_cpu, 2.0**-7)
+    assert K.launch_counts()["matmul_pk_expert"] > 0
+
+
+def test_moe_decode_step_needs_no_host_sync_and_replays_as_a_graph(dev):
+    """A batch-1 MoE decode step (per-token dispatch: the expert indices stay
+    in device memory) runs under set_sync_debug_mode("error") and replays
+    from a CUDA graph with the eager step's logits."""
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+
+    cfg = T.ModelConfig.tiny_test(n_layers=2, n_experts=4, experts_per_tok=2)
+    p = T.quantize_params(cfg, T.random_weights(cfg, seed=4), fuse=True, device=dev)
+    cache = T.KVCache.zeros(cfg, 1, 16, device=dev)
+    _, cache = T.forward(p, cfg, torch.tensor([[1, 2, 3]], dtype=torch.int32, device=dev), cache)
+    tok = torch.tensor([[7]], dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager, _ = T.forward(p, cfg, tok, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        T.forward(p, cfg, tok, cache)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out, _ = T.forward(p, cfg, tok, cache)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 # K7 at small shapes of the chip_smoke.py phase-3b cases: (B, Lq, Lk, Hq, Hk,

@@ -66,6 +66,9 @@ def flatten_jax_params(params):
                 arrays[p + n] = _f32(getattr(lp, n))
         for n in LIN_NAMES:
             put(p + n, getattr(lp, n))
+        if lp.moe is not None:  # stacked experts: every array keeps its leading expert axis
+            for n in ("router", "gate", "up", "down", "gateup"):
+                put(p + "moe." + n, getattr(lp.moe, n))
     return arrays, {"linears": linears}
 
 
@@ -155,10 +158,6 @@ def test_prefill_and_decode_step_api():
 
 
 def test_not_yet_ported_features_raise():
-    with pytest.raises(NotImplementedError):
-        T.random_weights(T.ModelConfig.tiny_test(n_experts=4))
-    with pytest.raises(NotImplementedError):
-        T.quantize_params(T.ModelConfig.tiny_test(n_layers=1, n_experts=4), {}, device="cpu")
     cfg = T.ModelConfig.tiny_test(n_layers=1, quantize_embed=True)
     with pytest.raises(NotImplementedError):
         T.quantize_params(cfg, T.random_weights(cfg), device="cpu")

@@ -10,6 +10,12 @@ once by either package loads in the other.
   <group>.npz     one file per weight group: embed, final_norm, layers.N,
                   lm_head
 
+A mixture-of-experts layer keeps its attention linears under the layer's
+``linears`` and its MLP under ``moe`` (``router``: the dense router's shape,
+stored as ``layers.N.moe.router.w``; ``experts``: gate, up and down, each a
+linear whose arrays carry a leading n_experts axis, ``down`` marked
+row-parallel), as the JAX package stores it.
+
 A pair-K linear stores ``packed`` and its scale under ``absmax_hi`` (the
 port's field ``scale``), ``bias`` when present, and its codebook in the
 manifest.  bf16 arrays are stored as uint16 views and listed in
@@ -18,7 +24,7 @@ prefill shadows are never stored (they are rebuilt at load time by
 ``attach_prefill_shadow``).  Format versions 1-3 are read, 3 is written.
 
 Not yet ported (``NotImplementedError``): quantized embedding tables,
-mixture-of-experts layers (K8), split-K packings (K9a/K9b) and ``tp > 1``.
+split-K packings (K9a/K9b) and ``tp > 1``.
 """
 
 from __future__ import annotations
@@ -31,13 +37,14 @@ import numpy as np
 import torch
 
 from ..models.linear import DenseLinear, QuantLinear
-from ..models.transformer import LayerParams, ModelConfig, ModelParams, fuse_params
+from ..models.transformer import LayerParams, ModelConfig, ModelParams, MoEParams, fuse_params
 from ..utils.device import resolve_device
 
 FORMAT_VERSION = 3
 _SUPPORTED_VERSIONS = (1, 2, 3)
 _ATTN = ("wq", "wk", "wv", "wo")
 _MLP = ("w_gate", "w_up", "w_down")
+_EXPERTS = ("gate", "up", "down")
 _EXTRA_NORMS = ("post_attn_norm", "post_mlp_norm", "q_norm", "k_norm")
 
 
@@ -88,20 +95,28 @@ def save_checkpoint(path: str, cfg: ModelConfig, params: ModelParams) -> None:
     put("embed", {"embed.w": params.embed}, {"kind": "dense_embed"})
     put("final_norm", {"final_norm.w": params.final_norm}, {"kind": "norm"})
     for i, lp in enumerate(params.layers):
-        if lp.wqkv is not None or lp.w_gateup is not None:
+        if lp.wqkv is not None or lp.w_gateup is not None or (lp.moe is not None and lp.moe.gateup is not None):
             raise ValueError("checkpoints store unfused linears: save the params before fuse_params")
-        if lp.moe is not None:
-            raise NotImplementedError("mixture-of-experts layers are not yet ported (K8)")
         p = f"layers.{i}"
         arrays = {f"{p}.attn_norm": lp.attn_norm, f"{p}.mlp_norm": lp.mlp_norm}
         for n in _EXTRA_NORMS:  # Gemma-2 post-norms, Qwen3 per-head q/k norms
             if getattr(lp, n) is not None:
                 arrays[f"{p}.{n}"] = getattr(lp, n)
         meta = {"kind": "layer", "linears": {}}
-        for f in _ATTN + _MLP:
+        for f in _ATTN + (() if lp.moe is not None else _MLP):
             m = _linear_to_arrays(f"{p}.{f}", getattr(lp, f), arrays)
             m["row_parallel"] = f in ("wo", "w_down")
             meta["linears"][f] = m
+        if lp.moe is not None:
+            router = lp.moe.router
+            arrays[f"{p}.moe.router.w"] = router.w
+            if router.bias is not None:
+                arrays[f"{p}.moe.router.bias"] = router.bias
+            meta["moe"] = {"kind": "moe", "router": dict(n_out=router.n_out, k_in=router.k_in), "experts": {}}
+            for f in _EXPERTS:
+                m = _linear_to_arrays(f"{p}.moe.{f}", getattr(lp.moe, f), arrays)
+                m["row_parallel"] = f == "down"
+                meta["moe"]["experts"][f] = m
         put(p, arrays, meta)
     arrays = {}
     meta = _linear_to_arrays("lm_head", params.lm_head, arrays)
@@ -156,10 +171,14 @@ def load_checkpoint(path: str, tp: int = 1, fuse: bool = False, device=None) -> 
     layers = []
     for i in range(cfg.n_layers):
         p = f"layers.{i}"
-        if "moe" in tensors[p]:
-            raise NotImplementedError("mixture-of-experts layers are not yet ported (K8)")
         a = arrs(p)
         kw = {f: _linear_from_arrays(f"{p}.{f}", m, a, device) for f, m in tensors[p]["linears"].items()}
+        moe = tensors[p].get("moe")
+        if moe is not None:
+            kw["moe"] = MoEParams(
+                router=DenseLinear(w=a[f"{p}.moe.router.w"], bias=a.get(f"{p}.moe.router.bias"),
+                                   n_out=moe["router"]["n_out"], k_in=moe["router"]["k_in"]),
+                **{f: _linear_from_arrays(f"{p}.moe.{f}", moe["experts"][f], a, device) for f in _EXPERTS})
         kw.update({n: a[f"{p}.{n}"] for n in _EXTRA_NORMS if f"{p}.{n}" in a})
         layers.append(LayerParams(attn_norm=a[f"{p}.attn_norm"], mlp_norm=a[f"{p}.mlp_norm"], **kw))
     lm_meta = tensors["lm_head"]

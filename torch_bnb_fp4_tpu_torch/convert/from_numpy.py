@@ -18,10 +18,15 @@ w_up w_down wqkv w_gateup; absent linears are simply missing):
   layers.i.L.w               (k_in, n_out)       bf16 leaf  dense linear
   layers.i.L.bias            (n_out,)            bf16 leaf  dense linear, optional
   lm_head.*                  as a linear (``lm_head.w`` for the dense head)
+  layers.i.moe.router.w      (dim, n_experts)    bf16 leaf  the router of a mixture-of-experts layer
+  layers.i.moe.router.bias   (n_experts,)        bf16 leaf, optional
+  layers.i.moe.E.*           as a quantized (or dense) linear with a leading n_experts axis on
+                             every array, E one of gate up down gateup (a stacked linear)
 
 bf16 leaves arrive as float32, which holds every bf16 value exactly, and are
 cast back to bf16 here.  ``meta["linears"]`` maps each linear's prefix
-(``layers.3.wqkv``, ``lm_head``) to its static fields:
+(``layers.3.wqkv``, ``layers.3.moe.gateup``, ``layers.3.moe.router``,
+``lm_head``) to its static fields:
 ``{"kind": "quant", "n_out", "k_in", "blocksize", "variant", "scale_dtype":
 "float32" | "bfloat16", "w8_block_k"}`` (``w8_block_k``, the shadow's K-tile
 depth, only with ``.w8``) or ``{"kind": "dense", "n_out", "k_in"}``.
@@ -33,10 +38,11 @@ import numpy as np
 import torch
 
 from ..models.linear import DenseLinear, QuantLinear
-from ..models.transformer import LayerParams, ModelConfig, ModelParams
+from ..models.transformer import LayerParams, ModelConfig, MoEParams, ModelParams
 from ..utils.device import resolve_device
 
 LINEAR_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "wqkv", "w_gateup")
+MOE_NAMES = ("router", "gate", "up", "down", "gateup")
 OPTIONAL_NORMS = ("post_attn_norm", "post_mlp_norm", "q_norm", "k_norm")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -86,5 +92,7 @@ def params_from_numpy(arrays: dict[str, np.ndarray], meta: dict, cfg: ModelConfi
         p = f"layers.{i}."
         extra = {n: bf16(p + n) for n in OPTIONAL_NORMS if p + n in arrays}
         lins = {n: linear(p + n) for n in LINEAR_NAMES}
+        if p + "moe.router" in meta["linears"]:
+            lins["moe"] = MoEParams(**{n: linear(p + "moe." + n) for n in MOE_NAMES})
         layers.append(LayerParams(attn_norm=bf16(p + "attn_norm"), mlp_norm=bf16(p + "mlp_norm"), **lins, **extra))
     return ModelParams(embed=bf16("embed"), layers=layers, final_norm=bf16("final_norm"), lm_head=linear("lm_head"))

@@ -26,6 +26,12 @@
 //  * f32 x only: CUDA cores (the TPU's HIGHEST-precision dot has no
 //    tensor-core equivalent).  Each thread owns 4 adjacent columns (one 32-bit load of 4
 //    packed bytes per pair-row) and keeps a quant block's 32 loads in flight.
+// K8 (the expert form, replacing the m-outer expert pallas_call :1295 and
+// _expertify :946): the same kernels against expert e of a stacked (E, K/2, N)
+// packing, e read from device memory by every block (pk::expert_index), which
+// offsets packed, scale and (in the split reduction) bias itself.  Launch
+// geometry and arithmetic are those of the 2-D path, so the result is
+// bit-equal to a 2-D launch on packed[e].
 // Both split K across blocks until the grid fills the SMs (N = 4096 for wo
 // and w_down gives few column blocks); every split writes its f32 partial to
 // a workspace and a second kernel sums the splits in a fixed order
@@ -41,8 +47,11 @@ template <int V, int MT>
 __global__ void __launch_bounds__(kThreads) matmul_pk_kernel(
     const float* __restrict__ x, const uint8_t* __restrict__ packed,
     const void* __restrict__ scale, int scale_dtype, const uint16_t* __restrict__ lut,
-    float* __restrict__ ws, int M, int K, int N, int kchunk) {
+    float* __restrict__ ws, int M, int K, int N, int kchunk, const int* __restrict__ expert, int n_experts) {
   extern __shared__ float xs[];  // [MT][kchunk] activations as f32
+  const size_t e = pk::expert_index(expert, n_experts);
+  packed += e * (K / 2) * static_cast<size_t>(N);
+  scale = pk::offset_scale(scale, scale_dtype, e * (K / 64) * static_cast<size_t>(N));
   __shared__ uint16_t lut_s[16];
   const int n0 = (blockIdx.x * kThreads + threadIdx.x) * kCols;
   const int k_begin = blockIdx.y * kchunk;
@@ -121,8 +130,12 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 template <int V, int NT>
 __global__ void __launch_bounds__(32 * kMmaWarps) matmul_pk_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed, const void* __restrict__ scale,
-    int scale_dtype, const uint16_t* __restrict__ lut, float* __restrict__ ws, int M, int K, int N, int kchunk) {
+    int scale_dtype, const uint16_t* __restrict__ lut, float* __restrict__ ws, int M, int K, int N, int kchunk,
+    const int* __restrict__ expert, int n_experts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const size_t e = pk::expert_index(expert, n_experts);
+  packed += e * (K / 2) * static_cast<size_t>(N);
+  scale = pk::offset_scale(scale, scale_dtype, e * (K / 64) * static_cast<size_t>(N));
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [8*NT][kchunk + 8]
   __shared__ uint16_t lut_s[16];
   const int lds = kchunk + 8;  // padded row: conflict-free B-fragment reads
@@ -224,10 +237,12 @@ __global__ void __launch_bounds__(32 * kMmaWarps) matmul_pk_mma_kernel(
 
 // y[m, n] = sum over splits (in order) + bias, cast to the output dtype
 __global__ void reduce_splits_kernel(const float* __restrict__ ws, const float* __restrict__ bias,
-                                     void* __restrict__ out, int out_dtype, int M, int N, int ksplit) {
+                                     void* __restrict__ out, int out_dtype, int M, int N, int ksplit,
+                                     const int* __restrict__ expert, int n_experts) {
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const size_t mn = static_cast<size_t>(M) * N;
   if (i >= mn) return;
+  if (bias != nullptr) bias += pk::expert_index(expert, n_experts) * N;  // a stacked (E, N) bias
   float acc = ws[i];
   for (int s = 1; s < ksplit; ++s) acc = __fadd_rn(acc, ws[static_cast<size_t>(s) * mn + i]);
   if (bias != nullptr) acc = __fadd_rn(acc, bias[i % N]);
@@ -236,31 +251,31 @@ __global__ void reduce_splits_kernel(const float* __restrict__ ws, const float* 
 
 template <int V, int MT>
 void launch(dim3 grid, size_t smem, cudaStream_t s, const void* x, const uint8_t* p, const void* scale,
-            int scale_dtype, const uint16_t* lut, float* ws, int M, int K, int N, int kchunk) {
+            int scale_dtype, const uint16_t* lut, float* ws, int M, int K, int N, int kchunk, const int* ex, int ne) {
   matmul_pk_kernel<V, MT><<<grid, kThreads, smem, s>>>(static_cast<const float*>(x), p, scale, scale_dtype, lut,
-                                                       ws, M, K, N, kchunk);
+                                                       ws, M, K, N, kchunk, ex, ne);
 }
 
 template <int V>
 void launch_mt(int mt, dim3 grid, size_t smem, cudaStream_t s, const void* x, const uint8_t* p, const void* scale,
-               int scale_dtype, const uint16_t* lut, float* ws, int M, int K, int N, int kchunk) {
+               int scale_dtype, const uint16_t* lut, float* ws, int M, int K, int N, int kchunk, const int* ex, int ne) {
   switch (mt) {
-    case 1: launch<V, 1>(grid, smem, s, x, p, scale, scale_dtype, lut, ws, M, K, N, kchunk); break;
-    case 2: launch<V, 2>(grid, smem, s, x, p, scale, scale_dtype, lut, ws, M, K, N, kchunk); break;
-    case 4: launch<V, 4>(grid, smem, s, x, p, scale, scale_dtype, lut, ws, M, K, N, kchunk); break;
-    default: launch<V, 8>(grid, smem, s, x, p, scale, scale_dtype, lut, ws, M, K, N, kchunk); break;
+    case 1: launch<V, 1>(grid, smem, s, x, p, scale, scale_dtype, lut, ws, M, K, N, kchunk, ex, ne); break;
+    case 2: launch<V, 2>(grid, smem, s, x, p, scale, scale_dtype, lut, ws, M, K, N, kchunk, ex, ne); break;
+    case 4: launch<V, 4>(grid, smem, s, x, p, scale, scale_dtype, lut, ws, M, K, N, kchunk, ex, ne); break;
+    default: launch<V, 8>(grid, smem, s, x, p, scale, scale_dtype, lut, ws, M, K, N, kchunk, ex, ne); break;
   }
 }
 
 
 template <int V>
 void launch_tc(int nt, dim3 grid, size_t smem, cudaStream_t s, const void* x, const uint8_t* p, const void* scale,
-               int scale_dtype, const uint16_t* lut, float* ws, int M, int K, int N, int kchunk) {
+               int scale_dtype, const uint16_t* lut, float* ws, int M, int K, int N, int kchunk, const int* ex, int ne) {
   auto xb = static_cast<const __nv_bfloat16*>(x);
   switch (nt) {
-    case 1: matmul_pk_mma_kernel<V, 1><<<grid, 32 * kMmaWarps, smem, s>>>(xb, p, scale, scale_dtype, lut, ws, M, K, N, kchunk); break;
-    case 2: matmul_pk_mma_kernel<V, 2><<<grid, 32 * kMmaWarps, smem, s>>>(xb, p, scale, scale_dtype, lut, ws, M, K, N, kchunk); break;
-    default: matmul_pk_mma_kernel<V, 4><<<grid, 32 * kMmaWarps, smem, s>>>(xb, p, scale, scale_dtype, lut, ws, M, K, N, kchunk); break;
+    case 1: matmul_pk_mma_kernel<V, 1><<<grid, 32 * kMmaWarps, smem, s>>>(xb, p, scale, scale_dtype, lut, ws, M, K, N, kchunk, ex, ne); break;
+    case 2: matmul_pk_mma_kernel<V, 2><<<grid, 32 * kMmaWarps, smem, s>>>(xb, p, scale, scale_dtype, lut, ws, M, K, N, kchunk, ex, ne); break;
+    default: matmul_pk_mma_kernel<V, 4><<<grid, 32 * kMmaWarps, smem, s>>>(xb, p, scale, scale_dtype, lut, ws, M, K, N, kchunk, ex, ne); break;
   }
 }
 
@@ -268,12 +283,16 @@ void launch_tc(int nt, dim3 grid, size_t smem, cudaStream_t s, const void* x, co
 
 // x (M, K) f32|bf16, packed (K/2, N) u8, scale (K/64, N) f32|bf16, bias (N) f32
 // or null, lut (16) bf16 bits or null, ws f32 (ksplit, M, N), out (M, N).
+// expert: null for the 2-D path, else one int32 in device memory selecting
+// expert e of stacked packed (E, K/2, N), scale (E, K/64, N) and bias (E, N),
+// with E = n_experts.
 // bf16 x runs on the tensor cores with rows = 8, 16 or 32 x rows per block;
 // f32 x on CUDA cores with rows = 1, 2, 4 or 8.  Requires N % 128 == 0,
 // (K/64) % ksplit == 0.
 extern "C" int pk_matmul_pk(const void* x, int x_dtype, const void* packed, const void* scale, int scale_dtype,
                             const void* bias, const void* lut, void* ws, void* out, int out_dtype, int M, int K,
-                            int N, int ksplit, int rows, int variant, void* stream) {
+                            int N, int ksplit, int rows, int variant, const int* expert, int n_experts,
+                            void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const int kchunk = K / ksplit;
   auto p = static_cast<const uint8_t*>(packed);
@@ -285,10 +304,10 @@ extern "C" int pk_matmul_pk(const void* x, int x_dtype, const void* packed, cons
     const dim3 grid((N + kMmaCols - 1) / kMmaCols, ksplit, (M + rows - 1) / rows);
     const int nt = rows / 8;
     switch (variant) {
-      case pk::kExact: launch_tc<pk::kExact>(nt, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk); break;
-      case pk::kZramp: launch_tc<pk::kZramp>(nt, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk); break;
-      case pk::kRamp: launch_tc<pk::kRamp>(nt, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk); break;
-      case pk::kLut: launch_tc<pk::kLut>(nt, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk); break;
+      case pk::kExact: launch_tc<pk::kExact>(nt, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk, expert, n_experts); break;
+      case pk::kZramp: launch_tc<pk::kZramp>(nt, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk, expert, n_experts); break;
+      case pk::kRamp: launch_tc<pk::kRamp>(nt, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk, expert, n_experts); break;
+      case pk::kLut: launch_tc<pk::kLut>(nt, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk, expert, n_experts); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   } else {
@@ -297,10 +316,10 @@ extern "C" int pk_matmul_pk(const void* x, int x_dtype, const void* packed, cons
     if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid((N + kThreads * kCols - 1) / (kThreads * kCols), ksplit, (M + rows - 1) / rows);
     switch (variant) {
-      case pk::kExact: launch_mt<pk::kExact>(rows, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk); break;
-      case pk::kZramp: launch_mt<pk::kZramp>(rows, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk); break;
-      case pk::kRamp: launch_mt<pk::kRamp>(rows, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk); break;
-      case pk::kLut: launch_mt<pk::kLut>(rows, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk); break;
+      case pk::kExact: launch_mt<pk::kExact>(rows, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk, expert, n_experts); break;
+      case pk::kZramp: launch_mt<pk::kZramp>(rows, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk, expert, n_experts); break;
+      case pk::kRamp: launch_mt<pk::kRamp>(rows, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk, expert, n_experts); break;
+      case pk::kLut: launch_mt<pk::kLut>(rows, grid, smem, s, x, p, scale, scale_dtype, l, w, M, K, N, kchunk, expert, n_experts); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -309,6 +328,6 @@ extern "C" int pk_matmul_pk(const void* x, int x_dtype, const void* packed, cons
   const size_t mn = static_cast<size_t>(M) * N;
   const int threads = 256;
   reduce_splits_kernel<<<static_cast<unsigned>((mn + threads - 1) / threads), threads, 0, s>>>(
-      w, static_cast<const float*>(bias), out, out_dtype, M, N, ksplit);
+      w, static_cast<const float*>(bias), out, out_dtype, M, N, ksplit, expert, n_experts);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,6 +24,12 @@
 // fragment reads are conflict-free.  The next step's x chunk and packed
 // bytes are loaded into registers while the current step's MMAs run; no
 // cp.async/TMA pipeline or wgmma yet.
+//
+// K8 (the expert form, replacing the m-inner expert pallas_call :1215 and
+// _expertify :946): the same kernels against expert e of a stacked (E, K/2, N)
+// packing; each block reads e from device memory (pk::expert_index) and offsets
+// packed, scale and bias itself.  Same tiles and arithmetic as the 2-D path:
+// bit-equal to a 2-D launch on packed[e].
 #include "pairk_decode.cuh"
 
 namespace {
@@ -42,8 +48,12 @@ template <int V, int BM>
 __global__ void __launch_bounds__(256) minner_bf16_kernel(
     const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ packed, const void* __restrict__ scale,
     int scale_dtype, const float* __restrict__ bias, const uint16_t* __restrict__ lut, void* __restrict__ out,
-    int out_dtype, int M, int K, int N) {
+    int out_dtype, int M, int K, int N, const int* __restrict__ expert, int n_experts) {
   constexpr int WM = BM / 2, MT = WM / 16, NT = 4;  // 2 x 4 warps, warp tile WM x 32
+  const size_t e = pk::expert_index(expert, n_experts);
+  packed += e * (K / 2) * static_cast<size_t>(N);
+  scale = pk::offset_scale(scale, scale_dtype, e * (K / 64) * static_cast<size_t>(N));
+  if (bias != nullptr) bias += e * N;
   constexpr int XV = BM * 8 / 256;                  // 16-byte x chunks per thread per K step
   __shared__ __align__(16) __nv_bfloat16 xs[BM * kLds];
   __shared__ __align__(16) __nv_bfloat16 wsm[kBN * kLds];  // [n][k]
@@ -150,8 +160,12 @@ template <int V>
 __global__ void __launch_bounds__(256) minner_f32_kernel(
     const float* __restrict__ x, const uint8_t* __restrict__ packed, const void* __restrict__ scale,
     int scale_dtype, const float* __restrict__ bias, const uint16_t* __restrict__ lut, void* __restrict__ out,
-    int out_dtype, int M, int K, int N) {
+    int out_dtype, int M, int K, int N, const int* __restrict__ expert, int n_experts) {
   constexpr int TB = 64;
+  const size_t e = pk::expert_index(expert, n_experts);
+  packed += e * (K / 2) * static_cast<size_t>(N);
+  scale = pk::offset_scale(scale, scale_dtype, e * (K / 64) * static_cast<size_t>(N));
+  if (bias != nullptr) bias += e * N;
   __shared__ float xs[TB][TB + 4];  // [k][m]
   __shared__ __align__(16) float wsm[TB][TB];  // [k][n]
   __shared__ uint16_t lut_s[16];
@@ -212,19 +226,20 @@ __global__ void __launch_bounds__(256) minner_f32_kernel(
 
 template <int V>
 int launch(const void* x, int x_dtype, const uint8_t* p, const void* scale, int scale_dtype, const float* bias,
-           const uint16_t* lut, void* out, int out_dtype, int M, int K, int N, int bm, cudaStream_t s) {
+           const uint16_t* lut, void* out, int out_dtype, int M, int K, int N, int bm, const int* ex, int ne,
+           cudaStream_t s) {
   if (x_dtype == pk::kF32) {
     const dim3 grid(N / 64, (M + 63) / 64);
     minner_f32_kernel<V><<<grid, 256, 0, s>>>(static_cast<const float*>(x), p, scale, scale_dtype, bias, lut,
-                                              out, out_dtype, M, K, N);
+                                              out, out_dtype, M, K, N, ex, ne);
   } else if (bm == 64) {
     const dim3 grid(N / kBN, (M + 63) / 64);
     minner_bf16_kernel<V, 64><<<grid, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(x), p, scale, scale_dtype,
-                                                   bias, lut, out, out_dtype, M, K, N);
+                                                   bias, lut, out, out_dtype, M, K, N, ex, ne);
   } else {
     const dim3 grid(N / kBN, (M + 127) / 128);
     minner_bf16_kernel<V, 128><<<grid, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(x), p, scale,
-                                                    scale_dtype, bias, lut, out, out_dtype, M, K, N);
+                                                    scale_dtype, bias, lut, out, out_dtype, M, K, N, ex, ne);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -234,18 +249,22 @@ int launch(const void* x, int x_dtype, const uint8_t* p, const void* scale, int 
 // x (M, K) bf16 (tensor cores) or f32 (CUDA cores); packed (K/2, N) u8;
 // scale (K/64, N) f32|bf16; bias (N) f32 or null; lut (16) bf16 bits or null.
 // Requires N % 128 == 0, K % 64 == 0; bm in {64, 128} picks the bf16 M tile.
+// expert: null for the 2-D path, else one int32 in device memory selecting
+// expert e of stacked packed (E, K/2, N), scale (E, K/64, N) and bias (E, N),
+// with E = n_experts.
 extern "C" int pk_matmul_pk_minner(const void* x, int x_dtype, const void* packed, const void* scale,
                                    int scale_dtype, const void* bias, const void* lut, void* out, int out_dtype,
-                                   int M, int K, int N, int bm, int variant, void* stream) {
+                                   int M, int K, int N, int bm, int variant, const int* expert, int n_experts,
+                                   void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto p = static_cast<const uint8_t*>(packed);
   auto b = static_cast<const float*>(bias);
   auto l = static_cast<const uint16_t*>(lut);
   switch (variant) {
-    case pk::kExact: return launch<pk::kExact>(x, x_dtype, p, scale, scale_dtype, b, l, out, out_dtype, M, K, N, bm, s);
-    case pk::kZramp: return launch<pk::kZramp>(x, x_dtype, p, scale, scale_dtype, b, l, out, out_dtype, M, K, N, bm, s);
-    case pk::kRamp: return launch<pk::kRamp>(x, x_dtype, p, scale, scale_dtype, b, l, out, out_dtype, M, K, N, bm, s);
-    case pk::kLut: return launch<pk::kLut>(x, x_dtype, p, scale, scale_dtype, b, l, out, out_dtype, M, K, N, bm, s);
+    case pk::kExact: return launch<pk::kExact>(x, x_dtype, p, scale, scale_dtype, b, l, out, out_dtype, M, K, N, bm, expert, n_experts, s);
+    case pk::kZramp: return launch<pk::kZramp>(x, x_dtype, p, scale, scale_dtype, b, l, out, out_dtype, M, K, N, bm, expert, n_experts, s);
+    case pk::kRamp: return launch<pk::kRamp>(x, x_dtype, p, scale, scale_dtype, b, l, out, out_dtype, M, K, N, bm, expert, n_experts, s);
+    case pk::kLut: return launch<pk::kLut>(x, x_dtype, p, scale, scale_dtype, b, l, out, out_dtype, M, K, N, bm, expert, n_experts, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -28,6 +28,12 @@
 // conflict-free fragment reads.  The requant factor of each column is
 // computed once per step into shared memory, and the next step's global data
 // is loaded into registers while the current step's MMAs run.
+//
+// K8 (the expert form, replacing the a8 expert pallas_call :1215 and
+// _expertify :946): the same kernel against expert e of a stacked (E, K/2, N)
+// packing; each block reads e from device memory (pk::expert_index) and offsets
+// packed, scale and bias itself.  Same tiles and arithmetic as the 2-D path:
+// bit-equal to a 2-D launch on packed[e].
 #include "pairk_decode.cuh"
 
 namespace {
@@ -46,8 +52,12 @@ template <int V>
 __global__ void __launch_bounds__(256) w4a8_kernel(
     const int8_t* __restrict__ x8, const float* __restrict__ rs, const uint8_t* __restrict__ packed,
     const void* __restrict__ scale, int scale_dtype, const float* __restrict__ bias, void* __restrict__ out,
-    int out_dtype, int M, int K, int N, int a8_block_k) {
+    int out_dtype, int M, int K, int N, int a8_block_k, const int* __restrict__ expert, int n_experts) {
   constexpr int BM = 64, WM = 32, MT = 2, NT = 4;  // 2 x 4 warps, warp tile 32 x 32
+  const size_t e = pk::expert_index(expert, n_experts);
+  packed += e * (K / 2) * static_cast<size_t>(N);
+  scale = pk::offset_scale(scale, scale_dtype, e * (K / 64) * static_cast<size_t>(N));
+  if (bias != nullptr) bias += e * N;
   __shared__ __align__(16) int8_t xs[BM * kLds];
   __shared__ __align__(16) int8_t wsm[kBN * kLds];  // [n][k]
   __shared__ float g_s[kBN];  // tile column max of the scales (0 -> 1)
@@ -178,9 +188,10 @@ __global__ void __launch_bounds__(256) w4a8_kernel(
 
 template <int V>
 int launch(const int8_t* x8, const float* rs, const uint8_t* p, const void* scale, int scale_dtype,
-           const float* bias, void* out, int out_dtype, int M, int K, int N, int a8_block_k, cudaStream_t s) {
+           const float* bias, void* out, int out_dtype, int M, int K, int N, int a8_block_k, const int* ex, int ne,
+           cudaStream_t s) {
   w4a8_kernel<V><<<dim3(N / kBN, (M + 63) / 64), 256, 0, s>>>(x8, rs, p, scale, scale_dtype, bias, out, out_dtype,
-                                                              M, K, N, a8_block_k);
+                                                              M, K, N, a8_block_k, ex, ne);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -188,19 +199,22 @@ int launch(const int8_t* x8, const float* rs, const uint8_t* p, const void* scal
 
 // x8 (M, K) int8, rs (M, K/a8_block_k) f32, packed (K/2, N) u8, scale (K/64, N)
 // f32|bf16, bias (N) f32 or null.  Requires N % 128 == 0, K % a8_block_k == 0,
-// a8_block_k % 64 == 0.  FP4-family variants only.
+// a8_block_k % 64 == 0.  FP4-family variants only.  expert: null for the 2-D
+// path, else one int32 in device memory selecting expert e of stacked packed
+// (E, K/2, N), scale (E, K/64, N) and bias (E, N), with E = n_experts.
 extern "C" int pk_matmul_pk_w4a8(const void* x8, const void* rs, const void* packed, const void* scale,
                                  int scale_dtype, const void* bias, void* out, int out_dtype, int M, int K,
-                                 int N, int a8_block_k, int variant, void* stream) {
+                                 int N, int a8_block_k, int variant, const int* expert, int n_experts,
+                                 void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto x = static_cast<const int8_t*>(x8);
   auto r = static_cast<const float*>(rs);
   auto p = static_cast<const uint8_t*>(packed);
   auto b = static_cast<const float*>(bias);
   switch (variant) {
-    case pk::kExact: return launch<pk::kExact>(x, r, p, scale, scale_dtype, b, out, out_dtype, M, K, N, a8_block_k, s);
-    case pk::kZramp: return launch<pk::kZramp>(x, r, p, scale, scale_dtype, b, out, out_dtype, M, K, N, a8_block_k, s);
-    case pk::kRamp: return launch<pk::kRamp>(x, r, p, scale, scale_dtype, b, out, out_dtype, M, K, N, a8_block_k, s);
+    case pk::kExact: return launch<pk::kExact>(x, r, p, scale, scale_dtype, b, out, out_dtype, M, K, N, a8_block_k, expert, n_experts, s);
+    case pk::kZramp: return launch<pk::kZramp>(x, r, p, scale, scale_dtype, b, out, out_dtype, M, K, N, a8_block_k, expert, n_experts, s);
+    case pk::kRamp: return launch<pk::kRamp>(x, r, p, scale, scale_dtype, b, out, out_dtype, M, K, N, a8_block_k, expert, n_experts, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -71,6 +71,21 @@ __device__ __forceinline__ float load_scale(const void* scale, int scale_dtype, 
   return static_cast<const float*>(scale)[i];
 }
 
+// K8: the expert a stacked launch runs against.  ``expert`` points at one
+// int32 in device memory (an element of the router's top-k indices, or of a
+// cached arange for a static index), read here so that the host never reads
+// it; clamped into [0, n_experts) as jax.lax.dynamic_index_in_dim clamps.  A
+// 2-D launch passes null and gets expert 0 of a one-expert "stack".
+__device__ __forceinline__ size_t expert_index(const int* expert, int n_experts) {
+  if (expert == nullptr) return 0;
+  return static_cast<size_t>(min(max(__ldg(expert), 0), n_experts - 1));
+}
+
+// scale pointer advanced by ``elems`` elements of its dtype
+__device__ __forceinline__ const void* offset_scale(const void* scale, int scale_dtype, size_t elems) {
+  return static_cast<const char*>(scale) + elems * (scale_dtype == kBF16 ? 2 : 4);
+}
+
 // f32 result -> output element (round to nearest even, like XLA's astype)
 __device__ __forceinline__ void store_out(void* out, int out_dtype, size_t i, float v) {
   if (out_dtype == kBF16) {

@@ -9,8 +9,11 @@ slices the result.
 
 The int8 prefill shadow (:func:`attach_int8_shadow`) decodes and requantizes
 a layer's weights once (K6) into ``w8`` / ``w8_scale``; prefill GEMMs of 256
-rows or more then run as a pure int8 GEMM (K5).  Only the pair-K layout is
-ported: split-K (K9a/K9b) raises ``NotImplementedError``.
+rows or more then run as a pure int8 GEMM (K5).  A STACKED QuantLinear (every
+tensor with a leading expert axis, ``models.transformer.stack_linears``) is
+applied one expert at a time by :func:`apply_expert_linear` (K8); it gets no
+shadow.  Only the pair-K layout is ported: split-K (K9a/K9b) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,14 +40,16 @@ class QuantLinear:
     ``packed`` uint8 (k_pad/2, n_pad) and ``scale`` (k_pad/blocksize, n_pad)
     f32|bf16 (the JAX package's ``absmax_hi``; its ``absmax_lo`` is None for
     pair-K).  ``variant`` names the stored codebook; ``codebook`` (16,) f32 is
-    set for ``variant="lut"`` only.  Optional int8 prefill shadow: ``w8``
+    set for ``variant="lut"`` only.  A stacked layer (mixture of experts)
+    has a leading expert axis on packed, scale, bias and codebook.  Optional
+    int8 prefill shadow: ``w8``
     (k_pad, n_pad) int8 and ``w8_scale`` (k_pad / w8_block_k, n_pad) f32
     per-K-tile column scales (:func:`attach_int8_shadow`).
     """
 
     packed: torch.Tensor
     scale: torch.Tensor
-    bias: torch.Tensor | None  # (n_out,) f32 or None
+    bias: torch.Tensor | None  # (n_out,) f32 or None; (E, n_out) stacked
     n_out: int
     k_in: int
     blocksize: int = 64
@@ -186,10 +191,47 @@ def apply_linear(q: QuantLinear, x: torch.Tensor, *, out_dtype=None) -> torch.Te
     return out.reshape(*lead, q.n_out)
 
 
+def apply_expert_linear(sq: QuantLinear, e, x: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+    """Forward through expert ``e`` of a STACKED pair-K QuantLinear without
+    copying that expert (the JAX package's ``apply_expert_linear``,
+    models/linear.py:524-575): the K8 forms of K2/K3/K4 read ``e`` from device
+    memory and offset into the stack themselves.  ``e`` is a Python int (the
+    all-experts loop) or a one-element int32 tensor on x's device (a token's
+    routed expert, never read on the host).  One row takes the m-outer path
+    (K2), other row counts ``select_path``'s choice."""
+    if sq.packed.ndim != 3:
+        raise ValueError(f"apply_expert_linear needs a stacked (E, K/2, N) packing, got {tuple(sq.packed.shape)}")
+    *lead, k = x.shape
+    if k != sq.k_in:
+        raise ValueError(f"input feature dim {k} does not match layer k_in={sq.k_in} "
+                         f"(x.shape={tuple(x.shape)}, layer {sq.n_out}x{sq.k_in})")
+    m = math.prod(lead)
+    if m == 0:
+        return torch.zeros((*lead, sq.n_out), dtype=x.dtype, device=x.device)
+    x2 = x.reshape(m, k)
+    if k != sq.k_pad:
+        x2 = torch.nn.functional.pad(x2, (0, sq.k_pad - k))
+    bias = sq.bias  # (E, n_out): the kernel offsets into it
+    if bias is not None and sq.n_pad != sq.n_out:
+        bias = torch.nn.functional.pad(bias, (0, sq.n_pad - sq.n_out))
+    cb = None
+    if sq.variant == "lut":
+        cb = sq.codebook[0] if sq.codebook.ndim == 2 else sq.codebook
+    kw = dict(blocksize=sq.blocksize, out_dtype=out_dtype, variant=sq.variant, expert=e)
+    if m == 1:
+        out = K.gemv_fp4_pk(x2, sq.packed, sq.scale, bias, cb, **kw)
+    else:
+        out = K.matmul_fp4_pk(x2, sq.packed, sq.scale, bias, cb, **kw)
+    if sq.n_pad != sq.n_out:
+        out = out[:, : sq.n_out]
+    return out.reshape(*lead, sq.n_out)
+
+
 def fuse_linears(linears: list[QuantLinear]) -> QuantLinear:
     """Fuse same-input pair-K linears into one (column concat): one kernel
-    call for QKV and one for gate|up.  Tensor parallelism (tp > 1) is not yet
-    ported."""
+    call for QKV and one for gate|up.  Stacked (expert) linears fuse the same
+    way: every concat is on the last axis.  Tensor parallelism (tp > 1) is
+    not yet ported."""
     q0 = linears[0]
     if any(l.variant != q0.variant for l in linears):
         raise ValueError("fused linears must share a codebook variant")
@@ -200,9 +242,9 @@ def fuse_linears(linears: list[QuantLinear]) -> QuantLinear:
     if any(l.n_out != l.n_pad for l in linears):
         raise ValueError("fused linears must be 128-aligned")
     if any(l.bias is not None for l in linears):
-        bias = torch.cat([l.bias if l.bias is not None else torch.zeros(l.n_out, dtype=torch.float32,
-                                                                         device=l.packed.device)
-                          for l in linears])
+        bias = torch.cat([l.bias if l.bias is not None else torch.zeros((*l.packed.shape[:-2], l.n_out),
+                                                                         dtype=torch.float32, device=l.packed.device)
+                          for l in linears], dim=-1)
     else:
         bias = None
     return QuantLinear(

@@ -12,8 +12,13 @@ Sliding-window layers may keep rolling rings of ``ring_rows`` rows
 either device: the card runs the CUDA kernel and the CPU its plain version.
 Shorter shapes take the dense, query-chunked path.
 
-Not yet ported (raise ``NotImplementedError``): mixture-of-experts layers,
-LoRA adapters, the quantized embedding table and tensor parallelism.
+Mixture-of-experts layers (Mixtral) keep their experts STACKED
+(:class:`MoEParams`); :func:`moe_forward` routes on the device and runs each
+expert through the K8 forms of K2-K4 (``models.linear.apply_expert_linear``),
+so no routing decision is read on the host.
+
+Not yet ported (raise ``NotImplementedError``): LoRA adapters, the quantized
+embedding table and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -26,9 +31,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import kernels as K
 from ..ops.attention import flash_attention
 from ..utils.device import resolve_device
-from .linear import DenseLinear, QuantLinear, dense_linear, fuse_linears, quantize_linear
+from .linear import DenseLinear, QuantLinear, apply_expert_linear, dense_linear, fuse_linears, quantize_linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +146,56 @@ class ModelConfig:
         d = dict(vocab_size=256, dim=1024, n_layers=2, n_heads=8, n_kv_heads=4, ffn_dim=2048)
         d.update(kw)
         return cls(**d)
+
+
+@dataclasses.dataclass
+class MoEParams:
+    """Mixture-of-experts MLP state (Mixtral family; the JAX package's
+    ``MoEParams``).  ``router`` is a dense (dim -> n_experts) linear, never
+    quantized.  ``gate``/``up``/``down`` (and the fused ``gateup``) are
+    STACKED linears: every tensor carries a leading n_experts axis
+    (:func:`stack_linears`), which lets a token's expert be chosen by an index
+    in device memory."""
+
+    router: Any  # DenseLinear (dim -> n_experts)
+    gate: Any  # stacked QuantLinear/DenseLinear; None when gateup is fused
+    up: Any
+    down: Any
+    gateup: Any = None
+
+    def to(self, device) -> "MoEParams":
+        return MoEParams(**{f.name: None if getattr(self, f.name) is None else getattr(self, f.name).to(device)
+                            for f in dataclasses.fields(self)})
+
+
+def stack_linears(linears: list) -> Any:
+    """Stack same-shape QuantLinears or DenseLinears into one whose tensors
+    gain a leading expert axis (their static fields must match)."""
+    l0 = linears[0]
+    static = [f.name for f in dataclasses.fields(l0) if not isinstance(getattr(l0, f.name), torch.Tensor)
+              and getattr(l0, f.name) is not None]
+    for l in linears:
+        if type(l) is not type(l0) or any(getattr(l, n) != getattr(l0, n) for n in static):
+            raise ValueError("stacked linears must share their type and static fields")
+        if isinstance(l, QuantLinear) and l.w8 is not None:
+            raise ValueError("stacked linears carry no int8 shadow")
+
+    def stack(name):
+        ts = [getattr(l, name) for l in linears]
+        if all(t is None for t in ts):
+            return None
+        return torch.stack(ts)
+
+    return dataclasses.replace(l0, **{f.name: stack(f.name) for f in dataclasses.fields(l0)
+                                      if f.name not in static})
+
+
+def expert_view(stacked: Any, e) -> Any:
+    """Expert ``e`` of a stacked linear as an ordinary linear: ``e`` a Python
+    int, or a one-element index tensor on the device (a gather, clamped into
+    range as JAX's ``dynamic_index_in_dim``; never read on the host)."""
+    names = [f.name for f in dataclasses.fields(stacked) if isinstance(getattr(stacked, f.name), torch.Tensor)]
+    return dataclasses.replace(stacked, **dict(zip(names, K.select_expert(e, *(getattr(stacked, n) for n in names)))))
 
 
 @dataclasses.dataclass
@@ -375,11 +431,67 @@ def _write_kv(cache: torch.Tensor, new: torch.Tensor, ctx: _StepContext) -> None
     cache[ctx.write_b, ctx.write_rows[cache.shape[1]]] = new.to(cache.dtype)
 
 
+def _apply_expert(stacked, e, x, **kw):
+    """Expert ``e`` of a stacked linear applied to ``x``: a pair-K stack
+    through K8 (``apply_expert_linear``, no copy of the expert), a dense
+    stack through its :func:`expert_view`."""
+    if isinstance(stacked, QuantLinear):
+        return apply_expert_linear(stacked, e, x, **kw)
+    return expert_view(stacked, e)(x, **kw)
+
+
+def _expert_ffn(moe: MoEParams, cfg: ModelConfig, e, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of expert ``e`` on rows x (T, dim) -> f32 (T, dim), in the op
+    order of the dense MLP branch of :func:`_layer_forward`."""
+    if moe.gateup is not None:
+        gate, up = torch.chunk(_apply_expert(moe.gateup, e, x), 2, dim=-1)
+    else:
+        gate, up = _apply_expert(moe.gate, e, x), _apply_expert(moe.up, e, x)
+    return _apply_expert(moe.down, e, _act(cfg, gate).to(up.dtype) * up, out_dtype=torch.float32)
+
+
+def moe_forward(moe: MoEParams, cfg: ModelConfig, x: torch.Tensor, force_dense: bool | None = None) -> torch.Tensor:
+    """Sparse-MoE MLP (the JAX package's ``moe_forward``, HF
+    MixtralSparseMoeBlock semantics): router softmax in f32, top
+    ``experts_per_tok`` (sorted), renormalized over the selected k, weighted
+    sum of the expert outputs.  x (..., dim) -> f32 (..., dim).
+
+    Two exact strategies, chosen by shape alone (``force_dense`` overrides):
+    per-token when T * k <= n_experts (decode: each token runs its k experts,
+    whose indices stay on the device as elements of the int32 ``top_i``), else
+    all-experts (prefill: every expert runs all T rows, weighted by each
+    token's routing mass, zero where it was not chosen).  Neither reads a
+    routing decision on the host, so a decode step needs no host sync and
+    replays as a CUDA graph."""
+    *lead, d = x.shape
+    t = math.prod(lead)
+    xt = x.reshape(t, d)
+    probs = torch.softmax(moe.router(xt, out_dtype=torch.float32), dim=-1)  # (T, E)
+    top_w, top_i = torch.topk(probs, cfg.experts_per_tok, dim=-1, sorted=True)
+    top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    top_i = top_i.to(torch.int32).contiguous()  # K8 reads its expert as an int32 in device memory
+    per_token = t * cfg.experts_per_tok <= cfg.n_experts if force_dense is None else not force_dense
+    if per_token:
+        rows = []
+        for ti in range(t):
+            acc = None  # acc = 0 + w_0 y_0 + w_1 y_1 + ..., in j order
+            for j in range(cfg.experts_per_tok):
+                wy = top_w[ti, j] * _expert_ffn(moe, cfg, top_i[ti, j], xt[ti : ti + 1])[0]
+                acc = wy if acc is None else acc + wy
+            rows.append(acc)
+        out = torch.stack(rows)
+    else:
+        out = None
+        for e in range(cfg.n_experts):
+            w_e = (top_w * (top_i == e)).sum(dim=-1)  # (T,) routing mass of expert e
+            wy = w_e[:, None] * _expert_ffn(moe, cfg, e, xt)
+            out = wy if out is None else out + wy
+    return out.reshape(*lead, d)
+
+
 def _layer_forward(lp: LayerParams, cfg: ModelConfig, x, k_cache, v_cache, ctx: _StepContext, layer_idx: int = 0):
     """One decoder block (tp = 1).  Writes this step's K/V into the layer's
     cache tensors in place; returns the new hidden state."""
-    if lp.moe is not None:
-        raise NotImplementedError("mixture-of-experts layers are not yet ported")
     b, l, _ = x.shape
     n_heads, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, lp.attn_norm, cfg.rms_eps, cfg.norm_offset)
@@ -406,11 +518,14 @@ def _layer_forward(lp: LayerParams, cfg: ModelConfig, x, k_cache, v_cache, ctx: 
         y = rms_norm(y, lp.post_attn_norm, cfg.rms_eps, cfg.norm_offset)
     x = x + y
     h = rms_norm(x, lp.mlp_norm, cfg.rms_eps, cfg.norm_offset)
-    if lp.w_gateup is not None:
-        gate, up = torch.chunk(lp.w_gateup(h), 2, dim=-1)
+    if lp.moe is not None:
+        y = moe_forward(lp.moe, cfg, h).to(x.dtype)
     else:
-        gate, up = lp.w_gate(h), lp.w_up(h)
-    y = lp.w_down(_act(cfg, gate).to(up.dtype) * up).to(x.dtype)
+        if lp.w_gateup is not None:
+            gate, up = torch.chunk(lp.w_gateup(h), 2, dim=-1)
+        else:
+            gate, up = lp.w_gate(h), lp.w_up(h)
+        y = lp.w_down(_act(cfg, gate).to(up.dtype) * up).to(x.dtype)
     if lp.post_mlp_norm is not None:
         y = rms_norm(y, lp.post_mlp_norm, cfg.rms_eps, cfg.norm_offset)
     return x + y
@@ -507,30 +622,37 @@ def norm_names(cfg: ModelConfig) -> tuple[str, str, str | None, str | None]:
     return ("input_layernorm", "post_attention_layernorm", None, None)
 
 
-def fuse_params(params: ModelParams) -> ModelParams:
-    """Fuse QKV and gate|up in every layer: one kernel launch each."""
+def fuse_layer(lp: LayerParams) -> LayerParams:
+    """Fuse QKV and gate|up (the expert stacks' too) in one layer: one kernel
+    launch each."""
     def fusable(*ls):
         return all(isinstance(l, QuantLinear) for l in ls)
 
-    layers = []
-    for lp in params.layers:
-        rep = {}
-        if fusable(lp.wq, lp.wk, lp.wv):
-            rep.update(wqkv=fuse_linears([lp.wq, lp.wk, lp.wv]), wq=None, wk=None, wv=None)
-        if fusable(lp.w_gate, lp.w_up):
-            rep.update(w_gateup=fuse_linears([lp.w_gate, lp.w_up]), w_gate=None, w_up=None)
-        layers.append(dataclasses.replace(lp, **rep))
-    return dataclasses.replace(params, layers=layers)
+    rep = {}
+    if fusable(lp.wq, lp.wk, lp.wv):
+        rep.update(wqkv=fuse_linears([lp.wq, lp.wk, lp.wv]), wq=None, wk=None, wv=None)
+    if fusable(lp.w_gate, lp.w_up):
+        rep.update(w_gateup=fuse_linears([lp.w_gate, lp.w_up]), w_gate=None, w_up=None)
+    if lp.moe is not None and fusable(lp.moe.gate, lp.moe.up):
+        # fuse_linears concatenates on the last axis, so stacked experts fuse in one call
+        rep.update(moe=dataclasses.replace(lp.moe, gateup=fuse_linears([lp.moe.gate, lp.moe.up]), gate=None,
+                                           up=None))
+    return dataclasses.replace(lp, **rep)
+
+
+def fuse_params(params: ModelParams) -> ModelParams:
+    """Fuse QKV and gate|up in every layer (:func:`fuse_layer`)."""
+    return dataclasses.replace(params, layers=[fuse_layer(lp) for lp in params.layers])
 
 
 def quantize_params(cfg: ModelConfig, weights: dict[str, np.ndarray], fuse: bool = False,
                     device=None) -> ModelParams:
-    """ModelParams on ``device`` from fp weights in HF llama naming: every
-    linear quantized, norms and embeddings bf16, a dense bf16 lm_head unless
+    """ModelParams on ``device`` from fp weights in HF llama naming (Mixtral's
+    for ``cfg.n_experts``: ``block_sparse_moe.gate`` is the dense router,
+    ``experts.{m}.w1/w3/w2`` are gate/up/down): every linear quantized,
+    norms, embeddings and router bf16, a dense bf16 lm_head unless
     ``cfg.quantize_lm_head``."""
     device = resolve_device(device)
-    if cfg.n_experts:
-        raise NotImplementedError("mixture-of-experts models are not yet ported")
     if cfg.quantize_embed:
         raise NotImplementedError("the quantized embedding table is not yet ported")
 
@@ -556,11 +678,20 @@ def quantize_params(cfg: ModelConfig, weights: dict[str, np.ndarray], fuse: bool
         if cfg.qk_norm:
             extra.update(q_norm=bf16(weights[p + "self_attn.q_norm.weight"]),
                          k_norm=bf16(weights[p + "self_attn.k_norm.weight"]))
+        if cfg.n_experts:
+            ep = p + "block_sparse_moe.experts."
+
+            def experts(w):
+                return stack_linears([ql(weights[f"{ep}{m}.{w}.weight"]) for m in range(cfg.n_experts)])
+
+            extra.update(moe=MoEParams(router=dense_linear(weights[p + "block_sparse_moe.gate.weight"], device=device),
+                                       gate=experts("w1"), up=experts("w3"), down=experts("w2")))
+        else:
+            extra.update(w_gate=q("mlp.gate_proj"), w_up=q("mlp.up_proj"), w_down=q("mlp.down_proj"))
         layers.append(LayerParams(
             attn_norm=bf16(weights[p + an + ".weight"]),
             wq=q("self_attn.q_proj"), wk=q("self_attn.k_proj"), wv=q("self_attn.v_proj"),
-            wo=q("self_attn.o_proj"), mlp_norm=bf16(weights[p + mn + ".weight"]),
-            w_gate=q("mlp.gate_proj"), w_up=q("mlp.up_proj"), w_down=q("mlp.down_proj"), **extra,
+            wo=q("self_attn.o_proj"), mlp_norm=bf16(weights[p + mn + ".weight"]), **extra,
         ))
     lm_w = weights.get("lm_head.weight")
     if lm_w is None:  # tied embeddings
@@ -572,10 +703,9 @@ def quantize_params(cfg: ModelConfig, weights: dict[str, np.ndarray], fuse: bool
 
 
 def random_weights(cfg: ModelConfig, seed: int = 0, scale: float = 0.02) -> dict[str, np.ndarray]:
-    """Random fp32 weights in HF llama naming (numpy, seeded) — the same
-    arrays as the JAX package's ``random_weights`` for the same seed."""
-    if cfg.n_experts:
-        raise NotImplementedError("mixture-of-experts models are not yet ported")
+    """Random fp32 weights in HF llama naming (Mixtral's for experts; numpy,
+    seeded) — the same arrays as the JAX package's ``random_weights`` for the
+    same seed."""
     rng = np.random.default_rng(seed)
 
     def w(*shape):
@@ -603,7 +733,15 @@ def random_weights(cfg: ModelConfig, seed: int = 0, scale: float = 0.02) -> dict
         if cfg.qk_norm:
             out[p + "self_attn.q_norm.weight"] = np.ones(cfg.head_dim, np.float32)
             out[p + "self_attn.k_norm.weight"] = np.ones(cfg.head_dim, np.float32)
-        out[p + "mlp.gate_proj.weight"] = w(cfg.ffn_dim, cfg.dim)
-        out[p + "mlp.up_proj.weight"] = w(cfg.ffn_dim, cfg.dim)
-        out[p + "mlp.down_proj.weight"] = w(cfg.dim, cfg.ffn_dim)
+        if cfg.n_experts:
+            out[p + "block_sparse_moe.gate.weight"] = w(cfg.n_experts, cfg.dim)
+            for m in range(cfg.n_experts):
+                ep = p + f"block_sparse_moe.experts.{m}."
+                out[ep + "w1.weight"] = w(cfg.ffn_dim, cfg.dim)
+                out[ep + "w2.weight"] = w(cfg.dim, cfg.ffn_dim)
+                out[ep + "w3.weight"] = w(cfg.ffn_dim, cfg.dim)
+        else:
+            out[p + "mlp.gate_proj.weight"] = w(cfg.ffn_dim, cfg.dim)
+            out[p + "mlp.up_proj.weight"] = w(cfg.ffn_dim, cfg.dim)
+            out[p + "mlp.down_proj.weight"] = w(cfg.dim, cfg.ffn_dim)
     return out

@@ -35,9 +35,11 @@ _F = ctypes.c_float
 # C entry point of each source: (function name, argtypes)
 SIGNATURES = {
     "decode_pairs.cu": ("pk_decode_pairs", [_P, _P, _I64, _I, _P, _P]),
-    "matmul_pk.cu": ("pk_matmul_pk", [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "matmul_pk_minner.cu": ("pk_matmul_pk_minner", [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "matmul_pk_w4a8.cu": ("pk_matmul_pk_w4a8", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    # K2-K4 end in (expert index pointer or None, n_experts, stream): the K8 forms
+    "matmul_pk.cu": ("pk_matmul_pk", [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P]),
+    "matmul_pk_minner.cu": ("pk_matmul_pk_minner", [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
+                                                    _P]),
+    "matmul_pk_w4a8.cu": ("pk_matmul_pk_w4a8", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P]),
     "flash_attention.cu": ("pk_flash_attention", [_P] * 7 + [_I] * 6 + [_I64] * 9 + [_F, _F, _I, _I, _I, _P]),
     "matmul_w8.cu": ("pk_matmul_w8", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "dequant_pk.cu": ("pk_dequant_pk", [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P]),

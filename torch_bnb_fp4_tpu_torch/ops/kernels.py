@@ -1,6 +1,6 @@
-"""Pair-K FP4 kernels K1-K6: CUDA wrappers, plain PyTorch versions, launch
-counts, the M-based path choice of ``matmul_fp4_pk`` and the int8 prefill
-shadow.
+"""Pair-K FP4 kernels K1-K6 and K8: CUDA wrappers, plain PyTorch versions,
+launch counts, the M-based path choice of ``matmul_fp4_pk`` and the int8
+prefill shadow.
 
 Counterpart of ``torch_bnb_fp4_tpu/ops/kernels.py`` (pair-K part).  Every
 wrapper takes its kernel's plain version for a tensor on the CPU and launches
@@ -15,6 +15,13 @@ against its plain version on the card.
   K4 matmul_pk_w4a8     csrc/matmul_pk_w4a8.cu     int8 tensor-core GEMM
   K5 matmul_w8          csrc/matmul_w8.cu          int8 GEMM over a prefill shadow
   K6 dequantize_tpu_pk  csrc/dequant_pk.cu         pair-K dequantize (Wt = w * s)
+  K8 expert=...         the K2/K3/K4 sources       expert e of a stacked (E, K/2, N) packing
+
+K8 is the expert form of K2, K3 and K4 (``expert=`` on their wrappers and on
+``matmul_fp4_pk``): the kernel reads the expert index from device memory and
+offsets the packed, scale and bias pointers itself, so the MoE dispatch never
+reads a routing decision on the host and copies no expert.  Its launches are
+counted under ``<wrapper>_expert``.
 
 Block shapes are constants of the kernels; there is no per-chip table.
 """
@@ -44,7 +51,8 @@ K2_BLOCKS_PER_SM = 4
 # launches per wrapper: each CUDA launch adds one (plain CPU calls do not);
 # "flash_attention" is K7's, counted by ops/attention.py
 LAUNCHES = {"decode_pairs": 0, "matmul_pk": 0, "matmul_pk_minner": 0, "matmul_pk_w4a8": 0, "flash_attention": 0,
-            "matmul_w8": 0, "dequant_pk": 0}
+            "matmul_w8": 0, "dequant_pk": 0, "matmul_pk_expert": 0, "matmul_pk_minner_expert": 0,
+            "matmul_pk_w4a8_expert": 0}
 
 
 def reset_launch_counts() -> None:
@@ -100,6 +108,65 @@ def _k_block_pairk(k: int, requested: int, blocksize: int, s_quantum: int = 8) -
 @functools.lru_cache(maxsize=256)
 def a8_block_k(k: int, scale_dtype: torch.dtype, blocksize: int = 64) -> int:
     return _k_block_pairk(k, A8_BLOCK_K, blocksize, 16 if scale_dtype == torch.bfloat16 else 8)
+
+
+# ---------------------------------------------------------------------------
+# K8: the expert index
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=64)
+def _expert_table(device: torch.device, n_experts: int) -> torch.Tensor:
+    """arange(n_experts) int32 on ``device``, made once: a static (Python
+    int) expert is passed to a K8 launch as one of its elements, so the
+    all-experts loop copies nothing from the host per call."""
+    return torch.arange(n_experts, dtype=torch.int32, device=device)
+
+
+def expert_index(expert, n_experts: int, device: torch.device) -> torch.Tensor:
+    """The expert of a K8 call as a one-element int32 tensor on ``device``:
+    a Python int in [0, n_experts) becomes an element of the cached table; a
+    tensor (an element of the router's top-k indices) must already be int32,
+    one element, on ``device`` (its value is never read on the host; the
+    kernel clamps it into [0, n_experts) as ``dynamic_index_in_dim`` does).
+    It is exempt from the 16-byte alignment of the other operands."""
+    if isinstance(expert, (int, np.integer)) and not isinstance(expert, bool):
+        if not 0 <= expert < n_experts:
+            raise ValueError(f"expert {expert} is outside the stack of {n_experts}")
+        return _expert_table(device, n_experts)[int(expert)]
+    if not torch.is_tensor(expert):
+        raise TypeError(f"expert must be an int or an int32 tensor, got {type(expert).__name__}")
+    if expert.dtype != torch.int32 or expert.numel() != 1 or expert.device != device:
+        raise ValueError(f"a tensor expert index must be one int32 element on {device}, got {expert.dtype} "
+                         f"{tuple(expert.shape)} on {expert.device}")
+    return expert
+
+
+def select_expert(expert, *stacked):
+    """Expert ``expert`` of each stacked operand (None stays None): plain
+    indexing for an int, else a gather at the clamped index, so a plain
+    version (or ``models.transformer.expert_view``) on the card reads no
+    routing decision on the host either."""
+    if isinstance(expert, (int, np.integer)):
+        return tuple(None if t is None else t[int(expert)] for t in stacked)
+    n = next(t for t in stacked if t is not None).shape[0]
+    idx = expert.reshape(1).long().clamp(0, n - 1)
+    return tuple(None if t is None else t.index_select(0, idx)[0] for t in stacked)
+
+
+def _check_stack(packed, scale, bias, expert) -> None:
+    """Operand ranks of a 2-D call (``expert`` None) or of a K8 call: packed
+    (E, K/2, N), scale (E, K/bs, N), bias (E, N) or None."""
+    if expert is None:
+        if packed.ndim != 2:
+            raise ValueError(f"packed must be 2-D (K/2, N) without an expert, got {tuple(packed.shape)}")
+        return
+    e = packed.shape[0]
+    if packed.ndim != 3 or scale.ndim != 3 or scale.shape[0] != e:
+        raise ValueError(f"an expert call needs stacked packed (E, K/2, N) and scale (E, K/bs, N), got "
+                         f"{tuple(packed.shape)} and {tuple(scale.shape)}")
+    if bias is not None and tuple(bias.shape) != (e, packed.shape[2]):
+        raise ValueError(f"a stacked bias must be {(e, packed.shape[2])}, got {tuple(bias.shape)}")
 
 
 # ---------------------------------------------------------------------------
@@ -166,12 +233,13 @@ def decode_pairs(x_u8: torch.Tensor, variant: str = "exact", lut: torch.Tensor |
 
 def pairs_weight_tile(packed: torch.Tensor, variant: str = "exact", lut: torch.Tensor | None = None) -> torch.Tensor:
     """Plain decode of a packed (K/2, N) tile -> (K, N) bf16 code values
-    (192*code for FP4 variants, bf16(code) for lut), scale NOT applied."""
-    bits = decode_pairs_plain(packed, variant, lut).to(torch.int64)
-    lo = bits & 0xFFFF
-    hi = (bits >> 16) & 0xFFFF
-    pair = torch.stack([lo, hi], dim=1)  # (K/2, 2, N): row 2i, row 2i+1
-    pair = torch.where(pair >= 2**15, pair - 2**16, pair).to(torch.int16)
+    (192*code for FP4 variants, bf16(code) for lut), scale NOT applied.  The
+    word of a byte depends on the byte alone, so :func:`decode_pairs_plain`
+    runs once over all 256 bytes and the tile gathers from that table (the
+    same bits as decoding every byte)."""
+    table = decode_pairs_plain(torch.arange(256, device=packed.device).to(torch.uint8), variant, lut)
+    words = table[packed.to(torch.int64)]  # (K/2, N) int32: low half row 2i, high half row 2i+1
+    pair = words.view(torch.int16).reshape(*packed.shape, 2).transpose(-1, -2)  # little-endian halves
     return pair.reshape(-1, packed.shape[1]).view(torch.bfloat16)
 
 
@@ -186,9 +254,12 @@ def _finish(acc: torch.Tensor, bias: torch.Tensor | None, out_dtype: torch.dtype
     return acc.to(out_dtype)
 
 
-def matmul_pk_plain(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant):
+def matmul_pk_plain(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant, expert=None):
     """Plain K2: per quant block b, part_b = x_b . (192*code)_b in f32, then
-    acc = sum_b part_b * scale[b] (the TPU kernel's order, :680-691)."""
+    acc = sum_b part_b * scale[b] (the TPU kernel's order, :680-691).  With
+    ``expert`` (K8), the operands are stacked and expert e's are used."""
+    if expert is not None:
+        packed, scale, bias = select_expert(expert, packed, scale, bias)
     out_dtype = x.dtype if out_dtype is None else out_dtype
     m, k = x.shape
     n = packed.shape[1]
@@ -200,10 +271,13 @@ def matmul_pk_plain(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_
     return _finish(acc, bias, out_dtype)
 
 
-def matmul_pk_minner_plain(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant):
+def matmul_pk_minner_plain(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant,
+                           expert=None):
     """Plain K3: weight tile = code value * scale, rounded in bf16 for bf16
     input (w * bf16(scale), :726-729) and kept in f32 for f32 input; then an
-    f32 matmul."""
+    f32 matmul.  With ``expert`` (K8), expert e of stacked operands."""
+    if expert is not None:
+        packed, scale, bias = select_expert(expert, packed, scale, bias)
     out_dtype = x.dtype if out_dtype is None else out_dtype
     w = pairs_weight_tile(packed, variant, lut)  # (K, N) bf16
     s = scale.float().repeat_interleave(blocksize, dim=0)
@@ -242,9 +316,13 @@ def w4a8_weights_plain(packed, scale, *, blocksize=64, variant, a8_block_k):
     return w8, g * (fmt.PAIRK_VALUE_SCALE / 127.0)
 
 
-def matmul_pk_w4a8_plain(x8, rs, packed, scale, bias=None, *, blocksize=64, out_dtype, variant, a8_block_k):
+def matmul_pk_w4a8_plain(x8, rs, packed, scale, bias=None, *, blocksize=64, out_dtype, variant, a8_block_k,
+                         expert=None):
     """Plain K4: exact per-K-tile integer dots (float64 holds them exactly),
-    then acc = acc + (d * rs) * g tile by tile in f32."""
+    then acc = acc + (d * rs) * g tile by tile in f32.  With ``expert`` (K8),
+    expert e of stacked operands."""
+    if expert is not None:
+        packed, scale, bias = select_expert(expert, packed, scale, bias)
     m, k = x8.shape
     n = packed.shape[1]
     nk = k // a8_block_k
@@ -285,8 +363,8 @@ def _check_cuda_operands(x, x_dtypes, packed, scale, bias, blocksize, **extra):
         raise ValueError(f"packed must be uint8 and scale f32/bf16, got {packed.dtype}, {scale.dtype}")
     if blocksize != 64:
         raise ValueError(f"the CUDA pair-K kernels take blocksize 64, got {blocksize}")
-    if packed.shape[1] % 128:
-        raise ValueError(f"the CUDA pair-K kernels need N % 128 == 0, got N={packed.shape[1]}")
+    if packed.shape[-1] % 128:
+        raise ValueError(f"the CUDA pair-K kernels need N % 128 == 0, got N={packed.shape[-1]}")
     if bias is not None and bias.dtype != torch.float32:
         raise ValueError(f"bias must be float32, got {bias.dtype}")
     if extra.get("lut") is not None and extra["lut"].dtype != torch.int16:
@@ -318,32 +396,40 @@ def _k2_launch(m: int, k: int, n: int, tensor_cores: bool, sms: int, blocks_per_
     return rows, nb
 
 
-def matmul_pk(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant):
+def matmul_pk(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant, expert=None):
     """K2: y = x . Wt + bias, the GEMV / small-M kernel (bf16 x on tensor
-    cores, f32 x on CUDA cores)."""
+    cores, f32 x on CUDA cores).  ``expert`` (an int or a one-element int32
+    tensor on x's device): K8, expert e of stacked operands."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
+    _check_stack(packed, scale, bias, expert)
+    e = None if expert is None else expert_index(expert, packed.shape[0], x.device)
     if not x.is_cuda:
-        return matmul_pk_plain(x, packed, scale, bias, lut, blocksize=blocksize, out_dtype=out_dtype, variant=variant)
+        return matmul_pk_plain(x, packed, scale, bias, lut, blocksize=blocksize, out_dtype=out_dtype, variant=variant,
+                               expert=e)
     _check_cuda_operands(x, (torch.float32, torch.bfloat16), packed, scale, bias, blocksize, lut=lut)
-    return _launch_matmul_pk(x, packed, scale, bias, lut, out_dtype, variant, K2_BLOCKS_PER_SM)
+    return _launch_matmul_pk(x, packed, scale, bias, lut, out_dtype, variant, K2_BLOCKS_PER_SM, e)
 
 
-def _launch_matmul_pk(x, packed, scale, bias, lut, out_dtype, variant, blocks_per_sm: int):
-    """Launch K2 on checked CUDA operands with a K-split occupancy target
-    (``benchmarks_torch/k2_sweep.py`` sweeps it; the wrapper passes
-    ``K2_BLOCKS_PER_SM``)."""
+def _launch_matmul_pk(x, packed, scale, bias, lut, out_dtype, variant, blocks_per_sm: int, expert=None):
+    """Launch K2 (K8 with an ``expert_index`` tensor) on checked CUDA
+    operands with a K-split occupancy target (``benchmarks_torch/k2_sweep.py``
+    sweeps it; the wrapper passes ``K2_BLOCKS_PER_SM``)."""
     m, k = x.shape
-    n = packed.shape[1]
+    n = packed.shape[-1]
     rows, ksplit = _k2_launch(m, k, n, x.dtype == torch.bfloat16, _sm_count(x.device), blocks_per_sm)
     ws = torch.empty((ksplit, m, n), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     fn = _build.kernel("matmul_pk.cu")
-    LAUNCHES["matmul_pk"] += 1
+    LAUNCHES["matmul_pk" if expert is None else "matmul_pk_expert"] += 1
     _check_status("matmul_pk", fn(
         x.data_ptr(), _DTYPE_CODE[x.dtype], packed.data_ptr(), scale.data_ptr(), _DTYPE_CODE[scale.dtype],
         _ptr(bias), _ptr(lut), ws.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype],
-        m, k, n, ksplit, rows, VARIANT_CODE[variant], _stream(x)))
+        m, k, n, ksplit, rows, VARIANT_CODE[variant], _ptr(expert), _n_experts(packed, expert), _stream(x)))
     return out
+
+
+def _n_experts(packed, expert) -> int:
+    return 1 if expert is None else packed.shape[0]
 
 
 def _gemm_bm(m: int, n: int, sms: int) -> int:
@@ -351,42 +437,48 @@ def _gemm_bm(m: int, n: int, sms: int) -> int:
     return 128 if (n // 128) * -(-m // 128) >= sms else 64
 
 
-def matmul_pk_minner(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant):
-    """K3: decode-once GEMM; bf16 x on tensor cores, f32 x on CUDA cores."""
+def matmul_pk_minner(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant, expert=None):
+    """K3: decode-once GEMM; bf16 x on tensor cores, f32 x on CUDA cores.
+    ``expert``: K8, expert e of stacked operands (as :func:`matmul_pk`)."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
+    _check_stack(packed, scale, bias, expert)
+    e = None if expert is None else expert_index(expert, packed.shape[0], x.device)
     if not x.is_cuda:
         return matmul_pk_minner_plain(x, packed, scale, bias, lut, blocksize=blocksize, out_dtype=out_dtype,
-                                      variant=variant)
+                                      variant=variant, expert=e)
     _check_cuda_operands(x, (torch.float32, torch.bfloat16), packed, scale, bias, blocksize, lut=lut)
     m, k = x.shape
-    n = packed.shape[1]
+    n = packed.shape[-1]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     fn = _build.kernel("matmul_pk_minner.cu")
-    LAUNCHES["matmul_pk_minner"] += 1
+    LAUNCHES["matmul_pk_minner" if e is None else "matmul_pk_minner_expert"] += 1
     _check_status("matmul_pk_minner", fn(
         x.data_ptr(), _DTYPE_CODE[x.dtype], packed.data_ptr(), scale.data_ptr(), _DTYPE_CODE[scale.dtype],
         _ptr(bias), _ptr(lut), out.data_ptr(), _DTYPE_CODE[out_dtype], m, k, n, _gemm_bm(m, n, _sm_count(x.device)),
-        VARIANT_CODE[variant], _stream(x)))
+        VARIANT_CODE[variant], _ptr(e), _n_experts(packed, e), _stream(x)))
     return out
 
 
-def matmul_pk_w4a8(x8, rs, packed, scale, bias=None, *, blocksize=64, out_dtype, variant, a8_block_k):
-    """K4: int8 tensor-core GEMM over pre-quantized activations."""
+def matmul_pk_w4a8(x8, rs, packed, scale, bias=None, *, blocksize=64, out_dtype, variant, a8_block_k, expert=None):
+    """K4: int8 tensor-core GEMM over pre-quantized activations.  ``expert``:
+    K8, expert e of stacked operands (as :func:`matmul_pk`)."""
+    _check_stack(packed, scale, bias, expert)
+    e = None if expert is None else expert_index(expert, packed.shape[0], x8.device)
     if not x8.is_cuda:
         return matmul_pk_w4a8_plain(x8, rs, packed, scale, bias, blocksize=blocksize, out_dtype=out_dtype,
-                                    variant=variant, a8_block_k=a8_block_k)
+                                    variant=variant, a8_block_k=a8_block_k, expert=e)
     _check_cuda_operands(x8, (torch.int8,), packed, scale, bias, blocksize, rs=rs)
     m, k = x8.shape
-    n = packed.shape[1]
+    n = packed.shape[-1]
     if k % a8_block_k or a8_block_k % 64:
         raise ValueError(f"a8_block_k={a8_block_k} must divide K={k} and be a multiple of 64")
     out = torch.empty((m, n), dtype=out_dtype, device=x8.device)
     fn = _build.kernel("matmul_pk_w4a8.cu")
-    LAUNCHES["matmul_pk_w4a8"] += 1
+    LAUNCHES["matmul_pk_w4a8" if e is None else "matmul_pk_w4a8_expert"] += 1
     _check_status("matmul_pk_w4a8", fn(
         x8.data_ptr(), rs.data_ptr(), packed.data_ptr(), scale.data_ptr(), _DTYPE_CODE[scale.dtype],
         _ptr(bias), out.data_ptr(), _DTYPE_CODE[out_dtype], m, k, n, a8_block_k, VARIANT_CODE[variant],
-        _stream(x8)))
+        _ptr(e), _n_experts(packed, e), _stream(x8)))
     return out
 
 
@@ -415,13 +507,18 @@ def select_path(m: int, compute_dtype: torch.dtype, variant: str, a8: bool | Non
 
 
 def matmul_fp4_pk(x, packed, scale, bias=None, codebook=None, *, blocksize=64, out_dtype=None, variant,
-                  a8=None):
+                  a8=None, expert=None):
     """Fused pair-K dequant-matmul: y[M, N] = x[M, K] @ Wt[K, N] (+ bias).
 
     ``packed`` uint8 (K/2, N); ``scale`` f32|bf16 (K/blocksize, N) =
     absmax/192 (lut: absmax); ``variant`` is required.  x may be f32, bf16 or
     f16; f16 computes in bf16, f32 in f32.  ``a8``: None = auto (bf16, M >=
     256, FP4-family variant), True forces the int8 path, False forbids it.
+
+    ``expert`` (K8): run against expert e of STACKED operands, packed (E,
+    K/2, N), scale (E, K/blocksize, N) and bias (E, N); e is a Python int or a
+    one-element int32 tensor on x's device (see :func:`expert_index`).  The
+    path is chosen from the per-expert (M, K, N) exactly as for a 2-D call.
     """
     if variant == "lut":
         if codebook is None:
@@ -430,14 +527,19 @@ def matmul_fp4_pk(x, packed, scale, bias=None, codebook=None, *, blocksize=64, o
         raise ValueError(f"unknown pairk variant {variant!r}; expected one of {fmt.PAIRK_VARIANTS} or 'lut'")
     elif codebook is not None:
         raise ValueError("codebook is only used with variant='lut'")
-    if packed.ndim != 2 or packed.dtype != torch.uint8:
-        raise ValueError(f"packed must be 2-D uint8 (K/2, N), got {tuple(packed.shape)} {packed.dtype}")
-    kp, n = packed.shape
+    if expert is None:
+        if packed.ndim != 2 or packed.dtype != torch.uint8:
+            raise ValueError(f"packed must be 2-D uint8 (K/2, N), got {tuple(packed.shape)} {packed.dtype}")
+    elif packed.ndim != 3 or packed.dtype != torch.uint8:
+        raise ValueError(f"expert selection needs STACKED 3-D uint8 packed (E, K/2, N), got {tuple(packed.shape)} "
+                         f"{packed.dtype}")
+    kp, n = packed.shape[-2:]
     k = 2 * kp
     if x.ndim != 2 or x.shape[1] != k:
         raise ValueError(f"x must be (M, K={k}) for packed (K/2={kp}, N={n}), got {tuple(x.shape)}")
-    if scale.shape != (k // blocksize, n):
-        raise ValueError(f"scale must be {(k // blocksize, n)} for blocksize={blocksize}, got {tuple(scale.shape)}")
+    want_scale = (k // blocksize, n) if expert is None else (packed.shape[0], k // blocksize, n)
+    if tuple(scale.shape) != want_scale:
+        raise ValueError(f"scale must be {want_scale} for blocksize={blocksize}, got {tuple(scale.shape)}")
     if scale.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"scale must be float32 or bfloat16, got {scale.dtype}")
     m = x.shape[0]
@@ -446,23 +548,22 @@ def matmul_fp4_pk(x, packed, scale, bias=None, codebook=None, *, blocksize=64, o
     x = x.to(compute_dtype).contiguous()
     lut = make_pairk_lut(codebook, x.device) if variant == "lut" else None
     path = select_path(m, compute_dtype, variant, a8)
+    kw = dict(blocksize=blocksize, out_dtype=out_dtype, variant=variant, expert=expert)
     if path == "mouter":
-        return matmul_pk(x, packed, scale, bias, lut, blocksize=blocksize, out_dtype=out_dtype, variant=variant)
+        return matmul_pk(x, packed, scale, bias, lut, **kw)
     if path == "minner":
-        return matmul_pk_minner(x, packed, scale, bias, lut, blocksize=blocksize, out_dtype=out_dtype,
-                                variant=variant)
+        return matmul_pk_minner(x, packed, scale, bias, lut, **kw)
     bk = a8_block_k(k, scale.dtype, blocksize)
     x8, rs = quantize_activations(x, bk)
-    return matmul_pk_w4a8(x8, rs, packed, scale, bias, blocksize=blocksize, out_dtype=out_dtype, variant=variant,
-                          a8_block_k=bk)
+    return matmul_pk_w4a8(x8, rs, packed, scale, bias, a8_block_k=bk, **kw)
 
 
-def gemv_fp4_pk(x, packed, scale, bias=None, codebook=None, *, blocksize=64, out_dtype=None, variant):
-    """Batch-1 route: a single row through K2."""
+def gemv_fp4_pk(x, packed, scale, bias=None, codebook=None, *, blocksize=64, out_dtype=None, variant, expert=None):
+    """Batch-1 route: a single row through K2 (K8's with ``expert``)."""
     if x.shape[0] != 1:
         raise ValueError(f"gemv_fp4_pk is the batch-1 fast path; got x.shape={tuple(x.shape)} (use matmul_fp4_pk)")
     return matmul_fp4_pk(x, packed, scale, bias, codebook, blocksize=blocksize, out_dtype=out_dtype,
-                         variant=variant)
+                         variant=variant, expert=expert)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,10 @@
 Counterpart of ``python -m torch_bnb_fp4_tpu.serve``: convert once, then
 serve the packed bytes and POST token-id prompts (serve/server.py).  Without
 --ckpt a 2-layer random-weight model serves (smoke testing the API).
-Checkpoints load unfused, as in the JAX package.  ``--device`` (default
+Checkpoints load unfused, as in the JAX package; a Mixtral (mixture-of-
+experts) checkpoint serves the same way, its experts through K8 (with
+--prefill-shadow only the attention linears get shadows, as in the JAX
+package: expert stacks have none).  ``--device`` (default
 cuda) is the port's own flag: the server runs on the card unless asked for
 the CPU.  The JAX CLI's other flags are accepted and refused with "not yet
 ported" when set.  Ctrl-C (SIGINT) stops the server and exits 0.

@@ -95,6 +95,17 @@ def attention_bound_s(q, k, pairs: int) -> tuple[float, str]:
     return bound_s(nbytes, 4 * d * hq * pairs, H100_BF16_FLOPS)
 
 
+def pk_matmul_bound_s(m: int, k: int, n: int, *, x_bytes: int, out_bytes: int, a8: bool,
+                      scale_bytes: int = 4) -> tuple[float, str]:
+    """Bound of one pair-K matmul (K2/K3/K4, and their K8 forms, which read
+    ONE expert of the stack: the same bytes): the packed weight (K*N/2) and
+    its scales ((K/64)*N), the activations (``x_bytes``, int8 plus row scales
+    for K4) read once, the output written once; 2*M*K*N operations at the
+    int8 tensor-core rate for K4 (``a8``), else the bf16 rate."""
+    nbytes = k * n // 2 + (k // 64) * n * scale_bytes + x_bytes + m * n * out_bytes
+    return bound_s(nbytes, 2 * m * k * n, H100_INT8_OPS if a8 else H100_BF16_FLOPS)
+
+
 def matmul_w8_bound_s(m: int, k: int, n: int, block_k: int, out_bytes: int, bias: bool = False) -> tuple[float, str]:
     """Bound of one K5 call: the shadow w8 (K*N bytes) and its scales g
     ((K/block_k)*N f32), x8 (M*K) and rs (M*(K/block_k) f32) and the bias

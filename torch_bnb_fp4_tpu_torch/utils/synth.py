@@ -10,49 +10,54 @@ from __future__ import annotations
 import torch
 
 from ..models.linear import DenseLinear, QuantLinear
-from ..models.transformer import LayerParams, ModelConfig, ModelParams, fuse_params, kv_slot_positions
+from ..models.transformer import LayerParams, ModelConfig, ModelParams, MoEParams, fuse_layer, kv_slot_positions
 from ..utils.device import resolve_device
 
 
 def synth_quant_linear(gen: torch.Generator, n_out: int, k_in: int, *, blocksize: int = 64,
-                       absmax_scale: float = 0.01, variant: str = "ramp", device=None) -> QuantLinear:
+                       absmax_scale: float = 0.01, variant: str = "ramp", experts: int = 0,
+                       device=None) -> QuantLinear:
     """Random pair-K QuantLinear: uniform bytes, f32 scales in
-    [0.5, 1.5) * absmax_scale / 192."""
+    [0.5, 1.5) * absmax_scale / 192; ``experts > 0`` makes a stack of that
+    many (a leading expert axis on packed and scale)."""
     device = resolve_device(device)
     if k_in % (2 * blocksize) or n_out % 128:
         raise ValueError(f"synthetic layers need K % {2 * blocksize} == 0 and N % 128 == 0, got {n_out}x{k_in}")
-    packed = torch.randint(0, 256, (k_in // 2, n_out), generator=gen, dtype=torch.uint8, device=device)
-    u = torch.rand((k_in // blocksize, n_out), generator=gen, dtype=torch.float32, device=device)
+    lead = (experts,) if experts else ()
+    packed = torch.randint(0, 256, (*lead, k_in // 2, n_out), generator=gen, dtype=torch.uint8, device=device)
+    u = torch.rand((*lead, k_in // blocksize, n_out), generator=gen, dtype=torch.float32, device=device)
     scale = (u + 0.5) * (absmax_scale / 192.0)
     return QuantLinear(packed=packed, scale=scale, bias=None, n_out=n_out, k_in=k_in, blocksize=blocksize,
                        variant=variant)
 
 
 def synth_dense_linear(gen: torch.Generator, n_out: int, k_in: int, *, scale: float = 0.01,
-                       dtype=torch.bfloat16, device=None) -> DenseLinear:
+                       dtype=torch.bfloat16, experts: int = 0, device=None) -> DenseLinear:
     device = resolve_device(device)
-    w = torch.randn((k_in, n_out), generator=gen, dtype=torch.float32, device=device) * scale
+    lead = (experts,) if experts else ()
+    w = torch.randn((*lead, k_in, n_out), generator=gen, dtype=torch.float32, device=device) * scale
     return DenseLinear(w=w.to(dtype), bias=None, n_out=n_out, k_in=k_in)
 
 
 def synth_params(cfg: ModelConfig, *, quantized: bool = True, seed: int = 0, fuse: bool = False,
                  device=None) -> ModelParams:
-    """Random ModelParams of the dense family, quantized FP4 (pair-K, f32
-    scales) or dense bf16, built on ``device`` from ``seed``."""
+    """Random ModelParams, quantized FP4 (pair-K, f32 scales) or dense bf16,
+    built on ``device`` from ``seed``.  A mixture-of-experts config gets
+    stacked experts and a dense router of scale 1 (as the JAX package's
+    ``synth_params``); ``fuse`` fuses each layer as it is built, so the
+    unfused and fused copies of only one layer coexist."""
     device = resolve_device(device)
-    if cfg.n_experts:
-        raise NotImplementedError("mixture-of-experts models are not yet ported")
     if quantized and (cfg.quantize_embed or cfg.quantize_lm_head):
         raise NotImplementedError("quantized embedding / lm_head synthesis is not yet ported")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     kv_dim = cfg.n_kv_heads * cfg.head_dim
 
-    def lin(n_out, k_in):
+    def lin(n_out, k_in, experts=0):
         if quantized:
             return synth_quant_linear(gen, n_out, k_in, blocksize=cfg.blocksize, variant=cfg.variant,
-                                      device=device)
-        return synth_dense_linear(gen, n_out, k_in, device=device)
+                                      experts=experts, device=device)
+        return synth_dense_linear(gen, n_out, k_in, experts=experts, device=device)
 
     def ones(n):
         return torch.ones((n,), dtype=torch.bfloat16, device=device)
@@ -64,18 +69,21 @@ def synth_params(cfg: ModelConfig, *, quantized: bool = True, seed: int = 0, fus
             extra.update(q_norm=ones(cfg.head_dim), k_norm=ones(cfg.head_dim))
         if cfg.post_norms:
             extra.update(post_attn_norm=ones(cfg.dim), post_mlp_norm=ones(cfg.dim))
-        layers.append(LayerParams(
-            attn_norm=ones(cfg.dim),
-            wq=lin(cfg.q_dim, cfg.dim), wk=lin(kv_dim, cfg.dim), wv=lin(kv_dim, cfg.dim),
-            wo=lin(cfg.dim, cfg.q_dim), mlp_norm=ones(cfg.dim),
-            w_gate=lin(cfg.ffn_dim, cfg.dim), w_up=lin(cfg.ffn_dim, cfg.dim), w_down=lin(cfg.dim, cfg.ffn_dim),
-            **extra,
-        ))
+        lp = LayerParams(attn_norm=ones(cfg.dim), wq=lin(cfg.q_dim, cfg.dim), wk=lin(kv_dim, cfg.dim),
+                         wv=lin(kv_dim, cfg.dim), wo=lin(cfg.dim, cfg.q_dim), mlp_norm=ones(cfg.dim), **extra)
+        e = cfg.n_experts
+        if e:
+            lp.moe = MoEParams(router=synth_dense_linear(gen, e, cfg.dim, scale=1.0, device=device),
+                               gate=lin(cfg.ffn_dim, cfg.dim, e), up=lin(cfg.ffn_dim, cfg.dim, e),
+                               down=lin(cfg.dim, cfg.ffn_dim, e))
+        else:
+            lp.w_gate, lp.w_up = lin(cfg.ffn_dim, cfg.dim), lin(cfg.ffn_dim, cfg.dim)
+            lp.w_down = lin(cfg.dim, cfg.ffn_dim)
+        layers.append(fuse_layer(lp) if fuse and quantized else lp)
     embed = (torch.randn((cfg.vocab_size, cfg.dim), generator=gen, dtype=torch.float32, device=device)
              * 0.01).to(torch.bfloat16)
-    params = ModelParams(embed=embed, layers=layers, final_norm=ones(cfg.dim),
-                         lm_head=synth_dense_linear(gen, cfg.vocab_size, cfg.dim, device=device))
-    return fuse_params(params) if fuse and quantized else params
+    return ModelParams(embed=embed, layers=layers, final_norm=ones(cfg.dim),
+                       lm_head=synth_dense_linear(gen, cfg.vocab_size, cfg.dim, device=device))
 
 
 def synth_attention(b: int, lq: int, lk: int, hq: int, hk: int, d: int, *, lens, q_offset=None, seed: int = 0,
