@@ -10,13 +10,16 @@ experts) at batch 1 (per-token dispatch, two experts per layer), batch 8
 (all experts) and one 256-row chunk at position 4096 of an 8192-row cache
 (all experts), with the device time of the K8 launches (the expert forms of
 K2-K4, inside a ``record_function`` range around each expert call) beside the
-rest.  Prints the host wall time per step, the summed device time of the
-kernels per step, launches per step, and the kernels ranked by device time,
-grouped as the port's kernels (K2 and its split reduction, K3, K4, K5, K7),
-attention (einsum/bmm, softmax, masking), the dense lm_head GEMM, and
-everything else.
+rest.  With ``--layout splitk``: the Mistral-7B geometry with every linear
+split-K (``synth_params(layout="splitk", tp=4)``: unfused, wo/w_down
+K-sharded into 4) at batch 1 and one 256-row chunk at position 1024, K9b's
+device time beside the rest.  Prints the host wall time per step, the summed
+device time of the kernels per step, launches per step, and the kernels
+ranked by device time, grouped as the port's kernels (K2 and its split
+reduction, K3, K4, K5, K7, K9b and its split reduction), attention
+(einsum/bmm, softmax, masking), the dense lm_head GEMM, and everything else.
 
-    python3 benchmarks_torch/decode_profile.py [--model mixtral_8x7b]
+    python3 benchmarks_torch/decode_profile.py [--model mixtral_8x7b | --layout splitk]
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ K8_RANGE = "K8 expert forms"
 
 
 def group(name: str) -> str:
+    if "splitk" in name:
+        return "split-K K9b (+split reduction)"
     if "matmul_pk" in name or "reduce_splits" in name:
         return "pair-K K2 (+split reduction)"
     if "minner" in name:
@@ -154,6 +159,7 @@ def profile_chunk(params, cfg, chunk: int, max_len: int, fill: int, label: str =
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--model", choices=("mistral_7b", "mixtral_8x7b"), default="mistral_7b")
+    ap.add_argument("--layout", choices=("pairk", "splitk"), default="pairk")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("decode_profile: needs a CUDA device", file=sys.stderr)
@@ -167,6 +173,12 @@ def main() -> int:
         profile_decode(params, cfg, batch=1, cache_rows=97, fill=21)
         profile_decode(params, cfg, batch=8, cache_rows=1024, fill=500)
         profile_chunk(params, cfg, chunk=256, max_len=8192, fill=4096, label=", fused experts")
+        return 0
+    if args.layout == "splitk":
+        cfg = T.ModelConfig.mistral_7b()
+        params = synth_params(cfg, layout="splitk", tp=4, seed=0)
+        profile_decode(params, cfg, batch=1, cache_rows=97, fill=21)
+        profile_chunk(params, cfg, chunk=256, max_len=2048, fill=1024, label=", split-K (wo/w_down k_shards=4)")
         return 0
     cfg = T.ModelConfig.mistral_7b()
     params = synth_params(cfg, seed=0, fuse=True)

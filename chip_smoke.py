@@ -85,6 +85,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ms against the byte bound, and the batch-8 step likewise; (e) a 4-layer
      full-width checkpoint served by the CLI with --prefill-shadow over
      HTTP, tokens equal to an in-process replay, K8 and K5 launching.
+  3e. K9a/K9b, the split-K kernels, vs their plain versions at the Mistral
+     split-K shapes (4096->4096, 4096->1024, 4096->14336, 14336->4096), FP4
+     and NF4 tables: K9a bit-exact at f32 and bf16 out; K9b with bf16 x at M
+     in {1, 4, 64, 128, 256} (|dy| <= 2^-7 max|y|), f32 x at M in {1, 64}
+     (1e-5), f16 x bit-equal to the bf16 call with f16 out; a k_shards=4
+     w_down through apply_linear against its k_shards=1 packing; kernel time,
+     bound, plain time and a dense bf16 torch.matmul yardstick;
+  9. the split-K path on the Mistral-7B geometry: (a) synth_params(layout=
+     "splitk", tp=4) at full width and depth (wo/w_down K-sharded, unfused)
+     served by the Engine (max_batch 4, max_len 2048, chunk 256) with prompts
+     of 100, 300 and 1000 tokens: K9b launches; (b) a batch-1 generate and
+     one decode step under set_sync_debug_mode("error"), replayed as a CUDA
+     graph with the eager logits, eager and card-alone ms against the byte
+     bound; (c) a 2-layer cut on the card and on the CPU, logits within 2e-2
+     of max and 3e-2 rel L2; (d) a 4-layer bnb-exact NF4 checkpoint built
+     with from_bnb_state(layout="splitk") from seeded flat bytes, served by
+     the CLI with --prefill-shadow over HTTP, tokens equal to an in-process
+     replay, K9b launching and K5 not; K9a's dequantize_weight of one layer
+     bit-exact with the numpy golden.
 Prints the kernel table as one JSON line, then the final status line.
 Kernel times are CUDA-graph replays timed with CUDA events (the card's own
 time, without the Python wrappers' launch cost, which is printed beside them
@@ -145,6 +164,12 @@ EXPERT_INSTANCES = (("K2", 1, "moe"), ("K2", 64, "moe"), ("K2", 128, "moe"), ("K
                     ("K2", 128, "moe_served"), ("K4", 256, "moe_served"))
 MOE_PROMPTS = (100, 300, 4500)  # phase 8a
 MOE_SERVED_PROMPTS = (100, 300)  # phase 8e, sent together; then an aborted 300 and a short one
+# phases 3e and 9: the split-K model is unfused (UNFUSED_SHAPES).  K9b's M and the phase-9 run whose
+# launches its kernels-JSON row reports: 9b's batch-1 generate ("splitk_b1"), 9a's engine ("splitk":
+# decode at batch 4, the 128-row prompt of 100 tokens, 256-row chunks, the 64-row final chunk of 300)
+SPLITK_INSTANCES = ((1, "splitk_b1"), (4, "splitk"), (64, "splitk"), (128, "splitk"), (256, "splitk"))
+SPLITK_PROMPTS = (100, 300, 1000)  # phase 9a
+SPLITK_SERVED_PROMPTS = (100, 300)  # phase 9d, sent together; then an aborted 300 and a short one
 # phase 3b: (case, what, B, Lq, Lk, Hq, Hk, D, lens, q_offset, window, softcap, scale)
 FLASH_CASES = (
     ("a", "Mistral chunk: 256 queries, 4352-row ring of 6000 positions, window 4096",
@@ -708,6 +733,109 @@ def main() -> int:
             torch.cuda.empty_cache()
         expert_rows[(kname, m, run)] = tot
 
+    # -- phase 3e: K9a/K9b, the split-K kernels ------------------------------------------------
+    from torch_bnb_fp4_tpu_torch.convert.quantize import repack_k_shards
+    from torch_bnb_fp4_tpu_torch.models import linear as L
+
+    print("[3e] kernel  x/out  shape          M     us        bound_us  by          plain_us   bf16_matmul_us  "
+          "max_abs_err   (us: CUDA-graph replay cycling weight copies; checks on the FP4 and NF4 tables)")
+    tables = {"fp4": (None, K.code_table(None, dev)), "nf4": (fmt.NF4_CODE, K.code_table(fmt.NF4_CODE, dev))}
+    splitk_rows = {}
+
+    def splitk_operands(k, n, seed, copies):
+        """``copies`` random split-K packings (uniform bytes, absmax halves in [0.5, 1.5) * 0.01)."""
+        gen.manual_seed(seed)
+        packed = [torch.randint(0, 256, (k // 2, n), generator=gen, dtype=torch.uint8, device=dev)
+                  for _ in range(copies)]
+        halves = [tuple((torch.rand((k // 128, n), generator=gen, device=dev) + 0.5) * 0.01 for _ in range(2))
+                  for _ in range(copies)]
+        return packed, halves
+
+    def add(key, count, **vals):
+        tot = splitk_rows.setdefault(key, dict(ms=0.0, plain_ms=0.0, bound=0.0, by={}, bf16_ms=0.0, err=0.0))
+        for name in ("ms", "plain_ms", "bound", "bf16_ms"):
+            tot[name] += count * vals.get(name, 0.0)
+        tot["by"][vals["by"]] = tot["by"].get(vals["by"], 0.0) + count * vals["bound"]
+        tot["err"] = max(tot["err"], vals["err"])
+
+    for sname, k, n, count in UNFUSED_SHAPES:
+        w_bytes = k * n // 2 + (k // 64) * n * 4
+        copies = max(1, math.ceil(2.5 * L2_BYTES / w_bytes))
+        packed, halves = splitk_operands(k, n, k + n + 5, copies)
+        sfx = f"   (x{count} per layer)" if count > 1 else ""
+        for out_dtype, oname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            for qt, (cb, tab) in tables.items():  # K9a: bit-exact
+                got = K.dequantize_tpu(packed[0], halves[0], cb, out_dtype=out_dtype)
+                want = K.dequantize_splitk_plain(packed[0], *halves[0], tab, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"K9a {sname} {qt} out {oname} not bit-exact")
+                del got, want
+            ms = device_ms(cycler(lambda i, o=out_dtype: K.dequantize_tpu(packed[i], halves[i], out_dtype=o)),
+                           copies, rep=10)
+            plain_ms = timed(lambda o=out_dtype: K.dequantize_splitk_plain(packed[0], *halves[0], tables["fp4"][1],
+                                                                            out_dtype=o), rep=2)
+            bnd, by = P.dequant_splitk_bound_s(k, n, 4 if out_dtype == torch.float32 else 2)
+            print(f"    K9a    -/{oname:4} {sname:12} {'-':>6} {ms * 1e3:9.1f} {bnd * 1e6:9.1f}  {by:10} "
+                  f"{plain_ms * 1e3:9.1f}   {'-':>14}   0 (bit-exact){sfx}")
+            add(("K9a", oname), count, ms=ms, plain_ms=plain_ms, bound=bnd, by=by, err=0.0)
+            torch.cuda.empty_cache()
+        wd = [torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(max(1, math.ceil(2.5 * L2_BYTES / (2 * k * n))))]
+        for m, x_dtype in [(m, torch.bfloat16) for m, _ in SPLITK_INSTANCES] + [(1, torch.float32), (64, torch.float32)]:
+            gen.manual_seed(m + k + n)
+            x = torch.randn((m, k), generator=gen, device=dev).to(x_dtype)
+            tol = 1e-5 if x_dtype == torch.float32 else 2.0**-7
+            err = 0.0
+            for qt, (cb, tab) in tables.items():  # K9b vs plain on both tables
+                y = K.matmul_fp4(x, packed[0], halves[0], None, cb)
+                y_ref = K.matmul_splitk_plain(x, packed[0], *halves[0], None, tab, out_dtype=x_dtype)
+                torch.cuda.synchronize()
+                d, ref_max = (y.float() - y_ref.float()).abs().max().item(), y_ref.float().abs().max().item()
+                check(bool(torch.isfinite(y).all()), f"K9b {sname} M={m} {qt}: non-finite output")
+                check(d <= tol * ref_max, f"K9b {sname} M={m} {x_dtype} {qt}: err {d} > {tol} * {ref_max}")
+                err = max(err, d)
+            rep = 100 if m < 64 else 30
+            ms = device_ms(cycler(lambda i, x=x: K.matmul_fp4(x, packed[i], halves[i])), copies, rep=rep)
+            plain_ms = timed(lambda x=x: K.matmul_splitk_plain(x, packed[0], *halves[0], None, tables["fp4"][1],
+                                                                out_dtype=x.dtype), rep=3)
+            bf16_ms = device_ms(cycler(lambda i, x=x: torch.matmul(x.to(torch.bfloat16), wd[i])), len(wd), rep=rep)
+            xb = x.element_size()
+            bnd, by = P.splitk_matmul_bound_s(m, k, n, x_bytes=xb, out_bytes=xb)
+            xname = "bf16" if x_dtype == torch.bfloat16 else "f32"
+            print(f"    K9b    {xname:4}/{xname:4} {sname:9} {m:6} {ms * 1e3:9.1f} {bnd * 1e6:9.1f}  {by:10} "
+                  f"{plain_ms * 1e3:9.1f}   {bf16_ms * 1e3:14.1f}   {err:.3g}{sfx}")
+            add(("K9b", xname, m), count, ms=ms, plain_ms=plain_ms, bound=bnd, by=by, bf16_ms=bf16_ms, err=err)
+            del x
+        if sname == "wk|wv":  # f16 x computes in bf16 (the JAX contract): bit-equal to the bf16 call with f16 out
+            x16 = torch.randn((4, k), generator=gen, device=dev).to(torch.float16)
+            y16 = K.matmul_fp4(x16, packed[0], halves[0])
+            check(y16.dtype == torch.float16 and torch.equal(y16, K.matmul_fp4(x16.to(torch.bfloat16), packed[0],
+                                                                               halves[0], out_dtype=torch.float16)),
+                  "K9b: f16 x is not the bf16 call with f16 out")
+            print(f"    K9b    f16 x at {sname}, M=4: bit-equal to the bf16 call with out_dtype=float16")
+        del packed, halves, wd
+        torch.cuda.empty_cache()
+    # w_down K-sharded into 4 (the row-parallel layout synth_params(tp=4) gives), through apply_linear
+    (packed,), (halves,) = splitk_operands(14336, 4096, 77, 1)
+    q1 = L.QuantLinear(packed=packed, scale=halves[0], scale_lo=halves[1], bias=None, n_out=4096, k_in=14336,
+                       variant="exact", layout="splitk")
+    p4, h4, l4 = repack_k_shards(packed, *halves, 64, 1, 4)
+    q4 = dataclasses.replace(q1, packed=p4, scale=h4, scale_lo=l4, k_shards=4)
+    check(torch.equal(L.dequantize_weight(q4, torch.float32), L.dequantize_weight(q1, torch.float32)),
+          "K9a: the k_shards=4 w_down does not dequantize to its k_shards=1 packing")
+    worst = 0.0
+    for m in (1, 4, 64, 256):
+        x = torch.randn((m, 14336), generator=gen, device=dev).to(torch.bfloat16)
+        y4, y1 = L.apply_linear(q4, x), L.apply_linear(q1, x)
+        torch.cuda.synchronize()
+        d = (y4.float() - y1.float()).abs().max().item()
+        check(d <= 2.0**-7 * y1.float().abs().max().item(), f"K9b k_shards=4 w_down at M={m}: err {d}")
+        worst = max(worst, d / y1.float().abs().max().item())
+    print(f"    K9b    w_down k_shards=4 through apply_linear = its k_shards=1 packing: dequantize bit-equal, "
+          f"M 1/4/64/256 within {worst:.3g} of max|y| (bf16 output rounding and f32 order)")
+    del packed, halves, q1, q4, p4, h4, l4
+    torch.cuda.empty_cache()
+
     # -- phase 4: 2-layer full-width model, card vs CPU -------------------------------
 
     cfg2 = T.ModelConfig.mistral_7b()
@@ -1253,6 +1381,177 @@ def main() -> int:
         shutil.rmtree(ckpt8, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # -- phase 9: the split-K path at Mistral-7B width (K9a/K9b) --------------------------------
+    import numpy as np
+
+    from torch_bnb_fp4_tpu_torch.convert.bnb import from_bnb_state
+
+    # (a) full width and depth, every linear split-K, wo/w_down K-sharded into 4, served by the engine
+    t0 = time.perf_counter()
+    params = synth_params(cfg, layout="splitk", tp=4, seed=21, device=dev)
+    torch.cuda.synchronize()
+    lay = params.layers
+    check(all(lp.wqkv is None and lp.wo.k_shards == lp.w_down.k_shards == 4 and lp.wq.layout == "splitk"
+              for lp in lay), "[9a] the split-K params are fused or not K-sharded")
+    linear_bytes = sum(tensor_bytes(getattr(lp, f)) for lp in lay for f in ("wq", "wk", "wv", "wo", "w_gate", "w_up",
+                                                                             "w_down"))
+    print(f"[9a] Mistral-7B split-K FP4 params ({cfg.n_layers} layers, unfused, wo/w_down k_shards=4) built in "
+          f"{time.perf_counter() - t0:.1f} s: {tensor_bytes(params) / 1e9:.2f} GB (linears {linear_bytes / 1e9:.2f}, "
+          f"embedding, norms and dense lm_head {(tensor_bytes(params) - linear_bytes) / 1e9:.3f})")
+    g9 = torch.Generator().manual_seed(21)
+    sk_prompts = [torch.randint(0, cfg.vocab_size, (lp,), generator=g9).tolist() for lp in SPLITK_PROMPTS]
+    reqs9 = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(sk_prompts)]
+    eng = Engine(params, cfg, EngineConfig(max_batch=4, max_len=2048, inner_steps=8, prefill_chunk=256))
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res9 = eng.run(reqs9)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches9 = K.launch_counts()
+    st9 = eng.stats()
+    for r in reqs9:
+        c = res9[r.uid]
+        check(len(c.tokens) == NEW_TOKENS and c.finish_reason == "length", f"[9a] request {r.uid}: {c}")
+    check(launches9["matmul_splitk"] > 0 and all(launches9[nm] == 0 for nm in ("matmul_pk", "matmul_pk_minner",
+                                                                              "matmul_pk_w4a8")),
+          f"[9a] launches {launches9}")
+    print(f"[9a] engine served prompts {SPLITK_PROMPTS} ({NEW_TOKENS} new tokens each) in {wall:.2f} s: "
+          f"{st9['tok_per_s']:.1f} tok/s, TTFT per request ms {[round(res9[r.uid].ttft_s * 1e3, 1) for r in reqs9]}, "
+          f"decode {st9['step_p50_s'] * 1e3:.2f} ms/step p50 (batch 4); launches {json.dumps(launches9)}")
+    del eng
+
+    # (b) batch-1: generate (K9b at M = 1), then one decode step: no host sync, CUDA-graph replay
+    K.reset_launch_counts()
+    out_b1 = T.generate(params, cfg, torch.tensor([sk_prompts[0][:20]], dtype=torch.int32, device=dev), 16)
+    torch.cuda.synchronize()
+    launches9_b1 = K.launch_counts()
+    check(tuple(out_b1.shape) == (1, 16) and launches9_b1["matmul_splitk"] > 0, f"[9b] {launches9_b1}")
+    with torch.no_grad():
+        cache1 = T.KVCache.zeros(cfg, 1, 64, device=dev)
+        lg, cache1 = T.forward(params, cfg, torch.tensor([sk_prompts[0][:20]], dtype=torch.int32, device=dev),
+                               cache1, last_only=True)
+        tok1 = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager_lg, _ = T.forward(params, cfg, tok1, cache1)  # raises on any device -> host sync
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        b1_eager = timed(lambda: T.forward(params, cfg, tok1, cache1), rep=10)
+        graph, graph_lg = graph_of(lambda: T.forward(params, cfg, tok1, cache1)[0])
+        b1_card = replay_ms(graph)
+        check(torch.equal(graph_lg, eager_lg), "[9b] the graph's decode-step logits differ from the eager step's")
+        del graph
+    step_bytes = linear_bytes + tensor_bytes(params.lm_head)
+    sk_bound = step_bytes / P.H100_HBM_BYTES_PER_S * 1e3
+    print(f"[9b] batch-1 generate (20-token prompt, 16 new tokens): launches {json.dumps(launches9_b1)}; decode step: "
+          f"no device->host sync (set_sync_debug_mode('error')); CUDA graph replay gives the eager logits; "
+          f"{b1_eager:.2f} ms eager, {b1_card:.3f} ms on the card alone vs the byte bound {sk_bound:.3f} ms "
+          f"({step_bytes / 1e9:.2f} GB: every linear's packed bytes and absmax, the lm_head; "
+          f"{sk_bound / b1_card:.1%} of it)")
+    del params, cache1
+    torch.cuda.empty_cache()
+
+    # (c) a 2-layer cut at full width on the card and on the CPU (plain versions); no int8 path
+    cfg9 = T.ModelConfig(**{**cfg.__dict__, "n_layers": 2})
+    p_gpu = synth_params(cfg9, layout="splitk", tp=4, seed=22, device=dev)
+    p_cpu = T.params_to(p_gpu, "cpu")
+    toks = torch.randint(0, cfg9.vocab_size, (1, 300), generator=torch.Generator().manual_seed(23), dtype=torch.int32)
+    c_gpu, c_cpu = T.KVCache.zeros(cfg9, 1, 304, device=dev), T.KVCache.zeros(cfg9, 1, 304, device="cpu")
+    t_cpu = 0.0
+    for step in range(5):  # prefill, then 4 decode steps fed the CPU run's greedy token
+        with torch.no_grad():
+            lg_gpu, c_gpu = T.forward(p_gpu, cfg9, toks.to(dev), c_gpu, last_only=True)
+            t = time.perf_counter()
+            lg_cpu, c_cpu = T.forward(p_cpu, cfg9, toks, c_cpu, last_only=True)
+            t_cpu += time.perf_counter() - t
+        lg_gpu = lg_gpu.cpu()
+        d = (lg_gpu - lg_cpu).abs().max().item()
+        rel = ((lg_gpu - lg_cpu).norm() / lg_cpu.norm()).item()
+        check(bool(torch.isfinite(lg_gpu).all()), "[9c] non-finite logits")
+        check(d <= 2e-2 * lg_cpu.abs().max().item() and rel <= 3e-2, f"[9c] step {step}: max|d| {d}, rel L2 {rel}")
+        print(f"[9c] 2-layer full-width split-K model, 300-token prompt, step {step}: max|dlogit| {d:.4g} of max "
+              f"{lg_cpu.abs().max().item():.4g} (limit 2e-2 of it), rel L2 {rel:.3g} (limit 3e-2), argmax gpu "
+              f"{int(lg_gpu.argmax())} cpu {int(lg_cpu.argmax())}")
+        toks = lg_cpu[:, -1].argmax(-1).to(torch.int32)[:, None]
+    print(f"[9c] CPU side {t_cpu:.1f} s")
+    del p_gpu, p_cpu, c_gpu, c_cpu
+    torch.cuda.empty_cache()
+
+    # (d) a bnb-exact NF4 checkpoint (flat state -> from_bnb_state(layout="splitk")), served by the CLI
+    cfg9d = T.ModelConfig(**{**cfg.__dict__, "n_layers": 4})
+    ckpt9 = root / "build" / "chip_smoke_splitk_ckpt"
+    shutil.rmtree(ckpt9, ignore_errors=True)
+    rng9 = np.random.default_rng(24)
+    kv_dim = cfg.n_kv_heads * cfg.head_dim
+    shapes9 = dict(wq=(cfg.q_dim, cfg.dim), wk=(kv_dim, cfg.dim), wv=(kv_dim, cfg.dim), wo=(cfg.dim, cfg.q_dim),
+                   w_gate=(cfg.ffn_dim, cfg.dim), w_up=(cfg.ffn_dim, cfg.dim), w_down=(cfg.dim, cfg.ffn_dim))
+    served9 = [torch.randint(0, cfg.vocab_size, (lp,), generator=g9).tolist() for lp in SPLITK_SERVED_PROMPTS]
+    aborted9 = torch.randint(0, cfg.vocab_size, (300,), generator=g9).tolist()
+    short9 = torch.randint(0, cfg.vocab_size, (50,), generator=g9).tolist()
+    try:
+        t0 = time.perf_counter()
+        layers, flat0 = [], {}
+        for i in range(cfg9d.n_layers):
+            lins = {}
+            for f, (n_out, k_in) in shapes9.items():  # what a bnb NF4 model holds: flat codes, one absmax per 64
+                flat = rng9.integers(0, 256, n_out * k_in // 2, dtype=np.uint8)
+                absmax = (rng9.random(n_out * k_in // 64, dtype=np.float32) + 0.5) * 0.01
+                lins[f] = from_bnb_state(flat, absmax, (n_out, k_in), quant_type="nf4", layout="splitk", device=dev)
+                if i == 0:
+                    flat0[f] = lins[f]
+            layers.append(T.LayerParams(attn_norm=torch.ones(cfg.dim, dtype=torch.bfloat16, device=dev),
+                                        mlp_norm=torch.ones(cfg.dim, dtype=torch.bfloat16, device=dev), **lins))
+        gen.manual_seed(25)
+        p9 = T.ModelParams(embed=(torch.randn((cfg.vocab_size, cfg.dim), generator=gen, device=dev) * 0.01)
+                           .to(torch.bfloat16), layers=layers, final_norm=torch.ones(cfg.dim, dtype=torch.bfloat16,
+                                                                                     device=dev),
+                           lm_head=synth_dense_linear(gen, cfg.vocab_size, cfg.dim, device=dev))
+        conv_s = time.perf_counter() - t0
+        # K9a on layer 0: dequantize_weight (f32 out) = the numpy golden of the same bytes
+        K.reset_launch_counts()
+        for f, q in flat0.items():
+            want = fmt.unpack_tpu_sharded(q.packed.cpu().numpy(), q.scale.cpu().numpy(), q.scale_lo.cpu().numpy(),
+                                          code=fmt.NF4_CODE)[: q.k_in, : q.n_out].T
+            check(np.array_equal(L.dequantize_weight(q, torch.float32).cpu().numpy(), want),
+                  f"[9d] K9a dequantize_weight of layer 0 {f} is not the golden")
+        launches9_dq = K.launch_counts()
+        check(launches9_dq["dequant_splitk"] == len(flat0), f"[9d] K9a launches {launches9_dq}")
+        del flat0, want
+        t0 = time.perf_counter()
+        save_checkpoint(str(ckpt9), cfg9d, p9)
+        write_s = time.perf_counter() - t0
+        del p9, layers, lins, q
+        torch.cuda.empty_cache()
+        print(f"[9d] built a 4-layer full-width NF4 model from bnb flat state (from_bnb_state, layout='splitk') in "
+              f"{conv_s:.1f} s and wrote it as a checkpoint: {sum(f.stat().st_size for f in ckpt9.iterdir()) / 1e9:.2f} "
+              f"GB in {write_s:.1f} s; K9a dequantize_weight of layer 0's 7 linears bit-exact with the numpy golden")
+        http9, http_short9, child9, startup9 = serve_over_http(root, ckpt9, served9, aborted9, short9,
+                                                               root / "build" / "chip_smoke_splitk_server.log")
+        cl = child9["launches"]
+        check(cl["matmul_splitk"] > 0 and cl["matmul_w8"] == 0 and cl["dequant_pk"] == 0,
+              f"[9d] server launches {cl}")
+        K.reset_launch_counts()
+        cfg9r, p9r = load_checkpoint(str(ckpt9), device=dev)
+        check(p9r.layers[0].wq.layout == "splitk" and p9r.layers[0].wq.codebook is not None, "[9d] lost the layout")
+        shadowed9 = attach_prefill_shadow(p9r)
+        check(all(getattr(lp, f).w8 is None for lp in shadowed9.layers for f in shapes9), "[9d] a split-K shadow")
+        reqs9d = [Request(uid=i, prompt=pr, max_new_tokens=NEW_TOKENS) for i, pr in enumerate(served9 + [short9])]
+        res9d = Engine(shadowed9, cfg9r, EngineConfig(max_batch=4, max_len=8192, inner_steps=8,
+                                                      prefill_chunk=256)).run(reqs9d)
+        launches9d = K.launch_counts()
+        for i, toks_http in enumerate(http9 + [http_short9]):
+            check(res9d[i].tokens == toks_http, f"[9d] request {i} over HTTP differs from the in-process replay")
+        check(launches9d["matmul_splitk"] > 0 and launches9d["matmul_w8"] == 0, f"[9d] replay launches {launches9d}")
+        print(f"[9d] CLI server (--prefill-shadow, which skips every split-K linear): serving line after "
+              f"{startup9:.1f} s; prompts {SPLITK_SERVED_PROMPTS} at once, an aborted 300-token request and a 50-token "
+              f"one; HTTP tokens equal the in-process replay's for all {len(reqs9d)}; server launches "
+              f"{json.dumps(cl)}; replay launches {json.dumps(launches9d)}")
+        del p9r, shadowed9
+    finally:
+        shutil.rmtree(ckpt9, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     # -- kernel table ------------------------------------------------------------------
     k_launch = launches["matmul_pk"] + launches["matmul_pk_minner"] + launches["matmul_pk_w4a8"]
     kernels_json.append(dict(
@@ -1323,6 +1622,25 @@ def main() -> int:
             replaces=f"torch_bnb_fp4_tpu/ops/kernels.py:{line}", launches=counts[wrapper], max_abs_err=tot["err"],
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound"] * 1e3,
             bound_by=max(tot["by"], key=tot["by"].get), library_ms=None, bf16_matmul_ms=tot["bf16_ms"]))
+    # K9a/K9b: per Mistral-7B layer of the split-K model (the 7 unfused shapes, times of phase 3e),
+    # launches of the phase-9 run that makes each instance
+    run_launches.update(splitk=(launches9, "phase 9a's engine"), splitk_b1=(launches9_b1, "phase 9b's batch-1 generate"))
+    k9 = [("K9a", ("K9a", "f32"), "dequantize_tpu (f32 out, the 7 unfused shapes of one Mistral-7B layer; launches of "
+                                  "phase 9d's dequantize_weight of the served checkpoint's layer 0)",
+           launches9_dq["dequant_splitk"], "dequant_splitk.cu", 243)]
+    for m, run in SPLITK_INSTANCES:
+        counts, run_name = run_launches[run]
+        k9.append(("K9b", ("K9b", "bf16", m), f"matmul_fp4 (bf16 x, M={m}, the 7 unfused matmuls of one split-K "
+                                               f"Mistral-7B layer; launches of {run_name})",
+                   counts["matmul_splitk"], "matmul_splitk.cu", 322))
+    for kname, key, what, n_launch, src, line in k9:
+        tot = splitk_rows[key]
+        kernels_json.append(dict(
+            name=f"{kname} {what}", route="cuda", source=f"torch_bnb_fp4_tpu_torch/csrc/{src}",
+            replaces=f"torch_bnb_fp4_tpu/ops/kernels.py:{line}", launches=n_launch, max_abs_err=tot["err"],
+            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound"] * 1e3,
+            bound_by=max(tot["by"], key=tot["by"].get), library_ms=None,
+            **({"bf16_matmul_ms": tot["bf16_ms"]} if kname == "K9b" else {})))
     print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -344,3 +344,113 @@ def test_k7_reads_strided_q(dev):
                                A.flash_attention(q, k, v, qpos, valid, kpos, 256), rtol=0, atol=0)
     with pytest.raises(ValueError, match="tiles"):
         A.flash_attention(q, k, v, qpos, valid, kpos, block_k=128)
+
+
+def _splitk_operands(m, k, n, dev, seed=0, x_dtype=torch.bfloat16):
+    """Random split-K operands: uniform bytes, true absmax halves in [0.5, 1.5)
+    * 0.01, a bias."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    packed = torch.randint(0, 256, (k // 2, n), generator=g, dtype=torch.uint8, device=dev)
+    hi, lo = ((torch.rand((k // 128, n), generator=g, device=dev) + 0.5) * 0.01 for _ in range(2))
+    x = torch.randn((m, k), generator=g, device=dev).to(x_dtype)
+    return x, packed, hi, lo, torch.randn((n,), generator=g, device=dev)
+
+
+SPLITK_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+
+
+@pytest.mark.parametrize("qt", ["fp4", "nf4"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("k,n", [(1024, 384), (14336, 4096)])
+def test_k9a_bit_exact(dev, k, n, out_dtype, qt):
+    from torch_bnb_fp4_tpu_torch.ops import format as fmt
+
+    _, packed, hi, lo, _ = _splitk_operands(1, k, n, dev, seed=k + n)
+    cb = None if qt == "fp4" else fmt.NF4_CODE
+    before = K.launch_counts()["dequant_splitk"]
+    got = K.dequantize_tpu(packed, (hi, lo), cb, out_dtype=out_dtype)
+    assert K.launch_counts()["dequant_splitk"] == before + 1
+    want = K.dequantize_splitk_plain(packed, hi, lo, K.code_table(cb, dev), out_dtype=out_dtype)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("qt", ["fp4", "nf4"])
+@pytest.mark.parametrize("m", [1, 3, 8, 9, 64, 256, 300])
+@pytest.mark.parametrize("k,n", SPLITK_SHAPES)
+def test_k9b_bf16_vs_plain(dev, k, n, m, qt):
+    from torch_bnb_fp4_tpu_torch.ops import format as fmt
+
+    x, packed, hi, lo, bias = _splitk_operands(m, k, n, dev, seed=m + k)
+    cb = None if qt == "fp4" else fmt.NF4_CODE
+    before = K.launch_counts()["matmul_splitk"]
+    got = K.matmul_fp4(x, packed, (hi, lo), bias, cb)
+    assert K.launch_counts()["matmul_splitk"] == before + 1 and got.dtype == torch.bfloat16
+    _close(got, K.matmul_splitk_plain(x, packed, hi, lo, bias, K.code_table(cb, dev), out_dtype=torch.bfloat16),
+           2.0**-7)
+
+
+@pytest.mark.parametrize("m", [1, 5, 64])
+@pytest.mark.parametrize("k,n", [(4096, 1024), (14336, 4096)])
+def test_k9b_f32_vs_plain(dev, k, n, m):
+    x, packed, hi, lo, bias = _splitk_operands(m, k, n, dev, seed=m, x_dtype=torch.float32)
+    got = K.matmul_fp4(x, packed, (hi, lo), bias)
+    _close(got, K.matmul_splitk_plain(x, packed, hi, lo, bias, K.code_table(None, dev), out_dtype=torch.float32),
+           1e-5)
+
+
+def test_k9b_f16_computes_in_bf16(dev):
+    x, packed, hi, lo, bias = _splitk_operands(4, 4096, 1024, dev, x_dtype=torch.float16)
+    got = K.matmul_fp4(x, packed, (hi, lo), bias)
+    assert got.dtype == torch.float16
+    torch.testing.assert_close(got, K.matmul_fp4(x.to(torch.bfloat16), packed, (hi, lo), bias,
+                                                 out_dtype=torch.float16), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m", [1, 4, 64])
+def test_k_sharded_linear_equals_unsharded_on_card(dev, m):
+    """w_down at k_shards = 4 through apply_linear (x reordered, one K9b
+    call) against the k_shards = 1 packing of the same weight."""
+    from torch_bnb_fp4_tpu_torch.models import linear as L
+
+    w = np.random.default_rng(m).standard_normal((512, 4096)).astype(np.float32) * 0.02
+    q1 = L.quantize_linear(w, layout="splitk", device=dev)
+    q4 = L.quantize_linear(w, layout="splitk", k_shards=4, device=dev)
+    x = torch.randn((m, 4096), generator=torch.Generator(device=dev).manual_seed(m), device=dev).to(torch.bfloat16)
+    _close(L.apply_linear(q4, x), L.apply_linear(q1, x), 2.0**-7)
+    torch.testing.assert_close(L.dequantize_weight(q4, torch.float32), L.dequantize_weight(q1, torch.float32),
+                               rtol=0, atol=0)
+
+
+def test_splitk_model_cuda_matches_cpu_tiny(dev):
+    """A tiny split-K model (K-sharded wo/w_down) on the card and on the CPU:
+    logits within 2e-2 of max (no int8 path), and its batch-1 decode step
+    needs no host sync and replays as a CUDA graph."""
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+    from torch_bnb_fp4_tpu_torch.utils.synth import synth_params
+
+    cfg = T.ModelConfig.tiny_test(n_layers=2)
+    p = synth_params(cfg, layout="splitk", tp=2, seed=3, device=dev)
+    pc = T.params_to(p, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, 40), generator=torch.Generator().manual_seed(1), dtype=torch.int32)
+    with torch.no_grad():
+        lg, cache = T.forward(p, cfg, toks.to(dev), T.KVCache.zeros(cfg, 1, 48, device=dev), last_only=True)
+        lc, _ = T.forward(pc, cfg, toks, T.KVCache.zeros(cfg, 1, 48, device="cpu"), last_only=True)
+        _close(lg.cpu(), lc, 2e-2)
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager, _ = T.forward(p, cfg, tok, cache)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            T.forward(p, cfg, tok, cache)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, _ = T.forward(p, cfg, tok, cache)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, eager, rtol=0, atol=0)

@@ -108,8 +108,14 @@ def test_zero_rows_and_bad_width():
 
 
 def test_other_layouts_not_yet_ported():
-    with pytest.raises(NotImplementedError):
-        L.quantize_linear(_w(128, 512, 4), layout="splitk", device="cpu")
+    """An unknown layout and pair-K with k_shards raise ValueError in both
+    packages (split-K itself is tests/test_torch_splitk.py's)."""
+    w = _w(128, 512, 4)
+    for kw in (dict(layout="rowmajor"), dict(layout="pairk", k_shards=2)):
+        with pytest.raises(ValueError):
+            JL.quantize_linear(w, **kw)
+        with pytest.raises(ValueError):
+            L.quantize_linear(w, device="cpu", **kw)
 
 
 def test_dense_linear_matches_jax():

@@ -49,9 +49,11 @@ def test_cuda_sources_present():
         text = (csrc / src).read_text()
         assert 'extern "C"' in text and _build.SIGNATURES[src][0] in text
         # the pair-K kernels share the K1 decode routine; K7 has no weights,
-        # K5 reads the int8 shadow and takes only the dtype helpers
+        # K5 reads the int8 shadow and K9a/K9b decode split-K nibbles through
+        # a 16-entry table, taking only the dtype helpers
         assert ('#include "pairk_decode.cuh"' in text) == (src != "flash_attention.cu")
-        assert ("pk::decode_pairs<" in text) == (src not in ("flash_attention.cu", "matmul_w8.cu")), src
+        assert ("pk::decode_pairs<" in text) == (src not in ("flash_attention.cu", "matmul_w8.cu", "dequant_splitk.cu",
+                                                             "matmul_splitk.cu")), src
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -187,8 +187,8 @@ def test_attach_int8_shadow_errors(layer_pair):
         L.attach_int8_shadow(q, tp=2)
     with pytest.raises(NotImplementedError, match="tensor parallelism"):
         L.attach_prefill_shadow([q], tp=4)
-    with pytest.raises(NotImplementedError, match="K9a"):
-        L.quantize_linear(np.zeros((128, 512), np.float32), layout="splitk", device="cpu")
+    with pytest.raises(ValueError, match="pairk layout"):
+        L.attach_int8_shadow(L.quantize_linear(np.zeros((128, 512), np.float32), layout="splitk", device="cpu"))
 
 
 def test_dequantize_weight_matches_jax():

@@ -36,15 +36,16 @@ def flatten_jax_params(params):
         if lin is None:
             return
         if isinstance(lin, JL.QuantLinear):
-            assert lin.layout == "pairk"
             arrays[prefix + ".packed"] = np.asarray(lin.packed)
             arrays[prefix + ".scale"] = _f32(lin.absmax_hi)
+            if lin.absmax_lo is not None:  # split-K: the lo half's absmax
+                arrays[prefix + ".absmax_lo"] = _f32(lin.absmax_lo)
             if lin.bias is not None:
                 arrays[prefix + ".bias"] = _f32(lin.bias)
-            if lin.variant == "lut":
+            if lin.codebook is not None:  # lut, or split-K NF4
                 arrays[prefix + ".codebook"] = _f32(lin.codebook)
             linears[prefix] = dict(kind="quant", n_out=lin.n_out, k_in=lin.k_in, blocksize=lin.blocksize,
-                                   variant=lin.variant,
+                                   variant=lin.variant, layout=lin.layout, k_shards=lin.k_shards,
                                    scale_dtype="bfloat16" if lin.absmax_hi.dtype == jnp.bfloat16 else "float32")
             if lin.w8 is not None:  # int8 prefill shadow
                 arrays[prefix + ".w8"] = np.asarray(lin.w8)

@@ -16,15 +16,20 @@ stored as ``layers.N.moe.router.w``; ``experts``: gate, up and down, each a
 linear whose arrays carry a leading n_experts axis, ``down`` marked
 row-parallel), as the JAX package stores it.
 
-A pair-K linear stores ``packed`` and its scale under ``absmax_hi`` (the
-port's field ``scale``), ``bias`` when present, and its codebook in the
-manifest.  bf16 arrays are stored as uint16 views and listed in
-``bf16_keys`` (npz cannot hold bf16).  Linears are stored unfused and int8
-prefill shadows are never stored (they are rebuilt at load time by
-``attach_prefill_shadow``).  Format versions 1-3 are read, 3 is written.
+A quantized linear stores ``packed``, its scale under ``absmax_hi`` (the
+port's field ``scale``), a split-K linear also ``absmax_lo`` (``scale_lo``),
+``bias`` when present, and ``layout``, ``k_shards``, ``variant`` and the
+codebook in the manifest.  An entry without ``layout`` (formats 1 and 2) is
+split-K.  A row-parallel split-K entry (wo, w_down, the experts' down) packed
+with ``k_shards`` other than the load's ``tp`` (1) is repacked to one shard
+where it was loaded (``convert/quantize.repack_k_shards``, exact).  bf16
+arrays are stored as uint16 views and listed in ``bf16_keys`` (npz cannot
+hold bf16).  Linears are stored unfused and int8 prefill shadows are never
+stored (they are rebuilt at load time by ``attach_prefill_shadow``).  Format
+versions 1-3 are read, 3 is written.
 
-Not yet ported (``NotImplementedError``): quantized embedding tables,
-split-K packings (K9a/K9b) and ``tp > 1``.
+Not yet ported (``NotImplementedError``): quantized embedding tables and
+``tp > 1``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 from ..models.linear import DenseLinear, QuantLinear
 from ..models.transformer import LayerParams, ModelConfig, ModelParams, MoEParams, fuse_params
 from ..utils.device import resolve_device
+from .quantize import repack_k_shards
 
 FORMAT_VERSION = 3
 _SUPPORTED_VERSIONS = (1, 2, 3)
@@ -72,10 +78,13 @@ def _linear_to_arrays(prefix: str, q, store: dict) -> dict:
         raise TypeError(f"{prefix}: cannot store a {type(q).__name__}")
     store[f"{prefix}.packed"] = q.packed
     store[f"{prefix}.absmax_hi"] = q.scale
+    if q.scale_lo is not None:
+        store[f"{prefix}.absmax_lo"] = q.scale_lo
     if q.bias is not None:
         store[f"{prefix}.bias"] = q.bias
-    return dict(kind="quant", n_out=q.n_out, k_in=q.k_in, blocksize=q.blocksize, layout="pairk", k_shards=1,
-                variant=q.variant, codebook=None if q.codebook is None else q.codebook.float().cpu().tolist())
+    return dict(kind="quant", n_out=q.n_out, k_in=q.k_in, blocksize=q.blocksize, layout=q.layout,
+                k_shards=q.k_shards, variant=q.variant,
+                codebook=None if q.codebook is None else q.codebook.float().cpu().tolist())
 
 
 def save_checkpoint(path: str, cfg: ModelConfig, params: ModelParams) -> None:
@@ -133,14 +142,18 @@ def _linear_from_arrays(prefix: str, meta: dict, arrays: dict, device):
     if meta.get("kind") == "dense":
         bias = arrays.get(f"{prefix}.bias")
         return DenseLinear(w=arrays[f"{prefix}.w"], bias=bias, n_out=meta["n_out"], k_in=meta["k_in"])
+    packed, hi, lo = arrays[f"{prefix}.packed"], arrays[f"{prefix}.absmax_hi"], arrays.get(f"{prefix}.absmax_lo")
     layout = meta.get("layout", "splitk")
-    if layout != "pairk":
-        raise NotImplementedError(f"{prefix}: the {layout!r} layout is not yet ported (split-K needs K9a/K9b)")
+    k_shards = meta["k_shards"]
+    if layout == "splitk" and meta.get("row_parallel") and k_shards != 1:
+        # to the load's tp = 1: an exact byte shuffle, run where the tensors were loaded
+        packed, hi, lo = repack_k_shards(packed, hi, lo, meta["blocksize"], k_shards, 1)
+        k_shards = 1
     cb = meta.get("codebook")
     return QuantLinear(
-        packed=arrays[f"{prefix}.packed"], scale=arrays[f"{prefix}.absmax_hi"], bias=arrays.get(f"{prefix}.bias"),
-        n_out=meta["n_out"], k_in=meta["k_in"], blocksize=meta["blocksize"], variant=meta.get("variant", "exact"),
-        codebook=None if cb is None else torch.tensor(cb, dtype=torch.float32, device=device),
+        packed=packed, scale=hi, scale_lo=lo, bias=arrays.get(f"{prefix}.bias"), n_out=meta["n_out"],
+        k_in=meta["k_in"], blocksize=meta["blocksize"], variant=meta.get("variant", "exact"), layout=layout,
+        k_shards=k_shards, codebook=None if cb is None else torch.tensor(cb, dtype=torch.float32, device=device),
     )
 
 

@@ -10,9 +10,11 @@ w_up w_down wqkv w_gateup; absent linears are simply missing):
   layers.i.mlp_norm          (dim,)              bf16 leaf
   layers.i.{post_attn_norm, post_mlp_norm, q_norm, k_norm}   optional bf16 leaves
   layers.i.L.packed          (k_pad/2, n_pad)    uint8      quantized linear
-  layers.i.L.scale           (k_pad/bs, n_pad)   f32 (or bf16 leaf, see below)
+  layers.i.L.scale           (k_pad/bs, n_pad)   f32 (or bf16 leaf, see below); split-K: absmax_hi,
+                                                 (k_pad/(2*bs), n_pad)
+  layers.i.L.absmax_lo       (k_pad/(2*bs), n_pad)  f32   split-K only: the lo half's absmax
   layers.i.L.bias            (n_out,)            f32, optional
-  layers.i.L.codebook        (16,)               f32, lut variant only
+  layers.i.L.codebook        (16,)               f32, lut variant and split-K NF4 only
   layers.i.L.w8              (k_pad, n_pad)      int8       int8 prefill shadow, optional
   layers.i.L.w8_scale        (k_pad/w8_block_k, n_pad)  f32  its per-K-tile column scales
   layers.i.L.w               (k_in, n_out)       bf16 leaf  dense linear
@@ -28,8 +30,9 @@ cast back to bf16 here.  ``meta["linears"]`` maps each linear's prefix
 (``layers.3.wqkv``, ``layers.3.moe.gateup``, ``layers.3.moe.router``,
 ``lm_head``) to its static fields:
 ``{"kind": "quant", "n_out", "k_in", "blocksize", "variant", "scale_dtype":
-"float32" | "bfloat16", "w8_block_k"}`` (``w8_block_k``, the shadow's K-tile
-depth, only with ``.w8``) or ``{"kind": "dense", "n_out", "k_in"}``.
+"float32" | "bfloat16", "w8_block_k", "layout", "k_shards"}`` (``w8_block_k``,
+the shadow's K-tile depth, only with ``.w8``; ``layout`` "pairk" when absent,
+``k_shards`` 1) or ``{"kind": "dense", "n_out", "k_in"}``.
 """
 
 from __future__ import annotations
@@ -80,10 +83,13 @@ def params_from_numpy(arrays: dict[str, np.ndarray], meta: dict, cfg: ModelConfi
                 raise ValueError(f"{prefix}.w8 must be int8")
             shadow = dict(w8=t(prefix + ".w8"), w8_scale=t(prefix + ".w8_scale", torch.float32),
                           w8_block_k=m["w8_block_k"])
+        lo_key = prefix + ".absmax_lo"
         return QuantLinear(
             packed=t(prefix + ".packed"), scale=t(prefix + ".scale", _DTYPES[m.get("scale_dtype", "float32")]),
+            scale_lo=t(lo_key, torch.float32) if lo_key in arrays else None,
             bias=t(bias_key, torch.float32) if bias_key in arrays else None,
             n_out=m["n_out"], k_in=m["k_in"], blocksize=m.get("blocksize", 64), variant=m["variant"],
+            layout=m.get("layout", "pairk"), k_shards=m.get("k_shards", 1),
             codebook=t(cb_key, torch.float32) if cb_key in arrays else None, **shadow,
         )
 

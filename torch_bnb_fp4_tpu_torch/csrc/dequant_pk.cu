@@ -24,24 +24,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ void store4(void* out, int out_dtype, size_t i, const float (&v)[4]) {
-  if (out_dtype == pk::kF32) {
-    *reinterpret_cast<float4*>(static_cast<float*>(out) + i) = make_float4(v[0], v[1], v[2], v[3]);
-    return;
-  }
-  uint16_t h[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (out_dtype == pk::kBF16) {
-      h[j] = __bfloat16_as_ushort(__float2bfloat16_rn(v[j]));
-    } else {
-      h[j] = __half_as_ushort(__float2half_rn(v[j]));
-    }
-  }
-  *reinterpret_cast<uint2*>(static_cast<uint16_t*>(out) + i) =
-      make_uint2(h[0] | (static_cast<uint32_t>(h[1]) << 16), h[2] | (static_cast<uint32_t>(h[3]) << 16));
-}
-
 template <int V>
 __global__ void __launch_bounds__(kThreads) dequant_pk_kernel(const uint8_t* __restrict__ packed,
                                                               const void* __restrict__ scale, int scale_dtype,
@@ -64,8 +46,8 @@ __global__ void __launch_bounds__(kThreads) dequant_pk_kernel(const uint8_t* __r
     lo[b] = __fmul_rn(pk::pair_lo(bits), s);
     hi[b] = __fmul_rn(pk::pair_hi(bits), s);
   }
-  store4(out, out_dtype, static_cast<size_t>(2 * i) * N + c, lo);
-  store4(out, out_dtype, static_cast<size_t>(2 * i + 1) * N + c, hi);
+  pk::store_out4(out, out_dtype, static_cast<size_t>(2 * i) * N + c, lo);
+  pk::store_out4(out, out_dtype, static_cast<size_t>(2 * i + 1) * N + c, hi);
 }
 
 template <int V>

@@ -97,4 +97,20 @@ __device__ __forceinline__ void store_out(void* out, int out_dtype, size_t i, fl
   }
 }
 
+// four f32 results -> four consecutive output elements (one 16- or 8-byte store)
+__device__ __forceinline__ void store_out4(void* out, int out_dtype, size_t i, const float (&v)[4]) {
+  if (out_dtype == kF32) {
+    *reinterpret_cast<float4*>(static_cast<float*>(out) + i) = make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+  uint16_t h[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    h[j] = out_dtype == kBF16 ? __bfloat16_as_ushort(__float2bfloat16_rn(v[j]))
+                              : __half_as_ushort(__float2half_rn(v[j]));
+  }
+  *reinterpret_cast<uint2*>(static_cast<uint16_t*>(out) + i) =
+      make_uint2(h[0] | (static_cast<uint32_t>(h[1]) << 16), h[2] | (static_cast<uint32_t>(h[3]) << 16));
+}
+
 }  // namespace pk

@@ -1,4 +1,4 @@
-"""Llama/Mistral-family decoder with FP4 pair-K linears, in PyTorch.
+"""Llama/Mistral-family decoder with FP4 linears (pair-K or split-K), in PyTorch.
 
 Counterpart of ``torch_bnb_fp4_tpu/models/transformer.py`` for the dense
 families.  Parameters are plain dataclasses of tensors; ``forward`` runs
@@ -14,8 +14,9 @@ Shorter shapes take the dense, query-chunked path.
 
 Mixture-of-experts layers (Mixtral) keep their experts STACKED
 (:class:`MoEParams`); :func:`moe_forward` routes on the device and runs each
-expert through the K8 forms of K2-K4 (``models.linear.apply_expert_linear``),
-so no routing decision is read on the host.
+expert through the K8 forms of K2-K4 (``models.linear.apply_expert_linear``)
+or, for a split-K stack, K9b on the expert's :func:`expert_view`, so no
+routing decision is read on the host.
 
 Not yet ported (raise ``NotImplementedError``): LoRA adapters, the quantized
 embedding table and tensor parallelism.
@@ -433,9 +434,10 @@ def _write_kv(cache: torch.Tensor, new: torch.Tensor, ctx: _StepContext) -> None
 
 def _apply_expert(stacked, e, x, **kw):
     """Expert ``e`` of a stacked linear applied to ``x``: a pair-K stack
-    through K8 (``apply_expert_linear``, no copy of the expert), a dense
-    stack through its :func:`expert_view`."""
-    if isinstance(stacked, QuantLinear):
+    through K8 (``apply_expert_linear``, no copy of the expert), a split-K
+    or dense stack through its :func:`expert_view` (the JAX package's
+    ``_apply_expert``; the index stays on the device)."""
+    if isinstance(stacked, QuantLinear) and stacked.layout == "pairk":
         return apply_expert_linear(stacked, e, x, **kw)
     return expert_view(stacked, e)(x, **kw)
 
@@ -624,9 +626,9 @@ def norm_names(cfg: ModelConfig) -> tuple[str, str, str | None, str | None]:
 
 def fuse_layer(lp: LayerParams) -> LayerParams:
     """Fuse QKV and gate|up (the expert stacks' too) in one layer: one kernel
-    launch each."""
+    launch each.  Only pair-K linears fuse; split-K ones stay as they are."""
     def fusable(*ls):
-        return all(isinstance(l, QuantLinear) for l in ls)
+        return all(isinstance(l, QuantLinear) and l.layout == "pairk" for l in ls)
 
     rep = {}
     if fusable(lp.wq, lp.wk, lp.wv):

@@ -22,7 +22,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("decode_pairs.cu", "matmul_pk.cu", "matmul_pk_minner.cu", "matmul_pk_w4a8.cu", "flash_attention.cu",
-           "matmul_w8.cu", "dequant_pk.cu")
+           "matmul_w8.cu", "dequant_pk.cu", "dequant_splitk.cu", "matmul_splitk.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -43,6 +43,8 @@ SIGNATURES = {
     "flash_attention.cu": ("pk_flash_attention", [_P] * 7 + [_I] * 6 + [_I64] * 9 + [_F, _F, _I, _I, _I, _P]),
     "matmul_w8.cu": ("pk_matmul_w8", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "dequant_pk.cu": ("pk_dequant_pk", [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P]),
+    "dequant_splitk.cu": ("pk_dequant_splitk", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "matmul_splitk.cu": ("pk_matmul_splitk", [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,17 +1,26 @@
-"""FP4 blockwise format, pair-K layout: the port's copy of the numpy golden.
+"""FP4 blockwise format: the port's copy of the numpy golden.
 
-Counterpart of ``torch_bnb_fp4_tpu/ops/format.py`` restricted to what the
-pair-K serving path needs.  Quantization runs in numpy on the host (it is a
-load-time step); the packers return CPU torch tensors.  The JAX package rounds
-to bf16 with ``ml_dtypes``; this copy rounds with torch, which gives the same
+Counterpart of ``torch_bnb_fp4_tpu/ops/format.py``.  Quantization runs in
+numpy on the host (it is a load-time step).  The JAX package rounds to bf16
+with ``ml_dtypes``; this copy rounds with torch, which gives the same
 round-to-nearest-even result.
 
-Pair-K layout (``pack_tpu_pairk``): the weight W (N_out, K_in) is stored
-transposed, Wt (K, N).  ``packed`` uint8 (K/2, N): byte (i, n) holds the
-RANK-CODED code of Wt[2i, n] in the LOW nibble and of Wt[2i+1, n] in the HIGH
-nibble.  This is neither bnb's flat high-nibble-first order nor the split-K
-layout (hi = row i, lo = row i + K/2).  ``scale`` (K/blocksize, N) =
-absmax/192, so kernels contract x with the integer code values 192*code.
+Pair-K layout (``pack_tpu_pairk``, returns CPU torch tensors): the weight W
+(N_out, K_in) is stored transposed, Wt (K, N).  ``packed`` uint8 (K/2, N):
+byte (i, n) holds the RANK-CODED code of Wt[2i, n] in the LOW nibble and of
+Wt[2i+1, n] in the HIGH nibble.  ``scale`` (K/blocksize, N) = absmax/192, so
+kernels contract x with the integer code values 192*code.
+
+bnb flat layout (``pack_flat``, ``quantize_flat``): 4-bit codes two per byte,
+HIGH nibble first, over the row-major flat weight; one absmax per
+``blocksize`` flat elements.
+
+Split-K layout (``pack_tpu``, ``pack_tpu_sharded``, numpy arrays as in the
+JAX package): ``packed`` uint8 (K/2, N), byte (i, n) = code(Wt[i, n]) << 4 |
+code(Wt[i + K/2, n]); ``absmax`` (K/blocksize, N) holds the TRUE absmax (not
+/192), split into a hi half (rows of Wt [0, K/2)) and a lo half.  Decode is
+``codebook[nibble] * absmax`` in f32, which is bnb's arithmetic bit for bit.
+``k_shards`` > 1 packs K as that many self-contained slices.
 """
 
 from __future__ import annotations
@@ -97,6 +106,100 @@ def quantize_codes(w: np.ndarray, blocksize: int = DEFAULT_BLOCKSIZE, code: np.n
     for m in mids:
         idx += normed > m
     return order[idx].reshape(-1), absmax
+
+
+def pack_flat(codes: np.ndarray) -> np.ndarray:
+    """Pack 4-bit codes two per byte, high nibble first (bnb layout)."""
+    codes = codes.reshape(-1)
+    if codes.size % 2 != 0:
+        raise ValueError("need an even number of codes to pack")
+    hi = codes[0::2].astype(np.uint8)
+    lo = codes[1::2].astype(np.uint8)
+    return ((hi << 4) | (lo & 0xF)).astype(np.uint8)
+
+
+def unpack_flat(packed: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`pack_flat`: uint8 bytes -> 4-bit codes, high first."""
+    packed = packed.reshape(-1)
+    out = np.empty(packed.size * 2, dtype=np.uint8)
+    out[0::2] = packed >> 4
+    out[1::2] = packed & 0xF
+    return out
+
+
+def quantize_flat(w: np.ndarray, blocksize: int = DEFAULT_BLOCKSIZE, code: np.ndarray = FP4_CODE):
+    """bnb-style quantize (the JAX package's ``quantize_fp4``): row-major flat
+    blocks, packed high nibble first.  Returns (packed uint8 (numel/2,),
+    absmax f32 (numel/blocksize,))."""
+    codes, absmax = quantize_codes(w, blocksize, code)
+    return pack_flat(codes), absmax
+
+
+def pack_tpu(w: np.ndarray, blocksize: int = DEFAULT_BLOCKSIZE, code: np.ndarray = FP4_CODE):
+    """Quantize + pack W (N_out, K_in) into the split-K layout.  The absmax
+    grid is bnb's (blocks along K within each row).  Returns (packed uint8
+    (K/2, N), absmax f32 (K/blocksize, N))."""
+    w = np.asarray(w, dtype=np.float32)
+    if w.ndim != 2:
+        raise ValueError("pack_tpu expects a 2-D weight (N_out, K_in)")
+    n_out, k_in = w.shape
+    if k_in % (2 * blocksize) != 0 and k_in % blocksize != 0:
+        raise ValueError(f"K={k_in} must be divisible by blocksize {blocksize}")
+    if k_in % 2 != 0:
+        raise ValueError("K must be even to pack two codes per byte")
+    codes, absmax = quantize_codes(w, blocksize, code)
+    codes_t = codes.reshape(n_out, k_in).T  # (K, N)
+    absmax_t = absmax.reshape(n_out, k_in // blocksize).T  # (K/bs, N)
+    half = k_in // 2
+    packed = ((codes_t[:half].astype(np.uint8) << 4) | (codes_t[half:].astype(np.uint8) & 0xF)).astype(np.uint8)
+    return np.ascontiguousarray(packed), np.ascontiguousarray(absmax_t.astype(np.float32))
+
+
+def unpack_tpu(packed: np.ndarray, absmax: np.ndarray, blocksize: int = DEFAULT_BLOCKSIZE,
+               code: np.ndarray = FP4_CODE) -> np.ndarray:
+    """Golden dequantize of the split-K layout -> Wt float32 (K, N)."""
+    half, n = packed.shape
+    codes_t = np.empty((2 * half, n), dtype=np.uint8)
+    codes_t[:half] = packed >> 4
+    codes_t[half:] = packed & 0xF
+    vals = np.asarray(code, np.float32)[codes_t.astype(np.int64)]
+    return vals * np.repeat(absmax.astype(np.float32), blocksize, axis=0)
+
+
+def pack_tpu_sharded(w: np.ndarray, blocksize: int = DEFAULT_BLOCKSIZE, code: np.ndarray = FP4_CODE,
+                     k_shards: int = 1):
+    """Quantize + pack with K cut into ``k_shards`` contiguous slices, each
+    packed on its own in the split-K layout (the row-parallel layout: shard d
+    holds a self-contained packing of Wt rows [d*K/D, (d+1)*K/D)).  The absmax
+    grid equals the unsharded one.  Returns (packed (K/2, N) uint8, absmax_hi
+    (K/(2*bs), N) f32, absmax_lo (same)), the shards stacked along K."""
+    w = np.asarray(w, dtype=np.float32)
+    n_out, k_in = w.shape
+    if k_in % (k_shards * 2 * blocksize) != 0:
+        raise ValueError(f"K={k_in} must be divisible by k_shards*2*blocksize={k_shards * 2 * blocksize}")
+    k_loc = k_in // k_shards
+    ps, his, los = [], [], []
+    for d in range(k_shards):
+        p, a = pack_tpu(w[:, d * k_loc : (d + 1) * k_loc], blocksize, code)
+        half = a.shape[0] // 2
+        ps.append(p)
+        his.append(a[:half])
+        los.append(a[half:])
+    return (np.ascontiguousarray(np.concatenate(ps, axis=0)), np.ascontiguousarray(np.concatenate(his, axis=0)),
+            np.ascontiguousarray(np.concatenate(los, axis=0)))
+
+
+def unpack_tpu_sharded(packed: np.ndarray, absmax_hi: np.ndarray, absmax_lo: np.ndarray,
+                       blocksize: int = DEFAULT_BLOCKSIZE, code: np.ndarray = FP4_CODE, k_shards: int = 1) -> np.ndarray:
+    """Golden inverse of :func:`pack_tpu_sharded` -> Wt float32 (K, N)."""
+    kp = packed.shape[0]
+    kp_loc = kp // k_shards
+    s_loc = absmax_hi.shape[0] // k_shards
+    parts = []
+    for d in range(k_shards):
+        a = np.concatenate([absmax_hi[d * s_loc : (d + 1) * s_loc], absmax_lo[d * s_loc : (d + 1) * s_loc]], axis=0)
+        parts.append(unpack_tpu(packed[d * kp_loc : (d + 1) * kp_loc], a, blocksize, code))
+    return np.concatenate(parts, axis=0)
 
 
 def pairk_code(variant: str = "exact") -> np.ndarray:

@@ -1,13 +1,13 @@
-"""Pair-K FP4 kernels K1-K6 and K8: CUDA wrappers, plain PyTorch versions,
+"""FP4 kernels K1-K6, K8 and K9a/K9b: CUDA wrappers, plain PyTorch versions,
 launch counts, the M-based path choice of ``matmul_fp4_pk`` and the int8
 prefill shadow.
 
-Counterpart of ``torch_bnb_fp4_tpu/ops/kernels.py`` (pair-K part).  Every
-wrapper takes its kernel's plain version for a tensor on the CPU and launches
-the CUDA kernel (``csrc/``, built by ``_build``) for a CUDA tensor; there is no
-fallback from one to the other.  The plain versions repeat the kernels'
-arithmetic in torch ops and run on any device, so a test can hold a kernel
-against its plain version on the card.
+Counterpart of ``torch_bnb_fp4_tpu/ops/kernels.py``.  Every wrapper takes its
+kernel's plain version for a tensor on the CPU and launches the CUDA kernel
+(``csrc/``, built by ``_build``) for a CUDA tensor; there is no fallback from
+one to the other.  The plain versions repeat the kernels' arithmetic in torch
+ops and run on any device, so a test can hold a kernel against its plain
+version on the card.
 
   K1 decode_pairs       csrc/pairk_decode.cuh (device routine) + decode_pairs.cu
   K2 matmul_pk          csrc/matmul_pk.cu          GEMV / small-M (m-outer)
@@ -16,12 +16,19 @@ against its plain version on the card.
   K5 matmul_w8          csrc/matmul_w8.cu          int8 GEMM over a prefill shadow
   K6 dequantize_tpu_pk  csrc/dequant_pk.cu         pair-K dequantize (Wt = w * s)
   K8 expert=...         the K2/K3/K4 sources       expert e of a stacked (E, K/2, N) packing
+  K9a dequantize_tpu    csrc/dequant_splitk.cu     split-K dequantize (Wt = code * absmax)
+  K9b matmul_fp4        csrc/matmul_splitk.cu      split-K fused dequant-matmul (gemv_fp4: one row)
 
 K8 is the expert form of K2, K3 and K4 (``expert=`` on their wrappers and on
 ``matmul_fp4_pk``): the kernel reads the expert index from device memory and
 offsets the packed, scale and bias pointers itself, so the MoE dispatch never
 reads a routing decision on the host and copies no expert.  Its launches are
 counted under ``<wrapper>_expert``.
+
+K9a/K9b serve the split-K layout (``ops/format.pack_tpu``): high nibble = Wt
+row i, low nibble = row i + K/2, true absmax in hi/lo halves, a 16-entry f32
+codebook (FP4, NF4 or any bnb table) as data.  Their launches are counted
+under ``dequant_splitk`` and ``matmul_splitk``.
 
 Block shapes are constants of the kernels; there is no per-chip table.
 """
@@ -52,7 +59,7 @@ K2_BLOCKS_PER_SM = 4
 # "flash_attention" is K7's, counted by ops/attention.py
 LAUNCHES = {"decode_pairs": 0, "matmul_pk": 0, "matmul_pk_minner": 0, "matmul_pk_w4a8": 0, "flash_attention": 0,
             "matmul_w8": 0, "dequant_pk": 0, "matmul_pk_expert": 0, "matmul_pk_minner_expert": 0,
-            "matmul_pk_w4a8_expert": 0}
+            "matmul_pk_w4a8_expert": 0, "dequant_splitk": 0, "matmul_splitk": 0}
 
 
 def reset_launch_counts() -> None:
@@ -685,3 +692,213 @@ def matmul_w8(x, w8, g, bias=None, *, block_k=1024, out_dtype=None):
     out_dtype = x.dtype if out_dtype is None else out_dtype
     x8, rs = quantize_activations(x, block_k)
     return matmul_w8_int8(x8, rs, w8, g, bias, out_dtype=out_dtype, block_k=block_k)
+
+
+# ---------------------------------------------------------------------------
+# K9a/K9b: the split-K layout (bnb-exact FP4 / NF4, K-sharded packings)
+# ---------------------------------------------------------------------------
+
+# the K multiple an unsharded split-K layer is padded to (the JAX package's K_QUANTUM)
+K_QUANTUM = 1024
+
+
+def _split_absmax(absmax, kp: int, blocksize: int, n: int):
+    """(hi, lo) halves of a split-K absmax, each (kp/blocksize, n): the pair
+    as given, or one (K/blocksize, n) array of ``format.pack_tpu`` cut in two
+    (the JAX package's ``_split_absmax``, with its messages)."""
+    rows = kp // blocksize
+    if isinstance(absmax, (tuple, list)):
+        shi, slo = absmax
+    else:
+        if tuple(absmax.shape) != (2 * rows, n):
+            raise ValueError(f"absmax must be (K/blocksize, N) = {(2 * rows, n)} for blocksize={blocksize}, "
+                             f"got {tuple(absmax.shape)}")
+        shi, slo = absmax[:rows], absmax[rows:]
+    if tuple(shi.shape) != (rows, n) or tuple(slo.shape) != (rows, n):
+        raise ValueError(f"absmax halves must each be {(rows, n)}, got {tuple(shi.shape)} and {tuple(slo.shape)}")
+    return shi, slo
+
+
+@functools.lru_cache(maxsize=64)
+def _table_on(device: torch.device, key: bytes) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(key, np.float32).copy()).to(device)
+
+
+def code_table(codebook, device) -> torch.Tensor:
+    """The (16,) f32 decode table on ``device``: FP4_CODE for ``codebook``
+    None, else the codebook (NF4 or any bnb table).  A numpy table (and the
+    FP4 one) is uploaded once per device and cached; an f32 tensor already on
+    the device is used as it is, so a decode step copies nothing."""
+    device = torch.device(device)
+    if codebook is None:
+        return _table_on(device, fmt.FP4_CODE.tobytes())
+    if torch.is_tensor(codebook):
+        if codebook.numel() != 16:
+            raise ValueError(f"codebook must have 16 entries, got {tuple(codebook.shape)}")
+        return codebook.reshape(16).to(device=device, dtype=torch.float32).contiguous()
+    cb = np.asarray(codebook, np.float32)
+    if cb.size != 16:
+        raise ValueError(f"codebook must have 16 entries, got {cb.shape}")
+    return _table_on(device, np.ascontiguousarray(cb.reshape(16)).tobytes())
+
+
+def _check_decode_impl(decode_impl, codebook) -> None:
+    """The JAX package's ``decode_impl`` contract: "gather" or "arith"
+    (arith is FP4 only).  Both give the table's bits, so the port decodes
+    from the table either way."""
+    if decode_impl not in (None, "gather", "arith"):
+        raise ValueError(f"decode_impl must be 'gather' or 'arith', got {decode_impl!r}")
+    if decode_impl == "arith" and codebook is not None:
+        raise ValueError("arith decode is FP4-only")
+
+
+def _splitk_halves(packed, table, shi, slo, blocksize):
+    """Plain decode: (Wt rows [0, K/2), Wt rows [K/2, K)), each (K/2, N) f32
+    = table[nibble] * absmax of the row's block, one f32 multiply each."""
+    kp, n = packed.shape
+    p = packed.to(torch.int32)
+    out = []
+    for codes, s in ((p >> 4, shi), (p & 0xF, slo)):
+        v = table[codes].reshape(kp // blocksize, blocksize, n)
+        out.append((v * s.float()[:, None, :]).reshape(kp, n))
+    return out
+
+
+def dequantize_splitk_plain(packed, absmax_hi, absmax_lo, table, *, blocksize=64, out_dtype=torch.bfloat16):
+    """Plain K9a: Wt (K, N), hi nibbles in rows [0, K/2) and lo nibbles in
+    [K/2, K), each table[nibble] * absmax in f32, cast once to ``out_dtype``."""
+    hi, lo = _splitk_halves(packed, table, absmax_hi, absmax_lo, blocksize)
+    return torch.cat([hi, lo], dim=0).to(out_dtype)
+
+
+def matmul_splitk_plain(x, packed, absmax_hi, absmax_lo, bias, table, *, blocksize=64, out_dtype):
+    """Plain K9b: the weights as K9a decodes them in f32, rounded once to
+    bf16 for non-f32 ``x``; an f32 matmul of x against them, bias added in
+    f32, one cast to ``out_dtype``."""
+    hi, lo = _splitk_halves(packed, table, absmax_hi, absmax_lo, blocksize)
+    if x.dtype != torch.float32:
+        hi, lo = hi.to(torch.bfloat16).float(), lo.to(torch.bfloat16).float()
+    kp = packed.shape[0]
+    xf = x.float()
+    acc = xf[:, :kp] @ hi + xf[:, kp:] @ lo
+    return _finish(acc, bias, out_dtype)
+
+
+def _check_splitk_cuda(packed, shi, slo, table, blocksize, **tensors) -> None:
+    """What the split-K CUDA kernels assume: blocksize 64, K/2 % 64 == 0,
+    N % 128 == 0, f32 absmax and bias, everything on one device, contiguous
+    and 16-byte aligned."""
+    kp, n = packed.shape
+    if blocksize != 64 or kp % 64:
+        raise ValueError(f"the CUDA split-K kernels take blocksize 64 and K/2 % 64 == 0, got blocksize {blocksize}, "
+                         f"K/2={kp}")
+    if n % 128:
+        raise ValueError(f"the CUDA split-K kernels need N % 128 == 0, got N={n}")
+    if shi.dtype != torch.float32 or slo.dtype != torch.float32:
+        raise ValueError(f"split-K absmax must be float32, got {shi.dtype}, {slo.dtype}")
+    if tensors.get("bias") is not None and tensors["bias"].dtype != torch.float32:
+        raise ValueError(f"bias must be float32, got {tensors['bias'].dtype}")
+    _check_buffers(packed=packed, absmax_hi=shi, absmax_lo=slo, table=table, **tensors)
+
+
+def dequantize_tpu(packed, absmax, codebook=None, *, blocksize=64, out_dtype=torch.bfloat16, decode_impl=None):
+    """K9a: materialize Wt (K, N) from a split-K packing (the JAX package's
+    ``dequantize_tpu``, ops/kernels.py:255).  ``absmax`` is the (hi, lo) pair
+    or one (K/blocksize, N) array; ``codebook`` None (FP4) or a (16,) table.
+    Bit-exact with :func:`dequantize_splitk_plain`."""
+    _check_decode_impl(decode_impl, codebook)
+    if packed.ndim != 2 or packed.dtype != torch.uint8:
+        raise ValueError(f"packed must be 2-D uint8 (K/2, N), got {tuple(packed.shape)} {packed.dtype}")
+    kp, n = packed.shape
+    shi, slo = _split_absmax(absmax, kp, blocksize, n)
+    table = code_table(codebook, packed.device)
+    if not packed.is_cuda:
+        return dequantize_splitk_plain(packed, shi, slo, table, blocksize=blocksize, out_dtype=out_dtype)
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"the CUDA kernel writes f32, bf16 or f16, got {out_dtype}")
+    shi, slo = shi.contiguous(), slo.contiguous()
+    _check_splitk_cuda(packed, shi, slo, table, blocksize)
+    out = torch.empty((2 * kp, n), dtype=out_dtype, device=packed.device)
+    fn = _build.kernel("dequant_splitk.cu")
+    LAUNCHES["dequant_splitk"] += 1
+    _check_status("dequant_splitk", fn(packed.data_ptr(), shi.data_ptr(), slo.data_ptr(), table.data_ptr(),
+                                       out.data_ptr(), _DTYPE_CODE[out_dtype], kp, n, _stream(packed)))
+    return out
+
+
+@functools.lru_cache(maxsize=1024)
+def _splitk_launch(m: int, kp: int, n: int, tensor_cores: bool, sms: int) -> tuple[int, int, int]:
+    """(path, K splits, rows) of a K9b launch.  bf16 x above 8 rows takes the
+    tensor-core GEMM (path 1, no K split, M tile 64 or 128); everything else
+    the CUDA-core stream (path 0): 1, 2, 4 or 8 x rows per block, 512 columns,
+    and the fewest K splits that fill about ``K2_BLOCKS_PER_SM`` blocks on
+    each SM, dividing the K/128 quant-block rows, with the block's x rows (hi
+    and lo halves, f32) inside 48 KB of shared memory.  Memoized: it runs on
+    every decode-step call."""
+    if tensor_cores and m > 8:
+        return 1, 0, _gemm_bm(m, n, sms)
+    rows = 1 if m == 1 else 2 if m == 2 else 4 if m <= 4 else 8
+    nb = kp // 64
+    blocks = -(-n // 512) * -(-m // rows)
+    target = -(-K2_BLOCKS_PER_SM * sms // blocks)
+    for d in range(1, nb + 1):
+        if nb % d == 0 and d >= target and rows * 2 * (kp // d) * 4 <= 48 * 1024:
+            return 0, d, rows
+    return 0, nb, rows
+
+
+def matmul_splitk(x, packed, absmax_hi, absmax_lo, bias, table, *, blocksize=64, out_dtype):
+    """K9b on a compute-dtype ``x`` (f32 or bf16; the CUDA kernel on a CUDA
+    tensor, :func:`matmul_splitk_plain` on a CPU one)."""
+    if not x.is_cuda:
+        return matmul_splitk_plain(x, packed, absmax_hi, absmax_lo, bias, table, blocksize=blocksize,
+                                   out_dtype=out_dtype)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the CUDA kernel takes x in f32 or bf16, got {x.dtype}")
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"the CUDA kernel writes f32, bf16 or f16, got {out_dtype}")
+    _check_splitk_cuda(packed, absmax_hi, absmax_lo, table, blocksize, x=x, bias=bias)
+    m, k = x.shape
+    kp, n = packed.shape
+    path, ksplit, rows = _splitk_launch(m, kp, n, x.dtype == torch.bfloat16, _sm_count(x.device))
+    ws = None if path == 1 else torch.empty((ksplit, m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    fn = _build.kernel("matmul_splitk.cu")
+    LAUNCHES["matmul_splitk"] += 1
+    _check_status("matmul_splitk", fn(
+        x.data_ptr(), _DTYPE_CODE[x.dtype], packed.data_ptr(), absmax_hi.data_ptr(), absmax_lo.data_ptr(),
+        _ptr(bias), table.data_ptr(), _ptr(ws), out.data_ptr(), _DTYPE_CODE[out_dtype], m, k, n, path, ksplit, rows,
+        _stream(x)))
+    return out
+
+
+def matmul_fp4(x, packed, absmax, bias=None, codebook=None, *, blocksize=64, out_dtype=None, decode_impl=None):
+    """Fused split-K dequant-matmul: y[M, N] = x[M, K] @ Wt[K, N] (+ bias)
+    (the JAX package's ``matmul_fp4``, ops/kernels.py:378).  ``packed`` uint8
+    (K/2, N); ``absmax`` the (hi, lo) pair or one (K/blocksize, N) array of
+    TRUE absmax; ``codebook`` None (FP4) or a (16,) table.  x may be f32
+    (true f32 dot), bf16, or f16, which computes in bf16 and returns f16 as
+    in the JAX package; accumulation is f32."""
+    _check_decode_impl(decode_impl, codebook)
+    if packed.ndim != 2 or packed.dtype != torch.uint8:
+        raise ValueError(f"packed must be 2-D uint8 (K/2, N), got {tuple(packed.shape)} {packed.dtype}")
+    kp, n = packed.shape
+    k = 2 * kp
+    if x.ndim != 2 or x.shape[1] != k:
+        raise ValueError(f"x must be (M, K={k}) for packed (K/2={kp}, N={n}), got {tuple(x.shape)}")
+    shi, slo = _split_absmax(absmax, kp, blocksize, n)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    compute_dtype = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
+    x = x.to(compute_dtype).contiguous()
+    table = code_table(codebook, x.device)
+    return matmul_splitk(x, packed, shi.contiguous(), slo.contiguous(), bias, table, blocksize=blocksize,
+                         out_dtype=out_dtype)
+
+
+def gemv_fp4(x, packed, absmax, bias=None, codebook=None, *, blocksize=64, out_dtype=None, decode_impl=None):
+    """Batch-1 route of the split-K layout: one row through K9b (the JAX
+    package's ``gemv_fp4``, :485; the same numbers as ``matmul_fp4``)."""
+    if x.shape[0] != 1:
+        raise ValueError(f"gemv_fp4 is the batch-1 fast path; got x.shape={tuple(x.shape)} (use matmul_fp4)")
+    return matmul_fp4(x, packed, absmax, bias, codebook, blocksize=blocksize, out_dtype=out_dtype,
+                      decode_impl=decode_impl)

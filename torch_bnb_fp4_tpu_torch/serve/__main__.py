@@ -10,7 +10,10 @@ serve the packed bytes and POST token-id prompts (serve/server.py).  Without
 Checkpoints load unfused, as in the JAX package; a Mixtral (mixture-of-
 experts) checkpoint serves the same way, its experts through K8 (with
 --prefill-shadow only the attention linears get shadows, as in the JAX
-package: expert stacks have none).  ``--device`` (default
+package: expert stacks have none).  A split-K checkpoint (bnb-exact FP4/NF4,
+every format-1/2 checkpoint, K-sharded row-parallel entries repacked to one
+shard at load) serves through K9b; --prefill-shadow then skips every split-K
+linear, which keeps K9b for prefill too.  ``--device`` (default
 cuda) is the port's own flag: the server runs on the card unless asked for
 the CPU.  The JAX CLI's other flags are accepted and refused with "not yet
 ported" when set.  Ctrl-C (SIGINT) stops the server and exits 0.

@@ -120,3 +120,20 @@ def dequant_pk_bound_s(k: int, n: int, scale_bytes: int, out_bytes: int) -> tupl
     ((K/64)*N*scale_bytes) read once, Wt (K*N*out_bytes) written once; one
     f32 multiply per weight on the CUDA cores."""
     return bound_s(k * n // 2 + (k // 64) * n * scale_bytes + k * n * out_bytes, k * n, H100_F32_FLOPS)
+
+
+def splitk_matmul_bound_s(m: int, k: int, n: int, *, x_bytes: int, out_bytes: int, bias: bool = False) -> tuple[float, str]:
+    """Bound of one K9b call: the packed weight (K*N/2) and its f32 absmax
+    halves ((K/64)*N*4 = K*N/16) read once, x (``x_bytes`` per element) and
+    the bias read once, the output written once; 2*M*K*N operations at the
+    bf16 tensor-core rate for 16-bit x, at the 67 TFLOP/s CUDA-core rate for
+    f32 x (a true f32 dot)."""
+    nbytes = k * n // 2 + (k // 64) * n * 4 + m * k * x_bytes + (n * 4 if bias else 0) + m * n * out_bytes
+    return bound_s(nbytes, 2 * m * k * n, H100_F32_FLOPS if x_bytes == 4 else H100_BF16_FLOPS)
+
+
+def dequant_splitk_bound_s(k: int, n: int, out_bytes: int) -> tuple[float, str]:
+    """Bound of one K9a call: the packed bytes (K*N/2) and f32 absmax
+    (K*N/16) read once, Wt (K*N*out_bytes) written once; one f32 multiply per
+    weight on the CUDA cores."""
+    return bound_s(k * n // 2 + (k // 64) * n * 4 + k * n * out_bytes, k * n, H100_F32_FLOPS)
