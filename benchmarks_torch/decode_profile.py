@@ -58,7 +58,7 @@ def group(name: str) -> str:
         return "pair-K K4 (w4a8)"
     if "w8_kernel" in name:
         return "K5 int8-shadow GEMM"
-    if "flash_kernel" in name:
+    if "flash_kernel" in name or "flash_combine" in name:
         return "K7 flash attention"
     if "gemm" in name.lower() or "gemv" in name.lower() or "cutlass" in name.lower() or "sm90" in name:
         return "cuBLAS GEMM (attention bmm, lm_head)"

@@ -5,7 +5,9 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. card name and power limit; build every CUDA kernel from csrc/ (nvcc,
-     one process per source, in parallel) and print the build time;
+     one process per source, in parallel) and print the build time; count the
+     warpgroup-MMA instructions in the SASS of the redesigned kernels
+     (cuobjdump -sass: HGMMA in K7, IGMMA in K4/K8) and fail if either is 0;
   2. K1: all 256 bytes x {exact, zramp, ramp, lut(NF4)} through the CUDA test
      kernel vs the plain version, bit-exact; timed on a gate|up-sized matrix;
   3. K2/K3/K4 vs their plain versions at the Mistral-7B fused shapes
@@ -17,14 +19,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      7 serves, K2 at M in {4, 64, 128}, K3 at 160 and K4 at 256; kernel time,
      bound, plain time and a dense bf16 torch.matmul of the same shape as the
      yardstick;
-  3b. K7 (flash attention) vs its plain version with the kernel's blocks,
-     |do| <= 2^-7 * max|o| of each (query, head) row, in five cases: (a) a 256-query Mistral chunk over
-     a 4352-row ring of 6000 positions, (b) a causal 6016-token Mistral
-     prompt, (c) Gemma-2 (D 256, softcap, scale 1/16), (d) TinyLlama at batch
-     2 with mixed valid lengths, (e) blocks whose rows see no key (zeros);
-     kernel time, bound, plain time, the port's dense path and one
-     scaled_dot_product_attention call (the yardstick); then a dense-vs-K7
-     grid of Lq x Lk at the Mistral heads;
+  3b. K7 (flash attention) vs its plain version with the kernel's blocks and
+     key split (ops/attention.py::kernel_split), |do| <= 2^-7 * max|o| of
+     each (query, head) row, in five cases: (a) a 256-query Mistral chunk over
+     a 4352-row ring of 6000 positions (split), (b) a causal 6016-token
+     Mistral prompt (not split), (c) Gemma-2 (D 256, softcap, scale 1/16),
+     (d) TinyLlama at batch 2 with mixed valid lengths, (e) blocks whose rows
+     see no key (zeros); kernel time, bound, plain time, the port's dense
+     path and one scaled_dot_product_attention call (the yardstick, timed by
+     CUDA-graph replay as K7 is, its eager time beside it); then a
+     dense-vs-K7 grid of Lq x Lk at the Mistral heads;
   4. a 2-layer model at full Mistral-7B width from seeded weights, on the
      card (kernels) and on the CPU (plain versions): 300- and 1024-token
      prompts (the 1024 one takes the flash route: K7 on the card, its plain
@@ -426,14 +430,30 @@ def main() -> int:
 
     # -- phase 1: build --------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build_all()
     for src in _build.SOURCES:
         _build.kernel(src)
+    build_dir = _build.build_all()
     print(f"[1] built {len(_build.SOURCES)} CUDA sources in {time.perf_counter() - t0:.1f} s")
     for src, log in _build.build_log.items():
         regs = [ln.split("Used ")[1].split(",")[0] for ln in log.splitlines() if "Used " in ln]
         spills = sum("0 bytes spill" not in ln for ln in log.splitlines() if "spill stores" in ln)
         print(f"    {src}: registers per instantiation {sorted(set(regs))}, instantiations with spills {spills}")
+    # the redesigned kernels must issue warpgroup MMAs: HGMMA (bf16) in K7, IGMMA (int8) in K4/K8
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    gmma = {}
+    for src, op in (("flash_attention.cu", "HGMMA"), ("matmul_pk_w4a8.cu", "IGMMA")):
+        sass = subprocess.run([cuobjdump, "-sass", str(build_dir / (Path(src).stem + ".so"))], capture_output=True,
+                              text=True, check=True).stdout
+        gmma[src] = (op, sum(op in ln for ln in sass.splitlines()))
+    print("[1] warpgroup-MMA instructions in the SASS: " +
+          ", ".join(f"{src} {op} {n}" for src, (op, n) in gmma.items()))
+    for src, (op, n) in gmma.items():
+        check(n > 0, f"{src}: no {op} instruction in its SASS")
+    # K4's setmaxnreg split (consumers 176, producers 80) is met only at 128 registers per thread
+    k4_regs = {v: K.w4a8_kernel_regs(v) for v in fmt.PAIRK_VARIANTS}
+    print(f"[1] K4 registers per thread at launch: {k4_regs} (its setmaxnreg split needs {K.K4_THREAD_REGS})")
+    for v, r in k4_regs.items():
+        check(r == K.K4_THREAD_REGS, f"K4 {v}: launched at {r} registers per thread, not {K.K4_THREAD_REGS}")
 
     kernels_json = []
 
@@ -543,13 +563,30 @@ def main() -> int:
             bnd, by = P.pk_matmul_bound_s(m, k, n, x_bytes=in_bytes, out_bytes=2, a8=kname == "K4")
             print(f"    {kname:6} {sname:11} {m:4} {ms * 1e3:8.1f} {nbytes / (ms * 1e-3) / 1e9:7.0f} "
                   f"{bnd * 1e6:9.1f}  {by:10} {eager_ms * 1e3:8.1f} {plain_ms * 1e3:10.1f} {bf16_ms * 1e3:12.1f}"
-                  f"   {err:.3g}" + (f"   (x{count} per layer)" if count > 1 else ""))
+                  f"   {err:.3g}" + (f"   (x{count} per layer)" if count > 1 else "")
+                  + (f"   grid {-(-m // K.K4_TILE)} x {n // K.K4_TILE} x "
+                     f"{K.w4a8_split(m, k, n, K.a8_block_k(k, torch.float32), K._sm_count(dev))}"
+                     if kname == "K4" else ""))
             for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", nbytes), ("ops", ops),
                            ("bf16_ms", bf16_ms)):
                 tot[key] += count * v
             tot["err"] = max(tot["err"], err)
             del x, packed, scale
         rows[(kname, m, run)] = tot
+    # K4 at K-tiles that are not 1024 rows: with bf16 scales, the whole K of Gemma-2's / Qwen2's 3584-wide
+    # layers and of Qwen2's w_down (18944)
+    for k, n in ((3584, 3584), (18944, 3584)):
+        x, packed, scale = operands(256, k, n, seed=k, copies=1)
+        scale = scale[0].to(torch.bfloat16)
+        bk = K.a8_block_k(k, torch.bfloat16)
+        x8, rs = K.quantize_activations(x, bk)
+        kw = dict(out_dtype=torch.bfloat16, variant="ramp", a8_block_k=bk)
+        y = K.matmul_pk_w4a8(x8, rs, packed[0], scale, **kw).float()
+        y_ref = K.matmul_pk_w4a8_plain(x8, rs, packed[0], scale, **kw).float()
+        ulp = torch.exp2(torch.floor(torch.log2(y_ref.abs().clamp_min(1e-30))) - 7)
+        check(bool(((y - y_ref).abs() <= ulp * 1.0001).all()), f"K4 K={k} a8_block_k={bk}: off by more than one ulp")
+        print(f"[3] K4 at M=256, K={k}, N={n}, bf16 scales (a8_block_k {bk}): within one bf16 ulp of its plain version")
+        del x, packed, scale, x8, rs, y, y_ref
     torch.cuda.empty_cache()
 
     # -- phase 3b: K7 flash attention ----------------------------------------------------
@@ -563,15 +600,17 @@ def main() -> int:
         return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                               attn_mask=mask[:, 0], scale=scale, enable_gqa=True)
 
-    print("[3b] case  us        bound_us  by          plain_ms   dense_us   sdpa_us    max_abs_err  (of max|o|; "
-          "worst |do| / max|o| of its row)")
+    print("[3b] case  us        bound_us  by          plain_ms   dense_us   sdpa_us    sdpa_eager_us  max_abs_err  "
+          "(of max|o|; worst |do| / max|o| of its row)  (us, sdpa_us: CUDA-graph replay)")
     flash_rows = {}
     for case, what, b, lq, lk, hq, hk, d, lens, q_off, window, cap, scale in FLASH_CASES:
         ops = synth_attention(b, lq, lk, hq, hk, d, lens=lens, q_offset=q_off, seed=lq + lk + d, device=dev)
         q, k, v, qpos, valid, kpos = ops
         got = A.flash_attention(*ops, window, scale, cap)
+        split = A.kernel_split(b, lq, lk, hq, hk, K._sm_count(dev), d)
         plain = lambda: A.flash_attention_plain(*ops, window, scale, cap,  # noqa: E731
-                                                block_q=A.kernel_blocks(hq, hk)[0], block_k=A.BLOCK_K)
+                                                block_q=A.kernel_blocks(hq, hk, d)[0], block_k=A.BLOCK_K,
+                                                split=split)
         want = plain()
         torch.cuda.synchronize()
         (err, row_err), ref_max = attention_err(got, want), want.float().abs().max().item()
@@ -584,15 +623,16 @@ def main() -> int:
         plain_ms = timed(plain, rep=2)
         mask = T.attention_mask(qpos, kpos, valid, window)
         dense_ms = timed(lambda: T._attention_chunked(q, k, v, ~mask, scale, cap), rep=3)
-        sdpa_ms = timed(lambda: sdpa(q, k, v, mask, scale), rep=3)
+        sdpa_ms = device_ms(lambda: sdpa(q, k, v, mask, scale), rep=10)  # replayed, as K7 is
+        sdpa_eager_ms = timed(lambda: sdpa(q, k, v, mask, scale), rep=3)
         pairs = P.visible_pairs(qpos, valid, kpos, window)
         bnd, by = P.attention_bound_s(q, k, pairs)
         flash_rows[case] = dict(what=what, ms=ms, plain_ms=plain_ms, dense_ms=dense_ms, library_ms=sdpa_ms,
-                                bound_ms=bnd * 1e3, bound_by=by, max_abs_err=err, row_err=row_err,
-                                pairs=pairs)
+                                library_eager_ms=sdpa_eager_ms, bound_ms=bnd * 1e3, bound_by=by, max_abs_err=err,
+                                row_err=row_err, pairs=pairs, split=split)
         print(f"     ({case})  {ms * 1e3:8.1f} {bnd * 1e6:9.1f}  {by:10} {plain_ms:9.1f} {dense_ms * 1e3:10.1f} "
-              f"{sdpa_ms * 1e3:10.1f}   {err:.3g} ({ref_max:.3g}; {row_err:.3g})   {what}; {pairs} visible pairs, "
-              f"{4 * d * hq * pairs / (ms * 1e-3) / 1e12:.0f} TFLOP/s")
+              f"{sdpa_ms * 1e3:10.1f} {sdpa_eager_ms * 1e3:10.1f}   {err:.3g} ({ref_max:.3g}; {row_err:.3g})   "
+              f"{what}; split {split}; {pairs} visible pairs, {4 * d * hq * pairs / (ms * 1e-3) / 1e12:.0f} TFLOP/s")
         del ops, q, k, v, got, want, mask
     torch.cuda.empty_cache()
     print("[3b] dense-vs-K7 grid at the Mistral heads (32/8, D 128, window 4096; us: dense / K7, dense/K7)")
@@ -1585,7 +1625,7 @@ def main() -> int:
             source="torch_bnb_fp4_tpu_torch/csrc/flash_attention.cu", replaces="torch_bnb_fp4_tpu/ops/attention.py:40",
             launches=counts["flash_attention"], max_abs_err=fr["max_abs_err"], row_err=fr["row_err"], ms=fr["ms"],
             plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"], bound_by=fr["bound_by"], library_ms=fr["library_ms"],
-            dense_path_ms=fr["dense_ms"]))
+            library_eager_ms=fr["library_eager_ms"], dense_path_ms=fr["dense_ms"], split=fr["split"]))
     # only the instances phase 7 runs (unfused; K6 at f32 out); the fused K5/K6 instances of phase 3c are
     # yardsticks that no served run launches, printed above and left out of the table
     for key, tot in shadow_rows.items():

@@ -141,10 +141,11 @@ def test_flash_kernel_blocks_are_the_default():
     """Without block sizes the CPU route uses the CUDA kernel's tiles, so a
     card-vs-CPU comparison sees one key partition."""
     a, o = _case("long_cache")
-    assert A.kernel_blocks(8, 4) == (32, 64) and A.kernel_blocks(32, 8) == (16, 64)
-    assert A.kernel_blocks(16, 16) == (64, 64) and A.kernel_blocks(28, 4) == (9, 64)
+    assert A.kernel_blocks(8, 4) == (64, 64) and A.kernel_blocks(32, 8) == (32, 64)
+    assert A.kernel_blocks(16, 16) == (128, 64) and A.kernel_blocks(28, 4) == (18, 64)
+    assert A.kernel_blocks(16, 8, 256) == (32, 64) and A.kernel_blocks(32, 4, 64) == (16, 64)
     got = A.flash_attention(*_torch_args(a)).float().numpy()
-    want = A.flash_attention_plain(*_torch_args(a), block_q=32, block_k=64).float().numpy()
+    want = A.flash_attention_plain(*_torch_args(a), block_q=64, block_k=64).float().numpy()
     np.testing.assert_array_equal(got, want)
 
 

@@ -129,6 +129,73 @@ def test_k4_vs_plain(dev, k, n, m):
 
 
 @pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["exact", "zramp", "ramp"])
+@pytest.mark.parametrize("n", [1024, 4096, 6144])
+@pytest.mark.parametrize("m", [256, 300, 700, 6016])
+def test_k4_wgmma_vs_plain(dev, m, n, variant, scale_dtype):
+    """The warpgroup-MMA K4 at the M of every prefill bucket and chunk and
+    the N of wk|wv, wq|wo and qkv (split and unsplit grids): one bf16 ulp
+    of its plain version, with a bias and a zero-scale column."""
+    x, packed, scale, bias = _operands(m, 4096, n, dev, seed=m + n, scale_dtype=scale_dtype)
+    scale[:, 5] = 0
+    bk = K.a8_block_k(4096, scale.dtype)
+    x8, rs = K.quantize_activations(x, bk)
+    got = K.matmul_pk_w4a8(x8, rs, packed, scale, bias, out_dtype=torch.bfloat16, variant=variant, a8_block_k=bk)
+    want = K.matmul_pk_w4a8_plain(x8, rs, packed, scale, bias, out_dtype=torch.bfloat16, variant=variant,
+                                  a8_block_k=bk)
+    _ulp_close(got, want)
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [256, 300])
+@pytest.mark.parametrize("k,n", [(3584, 3584), (5632, 2048), (18944, 3584)])
+def test_k4_k_tiles_of_the_other_presets(dev, k, n, m, scale_dtype):
+    """K-tiles that are not 1024 rows: with bf16 scales the K of Gemma-2's and
+    Qwen2's 3584-wide layers, TinyLlama's w_down (5632) and Qwen2's w_down
+    (18944) is one whole K-tile; with f32 scales, 512 rows.  One bf16 ulp of
+    the plain version, with a bias and a zero-scale column."""
+    x, packed, scale, bias = _operands(m, k, n, dev, seed=k + m, scale_dtype=scale_dtype)
+    scale[:, 5] = 0
+    bk = K.a8_block_k(k, scale.dtype)
+    assert bk == (k if scale_dtype == torch.bfloat16 else 512)
+    x8, rs = K.quantize_activations(x, bk)
+    got = K.matmul_pk_w4a8(x8, rs, packed, scale, bias, out_dtype=torch.bfloat16, variant="ramp", a8_block_k=bk)
+    _ulp_close(got, K.matmul_pk_w4a8_plain(x8, rs, packed, scale, bias, out_dtype=torch.bfloat16, variant="ramp",
+                                           a8_block_k=bk))
+
+
+@pytest.mark.parametrize("bk", [128, 384, 1536, 3072])
+def test_k4_any_block_k_of_128_rows(dev, bk):
+    """Any a8_block_k that is a multiple of 128 and divides K, split grids
+    (N 1024 at 256 rows) included: one bf16 ulp of the plain version."""
+    x, packed, scale, bias = _operands(256, 3072, 1024, dev, seed=bk)
+    x8, rs = K.quantize_activations(x, bk)
+    got = K.matmul_pk_w4a8(x8, rs, packed, scale, bias, out_dtype=torch.bfloat16, variant="exact", a8_block_k=bk)
+    _ulp_close(got, K.matmul_pk_w4a8_plain(x8, rs, packed, scale, bias, out_dtype=torch.bfloat16, variant="exact",
+                                           a8_block_k=bk))
+
+
+def test_k4_launches_at_its_register_count(dev):
+    """The setmaxnreg split of K4's warpgroups needs 128 registers per thread."""
+    for variant in ("exact", "zramp", "ramp"):
+        assert K.w4a8_kernel_regs(variant) == K.K4_THREAD_REGS
+
+
+def test_k4_split_is_bit_equal_to_unsplit(dev):
+    """A K-split grid adds the same per-K-tile terms in the same order."""
+    x, packed, scale, bias = _operands(256, 14336, 1024, dev, seed=3)
+    bk = K.a8_block_k(14336, scale.dtype)
+    x8, rs = K.quantize_activations(x, bk)
+    assert K.w4a8_split(256, 14336, 1024, bk, K._sm_count(dev)) > 1
+    got = K.matmul_pk_w4a8(x8, rs, packed, scale, bias, out_dtype=torch.float32, variant="ramp", a8_block_k=bk)
+    rows = torch.cat([x8, torch.zeros((6016 - 256, 14336), dtype=torch.int8, device=dev)])
+    rsp = torch.cat([rs, torch.ones((6016 - 256, rs.shape[1]), device=dev)])
+    assert K.w4a8_split(6016, 14336, 1024, bk, K._sm_count(dev)) == 1
+    whole = K.matmul_pk_w4a8(rows, rsp, packed, scale, bias, out_dtype=torch.float32, variant="ramp", a8_block_k=bk)
+    assert torch.equal(got, whole[:256])
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("variant", ["exact", "zramp", "ramp", "lut"])
 @pytest.mark.parametrize("k,n", [(1024, 384), (14336, 4096)])
@@ -228,6 +295,28 @@ def test_k8_expert_forms(dev, k, n, m, path, bias):
             _close(got, plain(x, packed, scale, b, variant="ramp", expert=idx[e]), 2.0**-7)
 
 
+@pytest.mark.parametrize("k,n", [(4096, 1024), (14336, 4096), (4096, 28672)])
+def test_k8_w4a8_form_bit_equal_with_bias(dev, k, n):
+    """K8's K4 form (split and unsplit grids) with a bias: bit-equal to the
+    2-D kernel on packed[e] and one bf16 ulp of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    packed = torch.randint(0, 256, (4, k // 2, n), generator=g, dtype=torch.uint8, device=dev)
+    scale = (torch.rand((4, k // 64, n), generator=g, device=dev) + 0.5) * (0.01 / 192)
+    b = torch.randn((4, n), generator=g, device=dev)
+    x = torch.randn((256, k), generator=g, device=dev).to(torch.bfloat16)
+    bk = K.a8_block_k(k, scale.dtype)
+    x8, rs = K.quantize_activations(x, bk)
+    idx = torch.arange(4, dtype=torch.int32, device=dev)
+    for e in (1, 3):
+        got = K.matmul_pk_w4a8(x8, rs, packed, scale, b, out_dtype=torch.bfloat16, variant="ramp", a8_block_k=bk,
+                               expert=idx[e])
+        flat = K.matmul_pk_w4a8(x8, rs, packed[e], scale[e], b[e], out_dtype=torch.bfloat16, variant="ramp",
+                                a8_block_k=bk)
+        assert torch.equal(got, flat)
+        _ulp_close(got, K.matmul_pk_w4a8_plain(x8, rs, packed[e], scale[e], b[e], out_dtype=torch.bfloat16,
+                                               variant="ramp", a8_block_k=bk))
+
+
 def test_model_cuda_matches_cpu_tiny(dev):
     from torch_bnb_fp4_tpu_torch.models import transformer as T
 
@@ -300,6 +389,7 @@ def test_moe_decode_step_needs_no_host_sync_and_replays_as_a_graph(dev):
 # D, lens, q_offset, window, softcap, scale)
 FLASH_CASES = {
     "mistral_ring_chunk": (1, 64, 576, 32, 8, 128, 700, None, 512, None, None),
+    "mistral_ring_chunk_b2_ragged": (2, 77, 640, 32, 8, 128, [700, 650], None, 512, None, None),
     "mistral_causal_prompt": (1, 400, 400, 32, 8, 128, 390, 0, 256, None, None),
     "gemma2_softcap": (1, 96, 256, 16, 8, 256, 256, None, 100, 50.0, 1.0 / 16),
     "tinyllama_mixed_lengths": (2, 128, 320, 32, 4, 64, [320, 200], None, None, None, None),
@@ -318,17 +408,44 @@ def test_k7_vs_plain(dev, name):
     before = K.launch_counts()["flash_attention"]
     got = A.flash_attention(*ops, window, scale, cap)
     assert K.launch_counts()["flash_attention"] == before + 1
-    want = A.flash_attention_plain(*ops, window, scale, cap, block_q=A.kernel_blocks(hq, hk)[0],
-                                   block_k=A.BLOCK_K)
+    split = A.kernel_split(b, lq, lk, hq, hk, K._sm_count(dev), d)
+    want = A.flash_attention_plain(*ops, window, scale, cap, block_q=A.kernel_blocks(hq, hk, d)[0],
+                                   block_k=A.BLOCK_K, split=split)
     torch.cuda.synchronize()
-    # each (query, head) row against its own max|o|: rows that see many keys
-    # have small |o| and would hide a dropped key tile under a global scale;
-    # a row that sees no key is exactly 0 on both sides
+    _k7_close(got, want)
+    if name == "rows_see_no_key":  # queries at positions < 0: their rows are exactly 0
+        assert not got[:, :40].any() and got[:, 40:].abs().max() > 0
+
+
+def _k7_close(got, want):
+    """Each (query, head) row against its own max|o|: rows that see many keys
+    have small |o| and would hide a dropped key tile under a global scale; a
+    row that sees no key is exactly 0 on both sides."""
     d = (got.float() - want.float()).abs()
     row = want.float().abs().amax(-1, keepdim=True)
     assert bool((d <= 2.0**-7 * row).all()), (d / row.clamp_min(2.0**-126)).max().item()
-    if name == "rows_see_no_key":  # queries at positions < 0: their rows are exactly 0
-        assert not got[:, :40].any() and got[:, 40:].abs().max() > 0
+
+
+@pytest.mark.parametrize("split", [1, 3])
+@pytest.mark.parametrize("name", list(FLASH_CASES))
+def test_k7_split_vs_plain(dev, name, split):
+    """K7 with a given split (1: one key range; 3: three, merged by the second
+    pass) against its plain version with the same split, on a strided q."""
+    from torch_bnb_fp4_tpu_torch.ops import attention as A
+    from torch_bnb_fp4_tpu_torch.utils.synth import synth_attention
+
+    b, lq, lk, hq, hk, d, lens, q_off, window, cap, scale = FLASH_CASES[name]
+    q, k, v, qpos, valid, kpos = synth_attention(b, lq, lk, hq, hk, d, lens=lens, q_offset=q_off, seed=lq + 7,
+                                                 device=dev)
+    qv = torch.cat([q, torch.zeros_like(q[:, :, :8])], dim=2)[:, :, :hq]  # a head-slice view
+    split = min(split, -(-lk // A.BLOCK_K))
+    got = A._flash_attention(qv, k, v, qpos, valid, kpos, window, scale, cap, split=split)
+    want = A.flash_attention_plain(q, k, v, qpos, valid, kpos, window, scale, cap,
+                                   block_q=A.kernel_blocks(hq, hk, d)[0], block_k=A.BLOCK_K, split=split)
+    torch.cuda.synchronize()
+    _k7_close(got, want)
+    if name == "rows_see_no_key":
+        assert not got[:, :40].any()
 
 
 def test_k7_reads_strided_q(dev):

@@ -39,13 +39,16 @@ SIGNATURES = {
     "matmul_pk.cu": ("pk_matmul_pk", [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P]),
     "matmul_pk_minner.cu": ("pk_matmul_pk_minner", [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
                                                     _P]),
-    "matmul_pk_w4a8.cu": ("pk_matmul_pk_w4a8", [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P]),
-    "flash_attention.cu": ("pk_flash_attention", [_P] * 7 + [_I] * 6 + [_I64] * 9 + [_F, _F, _I, _I, _I, _P]),
+    "matmul_pk_w4a8.cu": ("pk_matmul_pk_w4a8", [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _I,
+                                                _P]),
+    "flash_attention.cu": ("pk_flash_attention", [_P] * 9 + [_I] * 8 + [_I64] * 9 + [_F, _F, _I, _I, _I, _P]),
     "matmul_w8.cu": ("pk_matmul_w8", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "dequant_pk.cu": ("pk_dequant_pk", [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P]),
     "dequant_splitk.cu": ("pk_dequant_splitk", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "matmul_splitk.cu": ("pk_matmul_splitk", [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
+# other C functions a source exports: name -> (source, argtypes)
+QUERIES = {"pk_matmul_pk_w4a8_regs": ("matmul_pk_w4a8.cu", [_I])}
 
 _lock = threading.Lock()
 _funcs: dict[str, ctypes._CFuncPtr] = {}
@@ -107,15 +110,24 @@ def build_all() -> Path:
     return out_dir
 
 
-def kernel(src: str) -> ctypes._CFuncPtr:
-    """The C entry point of ``csrc/<src>``, building on first use."""
+def _load(src: str, name: str, argtypes) -> ctypes._CFuncPtr:
     with _lock:
-        if src not in _funcs:
+        if name not in _funcs:
             out_dir = build_all()
-            name, argtypes = SIGNATURES[src]
-            lib = ctypes.CDLL(str(out_dir / (Path(src).stem + ".so")))
-            fn = getattr(lib, name)
+            fn = getattr(ctypes.CDLL(str(out_dir / (Path(src).stem + ".so"))), name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _funcs[src] = fn
-        return _funcs[src]
+            _funcs[name] = fn
+        return _funcs[name]
+
+
+def kernel(src: str) -> ctypes._CFuncPtr:
+    """The C entry point of ``csrc/<src>``, building on first use."""
+    name, argtypes = SIGNATURES[src]
+    return _load(src, name, argtypes)
+
+
+def query(name: str) -> ctypes._CFuncPtr:
+    """One of the ``QUERIES`` functions, building on first use."""
+    src, argtypes = QUERIES[name]
+    return _load(src, name, argtypes)

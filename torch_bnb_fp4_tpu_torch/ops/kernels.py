@@ -323,6 +323,27 @@ def w4a8_weights_plain(packed, scale, *, blocksize=64, variant, a8_block_k):
     return w8, g * (fmt.PAIRK_VALUE_SCALE / 127.0)
 
 
+def w4a8_weights_table_plain(packed, scale, *, blocksize=64, variant, a8_block_k):
+    """K4's weight decode in torch ops: for each quant block of each column the
+    16 int8 values rint(v_j * f) of the nibbles j = 0..15 (v_j = the K1 value
+    192*code, f = (scale / g) * 127/192 as in :func:`w4a8_weights_plain`),
+    then every nibble looked up in its column's table.  Equals
+    ``w4a8_weights_plain(...)[0]`` byte for byte; the CUDA kernel builds the
+    same tables and maps nibbles with byte permutes."""
+    kp, n = packed.shape
+    k = 2 * kp
+    nk, nsub = k // a8_block_k, a8_block_k // blocksize
+    s = scale.float().reshape(nk, nsub, n)
+    g = s.amax(dim=1)
+    g = torch.where(g == 0.0, torch.ones_like(g), g)
+    f = ((s / g[:, None, :]) * (127.0 / fmt.PAIRK_VALUE_SCALE)).reshape(k // blocksize, 1, n)
+    vals = pairs_weight_tile(torch.arange(16, dtype=torch.uint8, device=packed.device)[None, :], variant)[0]
+    table = torch.round(vals.float()[None, :, None] * f).to(torch.int8)  # (K/64, 16, N)
+    x = packed.to(torch.int64)
+    nib = torch.stack([x & 0xF, x >> 4], dim=1).reshape(k, n)  # row 2i low nibble, 2i+1 high
+    return torch.gather(table, 1, nib.reshape(k // blocksize, blocksize, n)).reshape(k, n)
+
+
 def matmul_pk_w4a8_plain(x8, rs, packed, scale, bias=None, *, blocksize=64, out_dtype, variant, a8_block_k,
                          expert=None):
     """Plain K4: exact per-K-tile integer dots (float64 holds them exactly),
@@ -466,8 +487,39 @@ def matmul_pk_minner(x, packed, scale, bias=None, lut=None, *, blocksize=64, out
     return out
 
 
+K4_TILE = 128  # K4's output tile (M and N) and K rows per stage
+K4_MAX_SPLIT = 4  # K-tile ranges at most
+K4_MAX_BLOCK_K = 1 << 17  # 127 * 127 * a8_block_k stays inside K4's int32 accumulator
+K4_THREAD_REGS = 128  # K4's setmaxnreg split (2 x 128 threads at 176, 2 x 128 at 80) needs this launch count
+
+
+@functools.lru_cache(maxsize=8)
+def w4a8_kernel_regs(variant: str) -> int:
+    """Registers per thread of K4's kernel for ``variant`` on the current
+    card (``cudaFuncGetAttributes``); K4 launches only at ``K4_THREAD_REGS``."""
+    regs = _build.query("pk_matmul_pk_w4a8_regs")(VARIANT_CODE[variant])
+    if regs < 0:
+        raise RuntimeError(f"matmul_pk_w4a8: cudaFuncGetAttributes failed with cudaError {-regs}")
+    return regs
+
+
+@functools.lru_cache(maxsize=1024)
+def w4a8_split(m: int, k: int, n: int, a8_block_k: int, sms: int) -> int:
+    """K-tile ranges K4 takes for this shape on a card with ``sms`` SMs: 1
+    when its 128 x 128 output tiles fill half a wave or more; else the split
+    (at most ``K4_MAX_SPLIT`` and the K-tiles) that minimizes waves x K-tiles
+    per range, the smaller one on a tie.  The ranges' per-K-tile terms are
+    summed in K-tile order by a second pass, so every split is bit-equal."""
+    tiles = -(-m // K4_TILE) * (n // K4_TILE)
+    nk = k // a8_block_k
+    if 2 * tiles > sms:
+        return 1
+    cost = {s: -(-tiles * s // sms) * -(-nk // s) for s in range(1, min(nk, K4_MAX_SPLIT) + 1)}
+    return min(cost, key=lambda s: (cost[s], s))
+
+
 def matmul_pk_w4a8(x8, rs, packed, scale, bias=None, *, blocksize=64, out_dtype, variant, a8_block_k, expert=None):
-    """K4: int8 tensor-core GEMM over pre-quantized activations.  ``expert``:
+    """K4: int8 warpgroup-MMA GEMM over pre-quantized activations.  ``expert``:
     K8, expert e of stacked operands (as :func:`matmul_pk`)."""
     _check_stack(packed, scale, bias, expert)
     e = None if expert is None else expert_index(expert, packed.shape[0], x8.device)
@@ -477,15 +529,22 @@ def matmul_pk_w4a8(x8, rs, packed, scale, bias=None, *, blocksize=64, out_dtype,
     _check_cuda_operands(x8, (torch.int8,), packed, scale, bias, blocksize, rs=rs)
     m, k = x8.shape
     n = packed.shape[-1]
-    if k % a8_block_k or a8_block_k % 64:
-        raise ValueError(f"a8_block_k={a8_block_k} must divide K={k} and be a multiple of 64")
+    if a8_block_k <= 0 or k % a8_block_k or a8_block_k % K4_TILE or a8_block_k > K4_MAX_BLOCK_K:
+        raise ValueError(f"a8_block_k={a8_block_k} must divide K={k}, be a multiple of {K4_TILE} and at most "
+                         f"{K4_MAX_BLOCK_K} for the CUDA kernel")
+    regs = w4a8_kernel_regs(variant)
+    if regs != K4_THREAD_REGS:
+        raise RuntimeError(f"matmul_pk_w4a8: the {variant} kernel was built at {regs} registers per thread; its "
+                           f"setmaxnreg split needs exactly {K4_THREAD_REGS}")
+    split = w4a8_split(m, k, n, a8_block_k, _sm_count(x8.device))
     out = torch.empty((m, n), dtype=out_dtype, device=x8.device)
+    terms = None if split == 1 else torch.empty((k // a8_block_k, m, n), dtype=torch.float32, device=x8.device)
     fn = _build.kernel("matmul_pk_w4a8.cu")
     LAUNCHES["matmul_pk_w4a8" if e is None else "matmul_pk_w4a8_expert"] += 1
     _check_status("matmul_pk_w4a8", fn(
         x8.data_ptr(), rs.data_ptr(), packed.data_ptr(), scale.data_ptr(), _DTYPE_CODE[scale.dtype],
-        _ptr(bias), out.data_ptr(), _DTYPE_CODE[out_dtype], m, k, n, a8_block_k, VARIANT_CODE[variant],
-        _ptr(e), _n_experts(packed, e), _stream(x8)))
+        _ptr(bias), out.data_ptr(), _DTYPE_CODE[out_dtype], _ptr(terms), m, k, n, a8_block_k, split,
+        VARIANT_CODE[variant], _ptr(e), _n_experts(packed, e), _stream(x8)))
     return out
 
 
