@@ -5,9 +5,12 @@
 
 Phases (any failure raises and exits non-zero; nothing is caught):
   1. card name and power limit; build every CUDA kernel from csrc/ (nvcc,
-     one process per source, in parallel) and print the build time; count the
-     warpgroup-MMA instructions in the SASS of the redesigned kernels
-     (cuobjdump -sass: HGMMA in K7, IGMMA in K4/K8) and fail if either is 0;
+     one process per source, in parallel) and print the build time, and each
+     source's registers per instantiation and spills; count the warpgroup-MMA
+     instructions in the SASS of the redesigned kernels (cuobjdump -sass:
+     HGMMA in K7 and in K2/K3 with their K8 forms, IGMMA in K4/K8) and fail
+     if any is 0; K4's registers per thread at launch and K2/K3's dynamic
+     shared memory per block (read from the kernels' own layouts, <= 227 KB);
   2. K1: all 256 bytes x {exact, zramp, ramp, lut(NF4)} through the CUDA test
      kernel vs the plain version, bit-exact; timed on a gate|up-sized matrix;
   3. K2/K3/K4 vs their plain versions at the Mistral-7B fused shapes
@@ -18,7 +21,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (a whole 6000-token prompt) for K4; and at the seven unfused shapes phase
      7 serves, K2 at M in {4, 64, 128}, K3 at 160 and K4 at 256; kernel time,
      bound, plain time and a dense bf16 torch.matmul of the same shape as the
-     yardstick;
+     yardstick, each line with its grid (column tiles x K splits (x M tiles))
+     and launches per call;
   3b. K7 (flash attention) vs its plain version with the kernel's blocks and
      key split (ops/attention.py::kernel_split), |do| <= 2^-7 * max|o| of
      each (query, head) row, in five cases: (a) a 256-query Mistral chunk over
@@ -438,10 +442,12 @@ def main() -> int:
         regs = [ln.split("Used ")[1].split(",")[0] for ln in log.splitlines() if "Used " in ln]
         spills = sum("0 bytes spill" not in ln for ln in log.splitlines() if "spill stores" in ln)
         print(f"    {src}: registers per instantiation {sorted(set(regs))}, instantiations with spills {spills}")
-    # the redesigned kernels must issue warpgroup MMAs: HGMMA (bf16) in K7, IGMMA (int8) in K4/K8
+    # the redesigned kernels must issue warpgroup MMAs: HGMMA (bf16) in K7 and K2/K3 (with their K8 forms),
+    # IGMMA (int8) in K4/K8
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     gmma = {}
-    for src, op in (("flash_attention.cu", "HGMMA"), ("matmul_pk_w4a8.cu", "IGMMA")):
+    for src, op in (("flash_attention.cu", "HGMMA"), ("matmul_pk_w4a8.cu", "IGMMA"), ("matmul_pk.cu", "HGMMA"),
+                    ("matmul_pk_minner.cu", "HGMMA")):
         sass = subprocess.run([cuobjdump, "-sass", str(build_dir / (Path(src).stem + ".so"))], capture_output=True,
                               text=True, check=True).stdout
         gmma[src] = (op, sum(op in ln for ln in sass.splitlines()))
@@ -454,6 +460,11 @@ def main() -> int:
     print(f"[1] K4 registers per thread at launch: {k4_regs} (its setmaxnreg split needs {K.K4_THREAD_REGS})")
     for v, r in k4_regs.items():
         check(r == K.K4_THREAD_REGS, f"K4 {v}: launched at {r} registers per thread, not {K.K4_THREAD_REGS}")
+    # K2/K3's dynamic shared memory, as their kernels lay it out, within the 227 KB a block may take
+    smem = {f"K2 rows {r}": K.pk_tile_smem("K2", r) for r in K.K2_ROWS} | {"K3": K.pk_tile_smem("K3")}
+    print(f"[1] K2/K3 dynamic shared memory per block (bytes): {smem}")
+    for what, b in smem.items():
+        check(0 < b <= 227 * 1024, f"{what}: {b} bytes of shared memory per block")
 
     kernels_json = []
 
@@ -528,6 +539,16 @@ def main() -> int:
 
         return on_copy(fn), on_copy(fn_plain), in_bytes
 
+    def grid_text(kname, m, k, n):
+        """The launch of a K2/K3/K4 instance: its grid and launches per call."""
+        sms = K._sm_count(dev)
+        if kname == "K4":
+            split = K.w4a8_split(m, k, n, K.a8_block_k(k, torch.float32), sms)
+            return f"grid {-(-m // K.K4_TILE)} x {n // K.K4_TILE} x {split}, {1 if split == 1 else 2} launch(es) per call"
+        plan = (K.k2_plan if kname == "K2" else K.k3_plan)(m, k, n, sms)
+        return (f"grid {plan.n_tiles} x {plan.ksplit}" + (f" x {plan.m_tiles}" if plan.m_tiles > 1 else "")
+                + f" ({plan.rows} x {plan.cols} tiles, {k // 64 // plan.ksplit} quant blocks per split), 1 launch per call")
+
     print("[3] kernel  shape        M    us      GB/s    bound_us  by          eager_us   plain_us   bf16_matmul_us"
           "  max_abs_err   (us: CUDA-graph replay; eager_us: back-to-back Python calls)")
     rows = {}
@@ -563,10 +584,7 @@ def main() -> int:
             bnd, by = P.pk_matmul_bound_s(m, k, n, x_bytes=in_bytes, out_bytes=2, a8=kname == "K4")
             print(f"    {kname:6} {sname:11} {m:4} {ms * 1e3:8.1f} {nbytes / (ms * 1e-3) / 1e9:7.0f} "
                   f"{bnd * 1e6:9.1f}  {by:10} {eager_ms * 1e3:8.1f} {plain_ms * 1e3:10.1f} {bf16_ms * 1e3:12.1f}"
-                  f"   {err:.3g}" + (f"   (x{count} per layer)" if count > 1 else "")
-                  + (f"   grid {-(-m // K.K4_TILE)} x {n // K.K4_TILE} x "
-                     f"{K.w4a8_split(m, k, n, K.a8_block_k(k, torch.float32), K._sm_count(dev))}"
-                     if kname == "K4" else ""))
+                  f"   {err:.3g}" + (f"   (x{count} per layer)" if count > 1 else "") + "   " + grid_text(kname, m, k, n))
             for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bytes", nbytes), ("ops", ops),
                            ("bf16_ms", bf16_ms)):
                 tot[key] += count * v
@@ -764,7 +782,7 @@ def main() -> int:
             bnd, by = P.pk_matmul_bound_s(m, k, n, x_bytes=in_bytes, out_bytes=2, a8=kname == "K4")
             print(f"    K8/{kname} {sname:12} {m:6} {ms * 1e3:9.1f} {bnd * 1e6:9.1f}  {by:10} {eager_ms * 1e3:8.1f} "
                   f"{plain_ms * 1e3:10.1f} {bf16_ms * 1e3:14.1f}   {err:.3g}"
-                  + (f"   (x{count} per expert)" if count > 1 else ""))
+                  + (f"   (x{count} per expert)" if count > 1 else "") + "   " + grid_text(kname, m, k, n))
             for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound", bnd), ("bf16_ms", bf16_ms)):
                 tot[key] += count * v
             tot["by"][by] = tot["by"].get(by, 0.0) + count * bnd
@@ -1605,13 +1623,17 @@ def main() -> int:
                     "whole": (l_whole, "phase 6 whole-prompt run"),
                     "served": (launches7, "phase 7's shadowed replay: load, attach, serve"),
                     "unshadowed": (launches7_plain, "phase 7's unshadowed replay")}
+    def redesigned(kname):
+        return " [redesigned for the warpgroup MMA]" if kname in ("K2", "K3") else ""
+
     for (kname, m, run), tot in rows.items():
         wrapper, src, line = meta[kname]
         counts, run_name = run_launches[run]
         bnd, by = P.bound_s(tot["bytes"], tot["ops"], P.H100_INT8_OPS if kname == "K4" else P.H100_BF16_FLOPS)
         matmuls = "7 unfused" if run in UNFUSED_RUNS else "4 fused"
         kernels_json.append(dict(
-            name=f"{kname} {wrapper} (M={m}, the {matmuls} matmuls of one Mistral-7B layer; launches of {run_name})",
+            name=f"{kname} {wrapper} (M={m}, the {matmuls} matmuls of one Mistral-7B layer; launches of {run_name})"
+                 + redesigned(kname),
             route="cuda", source=f"torch_bnb_fp4_tpu_torch/csrc/{src}",
             replaces=f"torch_bnb_fp4_tpu/ops/kernels.py:{line}", launches=counts[wrapper], max_abs_err=tot["err"],
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=bnd * 1e3, bound_by=by, library_ms=None,
@@ -1657,7 +1679,7 @@ def main() -> int:
         shapes = "unfused gate, up and down" if run == "moe_served" else "fused gate|up and down"
         kernels_json.append(dict(
             name=f"K8 {kname} form {wrapper} (M={m}, the {shapes} matmuls of one expert of a Mixtral-8x7B layer, "
-                 f"the index in device memory; launches of {run_name})",
+                 f"the index in device memory; launches of {run_name})" + redesigned(kname),
             route="cuda", source=f"torch_bnb_fp4_tpu_torch/csrc/{src}",
             replaces=f"torch_bnb_fp4_tpu/ops/kernels.py:{line}", launches=counts[wrapper], max_abs_err=tot["err"],
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound"] * 1e3,

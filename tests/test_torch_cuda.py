@@ -9,7 +9,7 @@ machine with an H100:
 (--noconftest skips tests/conftest.py, which configures JAX; the port and
 these tests need no JAX.)
 
-Tolerances as in tests/test_torch_kernels.py: K1 bit-exact; bf16 outputs
+Tolerances as in tests/test_torch_kernels.py: K1 bit-exact; bf16 (and f16) outputs
 |dy| <= 2^-7 * max|y_plain|; f32 |dy| <= 1e-5 * max|y_plain|; K4 at most one
 bf16 ulp per element (its int8 dots are exact on both sides), and K5 the same
 (f32 out within 1e-6 of max|y|).  K8 (the expert forms of K2-K4) bit-equal
@@ -74,7 +74,7 @@ def test_k1_bit_exact(dev, variant):
 
 
 @pytest.mark.parametrize("variant", ["exact", "ramp"])
-@pytest.mark.parametrize("m", [1, 3, 8, 16, 32, 128])
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 17, 32, 64, 128])
 @pytest.mark.parametrize("k,n", [(4096, 6144), (14336, 4096)])
 def test_k2_vs_plain(dev, k, n, m, variant):
     x, packed, scale, bias = _operands(m, k, n, dev, seed=m)
@@ -97,7 +97,7 @@ def test_k2_lut(dev):
            K.matmul_pk_plain(x, packed, scale, None, lut, variant="lut"), 2.0**-7)
 
 
-@pytest.mark.parametrize("m", [160, 224, 600])
+@pytest.mark.parametrize("m", [129, 160, 200, 224, 255, 600])
 @pytest.mark.parametrize("k,n", [(4096, 28672), (14336, 4096)])
 def test_k3_vs_plain(dev, k, n, m):
     x, packed, scale, bias = _operands(m, k, n, dev, seed=m)
@@ -113,6 +113,102 @@ def test_k3_f32_and_lut(dev):
     xb = x.to(torch.bfloat16)
     _close(K.matmul_pk_minner(xb, packed, scale, None, lut, variant="lut"),
            K.matmul_pk_minner_plain(xb, packed, scale, None, lut, variant="lut"), 2.0**-7)
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["zramp", "lut"])
+@pytest.mark.parametrize("k,n", [(5632, 2048), (2048, 5632), (3584, 3584), (18944, 3584), (1024, 384)])
+def test_k2_k3_other_widths(dev, k, n, variant, scale_dtype):
+    """TinyLlama (5632), Qwen2 (3584, 18944) and a ragged last column tile (N
+    = 384 against K2's 256-column tiles): K2 at M 1 and 64, K3 at 200, bf16
+    scales and the lut variant, with a bias."""
+    lut = K.make_pairk_lut(np.linspace(-1.0, 1.0, 16, dtype=np.float32), dev) if variant == "lut" else None
+    for m, fn, plain in ((1, K.matmul_pk, K.matmul_pk_plain), (64, K.matmul_pk, K.matmul_pk_plain),
+                         (200, K.matmul_pk_minner, K.matmul_pk_minner_plain)):
+        x, packed, scale, bias = _operands(m, k, n, dev, seed=m + k, scale_dtype=scale_dtype)
+        _close(fn(x, packed, scale, bias, lut, variant=variant),
+               plain(x, packed, scale, bias, lut, variant=variant), 2.0**-7)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("m", [1, 8, 128, 160])
+def test_k2_k3_out_dtypes_and_splits(dev, m, out_dtype):
+    """f32 and f16 outputs through the unsplit epilogue (gate|up) and the
+    in-kernel split merge (o: K2 at 8-16 splits, K3 at 8)."""
+    fn, plain = (K.matmul_pk, K.matmul_pk_plain) if m <= 128 else (K.matmul_pk_minner, K.matmul_pk_minner_plain)
+    for k, n in ((4096, 4096), (4096, 28672)):
+        x, packed, scale, bias = _operands(m, k, n, dev, seed=m + n)
+        got = fn(x, packed, scale, bias, variant="ramp", out_dtype=out_dtype)
+        assert got.dtype == out_dtype
+        _close(got, plain(x, packed, scale, bias, variant="ramp", out_dtype=out_dtype),
+               1e-5 if out_dtype == torch.float32 else 2.0**-7)
+
+
+@pytest.mark.parametrize("m", [1, 64])
+def test_k2_graph_replay_equals_eager_twice(dev, m):
+    """A K2 call with a K split (its tile counters re-armed by the kernel)
+    replayed from a CUDA graph twice in a row equals the eager call, which
+    equals itself; K3 likewise at 200 rows."""
+    for m_, fn in ((m, K.matmul_pk), (200, K.matmul_pk_minner)):
+        x, packed, scale, bias = _operands(m_, 4096, 4096, dev, seed=m_)
+        plan = (K.k2_plan if fn is K.matmul_pk else K.k3_plan)(m_, 4096, 4096, K._sm_count(dev))
+        assert plan.ksplit > 1
+        eager = fn(x, packed, scale, bias, variant="ramp")
+        assert torch.equal(fn(x, packed, scale, bias, variant="ramp"), eager)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(x, packed, scale, bias, variant="ramp")
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(x, packed, scale, bias, variant="ramp")
+        for _ in range(2):
+            out.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
+        assert torch.equal(fn(x, packed, scale, bias, variant="ramp"), eager)
+
+
+def test_k2_k3_splits_on_two_streams_at_once(dev):
+    """Split K2 and K3 calls issued on two streams at once, twenty rounds
+    each, equal the eager calls: each stream merges its splits behind tile
+    counters of its own."""
+    ops = []
+    for m, fn in ((1, K.matmul_pk), (64, K.matmul_pk), (200, K.matmul_pk_minner)):
+        x, packed, scale, bias = _operands(m, 4096, 4096, dev, seed=m)
+        plan = (K.k2_plan if fn is K.matmul_pk else K.k3_plan)(m, 4096, 4096, K._sm_count(dev))
+        assert plan.ksplit > 1
+        ops.append((fn, (x, packed, scale, bias), fn(x, packed, scale, bias, variant="ramp")))
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    outs = ([], [])
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(20):
+        for s, got in zip(streams, outs):
+            with torch.cuda.stream(s):
+                got += [fn(*args, variant="ramp") for fn, args, _ in ops]
+    counters = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            counters.append(K._split_counters(dev))
+        torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    assert counters[0].data_ptr() != counters[1].data_ptr()
+    assert not counters[0].any() and not counters[1].any()  # every tile's last block re-armed its counter
+    for got in outs:
+        for i, y in enumerate(got):
+            assert torch.equal(y, ops[i % len(ops)][2])
+
+
+def test_k2_k3_shared_memory_fits(dev):
+    """K2's bf16 kernel at every row bucket and K3's, as their kernels lay
+    out shared memory, take at most the 227 KB a block may have."""
+    for rows in K.K2_ROWS:
+        assert 0 < K.pk_tile_smem("K2", rows) <= 227 * 1024
+    assert 0 < K.pk_tile_smem("K3") <= 227 * 1024
+    assert K.pk_tile_smem("K2", 12) < 0  # no such bucket
 
 
 @pytest.mark.parametrize("m", [256, 320, 700])
@@ -261,7 +357,8 @@ def test_k5_f16_input_through_the_shadow_route(dev):
 
 
 @pytest.mark.parametrize("bias", [False, True])
-@pytest.mark.parametrize("m,path", [(1, "mouter"), (8, "mouter"), (128, "mouter"), (160, "minner"), (256, "w4a8")])
+@pytest.mark.parametrize("m,path", [(1, "mouter"), (8, "mouter"), (64, "mouter"), (128, "mouter"), (160, "minner"),
+                                    (256, "w4a8")])
 @pytest.mark.parametrize("k,n", [(4096, 28672), (14336, 4096)])
 def test_k8_expert_forms(dev, k, n, m, path, bias):
     """K8: the expert form of K2/K3/K4 on a stacked packing of 8 experts,

@@ -113,4 +113,33 @@ __device__ __forceinline__ void store_out4(void* out, int out_dtype, size_t i, c
       make_uint2(h[0] | (static_cast<uint32_t>(h[1]) << 16), h[2] | (static_cast<uint32_t>(h[3]) << 16));
 }
 
+// The ordered merge of a K-split launch (K2, K3): every block of split
+// blockIdx.y has written its f32 partial of the output tile rows [m0, m1) x
+// columns [n0, n1) to ws (ksplit, M, N); the last block of the tile to arrive
+// on ``counter`` (the tile's int32 in device memory, 0 at entry) sums the
+// partials in split order, ((ws_0 + ws_1) + ...) + bias, writes the output
+// and sets the counter back to 0 for the next launch.  Which block is last
+// does not change the sums, so the result is deterministic; the host resets
+// nothing, so the launch replays from a CUDA graph.  Called by every thread
+// of the block; ``ticket`` is one int of shared memory.
+__device__ __forceinline__ void merge_splits(const float* ws, const float* bias, void* out, int out_dtype, int M, int N,
+                                             int ksplit, int m0, int m1, int n0, int n1, int* counter, int* ticket) {
+  __threadfence();  // this thread's partials reach L2 before the block's arrival
+  __syncthreads();
+  if (threadIdx.x == 0) *ticket = atomicAdd(counter, 1);
+  __syncthreads();
+  if (*ticket != ksplit - 1) return;
+  __threadfence();
+  const int w = n1 - n0, cnt = (m1 - m0) * w;
+  const size_t mn = static_cast<size_t>(M) * N;
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+    const size_t o = static_cast<size_t>(m0 + i / w) * N + n0 + i % w;
+    float v = __ldcg(ws + o);  // L2: the other blocks' partials never sat in this SM's L1
+    for (int s = 1; s < ksplit; ++s) v = __fadd_rn(v, __ldcg(ws + s * mn + o));
+    if (bias != nullptr) v = __fadd_rn(v, bias[n0 + i % w]);
+    store_out(out, out_dtype, o, v);
+  }
+  if (threadIdx.x == 0) *counter = 0;
+}
+
 }  // namespace pk

@@ -36,9 +36,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "decode_pairs.cu": ("pk_decode_pairs", [_P, _P, _I64, _I, _P, _P]),
     # K2-K4 end in (expert index pointer or None, n_experts, stream): the K8 forms
-    "matmul_pk.cu": ("pk_matmul_pk", [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P]),
-    "matmul_pk_minner.cu": ("pk_matmul_pk_minner", [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
-                                                    _P]),
+    "matmul_pk.cu": ("pk_matmul_pk", [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I,
+                                      _P]),
+    "matmul_pk_minner.cu": ("pk_matmul_pk_minner", [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                                    _P, _I, _P]),
     "matmul_pk_w4a8.cu": ("pk_matmul_pk_w4a8", [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _I,
                                                 _P]),
     "flash_attention.cu": ("pk_flash_attention", [_P] * 9 + [_I] * 8 + [_I64] * 9 + [_F, _F, _I, _I, _I, _P]),
@@ -48,7 +49,8 @@ SIGNATURES = {
     "matmul_splitk.cu": ("pk_matmul_splitk", [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 # other C functions a source exports: name -> (source, argtypes)
-QUERIES = {"pk_matmul_pk_w4a8_regs": ("matmul_pk_w4a8.cu", [_I])}
+QUERIES = {"pk_matmul_pk_w4a8_regs": ("matmul_pk_w4a8.cu", [_I]), "pk_matmul_pk_smem": ("matmul_pk.cu", [_I]),
+           "pk_matmul_pk_minner_smem": ("matmul_pk_minner.cu", [])}
 
 _lock = threading.Lock()
 _funcs: dict[str, ctypes._CFuncPtr] = {}

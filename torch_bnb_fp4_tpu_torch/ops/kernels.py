@@ -10,8 +10,8 @@ ops and run on any device, so a test can hold a kernel against its plain
 version on the card.
 
   K1 decode_pairs       csrc/pairk_decode.cuh (device routine) + decode_pairs.cu
-  K2 matmul_pk          csrc/matmul_pk.cu          GEMV / small-M (m-outer)
-  K3 matmul_pk_minner   csrc/matmul_pk_minner.cu   decode-once GEMM (m-inner)
+  K2 matmul_pk          csrc/matmul_pk.cu          GEMV / small-M (m-outer), bf16 wgmma
+  K3 matmul_pk_minner   csrc/matmul_pk_minner.cu   decode-once GEMM (m-inner), bf16 wgmma
   K4 matmul_pk_w4a8     csrc/matmul_pk_w4a8.cu     int8 tensor-core GEMM
   K5 matmul_w8          csrc/matmul_w8.cu          int8 GEMM over a prefill shadow
   K6 dequantize_tpu_pk  csrc/dequant_pk.cu         pair-K dequantize (Wt = w * s)
@@ -30,12 +30,15 @@ row i, low nibble = row i + K/2, true absmax in hi/lo halves, a 16-entry f32
 codebook (FP4, NF4 or any bnb table) as data.  Their launches are counted
 under ``dequant_splitk`` and ``matmul_splitk``.
 
-Block shapes are constants of the kernels; there is no per-chip table.
+Block shapes are constants of the kernels; there is no per-chip table.  The
+launch plans of K2 and K3 (``k2_plan``, ``k3_plan``: tile, K split, shared
+memory) are pure Python, so the CPU tests hold them.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,10 +53,16 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # JAX package's a8_min_m, ops/kernels.py:127-139); activation K-tile request
 A8_MIN_M = 256
 A8_BLOCK_K = 1024
-# K2 splits K until the grid holds about this many blocks per SM
-# (benchmarks_torch/k2_sweep.py on an H100: 4 is best for the tensor-core
-# kernel at M = 1 and 8 over the four Mistral-7B shapes)
+# K2's f32-x kernel (and K9b's stream) split K until the grid holds about this
+# many blocks per SM (swept on an H100: 4 was best at M = 1 and 8 over the four
+# Mistral-7B shapes)
 K2_BLOCKS_PER_SM = 4
+# K2/K3 (bf16 x, warpgroup MMA): the x rows of a K2 block (the n of its wgmma),
+# the fewest quant blocks a K split keeps, and the int32 counters of the
+# in-kernel split merge (one per output tile)
+K2_ROWS = (8, 16, 32, 64, 128)
+SPLIT_MIN_BLOCKS = 4
+SPLIT_COUNTERS = 8192
 
 # launches per wrapper: each CUDA launch adds one (plain CPU calls do not);
 # "flash_attention" is K7's, counted by ops/attention.py
@@ -261,20 +270,34 @@ def _finish(acc: torch.Tensor, bias: torch.Tensor | None, out_dtype: torch.dtype
     return acc.to(out_dtype)
 
 
-def matmul_pk_plain(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant, expert=None):
+def matmul_pk_plain(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant, expert=None,
+                    ksplit=1):
     """Plain K2: per quant block b, part_b = x_b . (192*code)_b in f32, then
     acc = sum_b part_b * scale[b] (the TPU kernel's order, :680-691).  With
-    ``expert`` (K8), the operands are stacked and expert e's are used."""
+    ``expert`` (K8), the operands are stacked and expert e's are used.
+    ``ksplit`` > 1 follows the kernel's K split: each of the contiguous
+    ranges of quant blocks accumulates acc = acc + part * scale in block order
+    from 0, and the ranges' partials are summed in range order."""
     if expert is not None:
         packed, scale, bias = select_expert(expert, packed, scale, bias)
     out_dtype = x.dtype if out_dtype is None else out_dtype
     m, k = x.shape
     n = packed.shape[1]
     nb = k // blocksize
+    if nb % ksplit:
+        raise ValueError(f"ksplit={ksplit} must divide the {nb} quant blocks")
     w = pairs_weight_tile(packed, variant, lut).float().reshape(nb, blocksize, n)
     xb = x.float().reshape(m, nb, blocksize).transpose(0, 1)  # (nb, m, bs)
-    part = torch.bmm(xb, w)  # (nb, m, n) f32
-    acc = (part * scale.float()[:, None, :]).sum(0)
+    terms = torch.bmm(xb, w) * scale.float()[:, None, :]  # (nb, m, n) f32: part_b * scale[b]
+    if ksplit == 1:
+        return _finish(terms.sum(0), bias, out_dtype)
+    terms = terms.reshape(ksplit, nb // ksplit, m, n)
+    ws = terms[:, 0]
+    for b in range(1, nb // ksplit):  # every range at once, block by block
+        ws = ws + terms[:, b]
+    acc = ws[0]
+    for r in range(1, ksplit):
+        acc = acc + ws[r]
     return _finish(acc, bias, out_dtype)
 
 
@@ -286,13 +309,27 @@ def matmul_pk_minner_plain(x, packed, scale, bias=None, lut=None, *, blocksize=6
     if expert is not None:
         packed, scale, bias = select_expert(expert, packed, scale, bias)
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    w = pairs_weight_tile(packed, variant, lut)  # (K, N) bf16
-    s = scale.float().repeat_interleave(blocksize, dim=0)
     if x.dtype == torch.float32:
-        wt = w.float() * s
+        wt = pairs_weight_tile(packed, variant, lut).float() * scale.float().repeat_interleave(blocksize, dim=0)
     else:
-        wt = (w.float() * s.to(torch.bfloat16).float()).to(torch.bfloat16).float()
+        wt = minner_weights_plain(packed, scale, lut, blocksize=blocksize, variant=variant).float()
     return _finish(x.float() @ wt, bias, out_dtype)
+
+
+def minner_weights_plain(packed, scale, lut=None, *, blocksize=64, variant):
+    """K3's weight tile the way its producer warpgroup builds it: each packed
+    byte decoded (K1) to a word of two bf16 values, the pair multiplied in
+    bf16 by the column's bf16(scale) duplicated into both halves (one __hmul2:
+    the exact product of two bf16 values rounded once), the two halves landing
+    in rows 2i and 2i+1.  (K, N) bf16, equal byte for byte to
+    ``pairs_weight_tile(...) * bf16(scale)`` rounded to bf16 (the TPU
+    kernel's prescale, :726-729)."""
+    kp, n = packed.shape
+    table = decode_pairs_plain(torch.arange(256, device=packed.device).to(torch.uint8), variant, lut)
+    words = table[packed.to(torch.int64)]  # (K/2, N) int32: K1 of each byte
+    pairs = words.view(torch.bfloat16).reshape(kp, n, 2)  # little-endian: [..., 0] is row 2i
+    s2 = scale.float().to(torch.bfloat16).repeat_interleave(blocksize // 2, dim=0)  # (K/2, N)
+    return (pairs * s2[:, :, None]).transpose(1, 2).reshape(2 * kp, n)
 
 
 def quantize_activations(x: torch.Tensor, block_k: int):
@@ -401,33 +438,110 @@ def _check_cuda_operands(x, x_dtypes, packed, scale, bias, blocksize, **extra):
         raise ValueError("rs must be float32")
 
 
+class TilePlan(NamedTuple):
+    """The launch of a K2/K3 warpgroup-MMA kernel: ``rows`` x ``cols`` output
+    tile per block (rows: every x row up to the tile), ``ksplit`` contiguous
+    ranges of quant blocks and the grid (n_tiles, ksplit, m_tiles)."""
+
+    rows: int
+    cols: int
+    ksplit: int
+    m_tiles: int
+    n_tiles: int
+
+
+def fill_split(tiles: int, nb: int, sms: int, most: int | None = None) -> int:
+    """K splits of a grid of ``tiles`` output tiles over ``nb`` quant blocks:
+    the most (at most ``most``) that divide nb, keep at least
+    SPLIT_MIN_BLOCKS quant blocks per split and keep the grid within one wave
+    of ``sms`` blocks (one block per SM); 1 where the tiles alone fill the
+    wave.  A second, partial wave cost more than the deeper split saved in
+    every case swept on the H100 (``benchmarks_torch/hopper_bench.py``)."""
+    ok = [d for d in range(1, nb + 1) if nb % d == 0 and nb // d >= min(SPLIT_MIN_BLOCKS, nb) and tiles * d <= sms
+          and (most is None or d <= most)]
+    return ok[-1] if ok else 1
+
+
 @functools.lru_cache(maxsize=1024)
-def _k2_launch(m: int, k: int, n: int, tensor_cores: bool, sms: int, blocks_per_sm: int) -> tuple[int, int]:
-    """(x rows per block, K splits) for K2.  Tensor cores (bf16 x) take 8, 16
-    or 32 rows and 256 columns per block, CUDA cores (f32 x) 1-8 rows and 512
-    columns.  K splits: the fewest that fill about ``blocks_per_sm`` blocks on
-    each of the ``sms`` SMs, dividing the K/64 quant blocks, with the staged x
-    chunk inside 48 KB of shared memory.  Memoized: it runs on every
-    decode-step call."""
-    if tensor_cores:
-        rows, cols = (8 if m <= 8 else 16 if m <= 16 else 32), 256
-    else:
-        rows, cols = (1 if m == 1 else 2 if m == 2 else 4 if m <= 4 else 8), 512
+def k2_plan(m: int, k: int, n: int, sms: int) -> TilePlan:
+    """K2 with bf16 x (csrc/matmul_pk.cu, Cfg): one block takes every row of x
+    (rows = M rounded up to 8, 16, 32, 64 or 128; 128-row M tiles above),
+    four consumer warpgroups of 64 columns up to 64 rows, two at 128.  The
+    split's f32 partials (written and read back: 8 M N bytes a split) move at
+    most the packed weights' K N / 2 bytes: d <= K / (16 M).  Memoized: it
+    runs on every decode-step call."""
+    rows = next((r for r in K2_ROWS if r >= m), K2_ROWS[-1])
+    cols = 256 if rows <= 64 else 128
+    n_tiles, m_tiles = -(-n // cols), -(-m // 128)
+    split = fill_split(n_tiles * m_tiles, k // 64, sms, max(1, k // (16 * m)))
+    return TilePlan(rows, cols, split, m_tiles, n_tiles)
+
+
+@functools.lru_cache(maxsize=1024)
+def k3_plan(m: int, k: int, n: int, sms: int) -> TilePlan:
+    """K3 with bf16 x (csrc/matmul_pk_minner.cu): 256 x 128 output tiles (one
+    block covers all M <= 256 rows), four consumer warpgroups and a producer
+    warpgroup."""
+    n_tiles, m_tiles = n // 128, -(-m // 256)
+    return TilePlan(256, 128, fill_split(n_tiles * m_tiles, k // 64, sms), m_tiles, n_tiles)
+
+
+def pk_tile_smem(kname: str, rows: int = 256) -> int:
+    """Dynamic shared memory per block of K2's bf16 kernel at ``rows`` x rows
+    (``kname`` "K2") or of K3's ("K3"), as the kernel's own layout sets it
+    (``Cfg<rows>::SMEM``, ``kSmem``); builds the kernels on first use."""
+    if kname == "K2":
+        return _build.query("pk_matmul_pk_smem")(rows)
+    return _build.query("pk_matmul_pk_minner_smem")()
+
+
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _split_counters(device: torch.device) -> torch.Tensor:
+    """The int32 tile counters of the K2/K3 split merge on ``device``'s
+    current stream, made once per stream, all 0.  Each launch's last block
+    per tile sets its counter back to 0, so the launches of one stream, which
+    never overlap, share them, and a CUDA graph replays them.  Launches on
+    another stream take counters of their own: two splits running at once on
+    one set would mix their tickets.  A graph keeps the counters of the
+    stream it was captured on (made by the capture if it is that stream's
+    first split): replay such graphs one at a time."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    if key not in _counters:
+        _counters[key] = torch.zeros(SPLIT_COUNTERS, dtype=torch.int32, device=device)
+    return _counters[key]
+
+
+@functools.lru_cache(maxsize=1024)
+def _k2_f32_launch(m: int, k: int, n: int, sms: int) -> tuple[int, int]:
+    """(x rows per block, K splits) for K2's f32-x kernel: 1-8 rows and 512
+    columns per block, and the fewest K splits that fill about
+    K2_BLOCKS_PER_SM blocks on each SM, dividing the K/64 quant blocks, with
+    the staged x chunk inside 48 KB of shared memory."""
+    rows = 1 if m == 1 else 2 if m == 2 else 4 if m <= 4 else 8
     nb = k // 64
-    blocks = -(-n // cols) * -(-m // rows)
-    target = -(-blocks_per_sm * sms // blocks)
+    target = -(-K2_BLOCKS_PER_SM * sms // (-(-n // 512) * -(-m // rows)))
     for d in range(1, nb + 1):
-        kchunk = k // d
-        smem = rows * (kchunk + 8) * 2 if tensor_cores else rows * kchunk * 4
-        if nb % d == 0 and d >= target and smem <= 48 * 1024:
+        if nb % d == 0 and d >= target and rows * (k // d) * 4 <= 48 * 1024:
             return rows, d
     return rows, nb
 
 
+def _split_buffers(plan: TilePlan, m: int, n: int, device):
+    """(workspace, counters) of a split launch, (None, None) unsplit."""
+    if plan.ksplit == 1:
+        return None, None
+    if plan.n_tiles * plan.m_tiles > SPLIT_COUNTERS:
+        raise ValueError(f"{plan.n_tiles * plan.m_tiles} output tiles exceed the {SPLIT_COUNTERS} split counters")
+    return torch.empty((plan.ksplit, m, n), dtype=torch.float32, device=device), _split_counters(device)
+
+
 def matmul_pk(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant, expert=None):
-    """K2: y = x . Wt + bias, the GEMV / small-M kernel (bf16 x on tensor
-    cores, f32 x on CUDA cores).  ``expert`` (an int or a one-element int32
-    tensor on x's device): K8, expert e of stacked operands."""
+    """K2: y = x . Wt + bias, the GEMV / small-M kernel (bf16 x on the
+    warpgroup MMA, f32 x on CUDA cores).  ``expert`` (an int or a one-element
+    int32 tensor on x's device): K8, expert e of stacked operands."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     _check_stack(packed, scale, bias, expert)
     e = None if expert is None else expert_index(expert, packed.shape[0], x.device)
@@ -435,24 +549,31 @@ def matmul_pk(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=
         return matmul_pk_plain(x, packed, scale, bias, lut, blocksize=blocksize, out_dtype=out_dtype, variant=variant,
                                expert=e)
     _check_cuda_operands(x, (torch.float32, torch.bfloat16), packed, scale, bias, blocksize, lut=lut)
-    return _launch_matmul_pk(x, packed, scale, bias, lut, out_dtype, variant, K2_BLOCKS_PER_SM, e)
+    return _launch_matmul_pk(x, packed, scale, bias, lut, out_dtype, variant, e)
 
 
-def _launch_matmul_pk(x, packed, scale, bias, lut, out_dtype, variant, blocks_per_sm: int, expert=None):
+def _launch_matmul_pk(x, packed, scale, bias, lut, out_dtype, variant, expert=None, ksplit=None):
     """Launch K2 (K8 with an ``expert_index`` tensor) on checked CUDA
-    operands with a K-split occupancy target (``benchmarks_torch/k2_sweep.py``
-    sweeps it; the wrapper passes ``K2_BLOCKS_PER_SM``)."""
+    operands, with ``k2_plan``'s K split or (bf16 x; the split sweep of
+    ``benchmarks_torch/hopper_bench.py``) a given one."""
     m, k = x.shape
     n = packed.shape[-1]
-    rows, ksplit = _k2_launch(m, k, n, x.dtype == torch.bfloat16, _sm_count(x.device), blocks_per_sm)
-    ws = torch.empty((ksplit, m, n), dtype=torch.float32, device=x.device)
+    if x.dtype == torch.bfloat16:
+        plan = k2_plan(m, k, n, _sm_count(x.device))
+        if ksplit is not None:
+            plan = plan._replace(ksplit=ksplit)
+        rows, split = plan.rows, plan.ksplit
+        ws, counters = _split_buffers(plan, m, n, x.device)
+    else:
+        rows, split = _k2_f32_launch(m, k, n, _sm_count(x.device))
+        ws, counters = torch.empty((split, m, n), dtype=torch.float32, device=x.device), None
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     fn = _build.kernel("matmul_pk.cu")
     LAUNCHES["matmul_pk" if expert is None else "matmul_pk_expert"] += 1
     _check_status("matmul_pk", fn(
         x.data_ptr(), _DTYPE_CODE[x.dtype], packed.data_ptr(), scale.data_ptr(), _DTYPE_CODE[scale.dtype],
-        _ptr(bias), _ptr(lut), ws.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype],
-        m, k, n, ksplit, rows, VARIANT_CODE[variant], _ptr(expert), _n_experts(packed, expert), _stream(x)))
+        _ptr(bias), _ptr(lut), _ptr(ws), _ptr(counters), out.data_ptr(), _DTYPE_CODE[out_dtype],
+        m, k, n, split, rows, VARIANT_CODE[variant], _ptr(expert), _n_experts(packed, expert), _stream(x)))
     return out
 
 
@@ -461,13 +582,15 @@ def _n_experts(packed, expert) -> int:
 
 
 def _gemm_bm(m: int, n: int, sms: int) -> int:
-    """M tile of K3/K4: 128 unless that leaves most of the ``sms`` SMs idle."""
+    """M tile of K9b's tensor-core GEMM: 128 unless that leaves most of the
+    ``sms`` SMs idle."""
     return 128 if (n // 128) * -(-m // 128) >= sms else 64
 
 
 def matmul_pk_minner(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant, expert=None):
-    """K3: decode-once GEMM; bf16 x on tensor cores, f32 x on CUDA cores.
-    ``expert``: K8, expert e of stacked operands (as :func:`matmul_pk`)."""
+    """K3: decode-once GEMM; bf16 x on the warpgroup MMA (``k3_plan``), f32 x
+    on CUDA cores.  ``expert``: K8, expert e of stacked operands (as
+    :func:`matmul_pk`)."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
     _check_stack(packed, scale, bias, expert)
     e = None if expert is None else expert_index(expert, packed.shape[0], x.device)
@@ -477,12 +600,17 @@ def matmul_pk_minner(x, packed, scale, bias=None, lut=None, *, blocksize=64, out
     _check_cuda_operands(x, (torch.float32, torch.bfloat16), packed, scale, bias, blocksize, lut=lut)
     m, k = x.shape
     n = packed.shape[-1]
+    split, ws, counters = 1, None, None
+    if x.dtype == torch.bfloat16:
+        plan = k3_plan(m, k, n, _sm_count(x.device))
+        split = plan.ksplit
+        ws, counters = _split_buffers(plan, m, n, x.device)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     fn = _build.kernel("matmul_pk_minner.cu")
     LAUNCHES["matmul_pk_minner" if e is None else "matmul_pk_minner_expert"] += 1
     _check_status("matmul_pk_minner", fn(
         x.data_ptr(), _DTYPE_CODE[x.dtype], packed.data_ptr(), scale.data_ptr(), _DTYPE_CODE[scale.dtype],
-        _ptr(bias), _ptr(lut), out.data_ptr(), _DTYPE_CODE[out_dtype], m, k, n, _gemm_bm(m, n, _sm_count(x.device)),
+        _ptr(bias), _ptr(lut), _ptr(ws), _ptr(counters), out.data_ptr(), _DTYPE_CODE[out_dtype], m, k, n, split,
         VARIANT_CODE[variant], _ptr(e), _n_experts(packed, e), _stream(x)))
     return out
 
