@@ -58,6 +58,8 @@ def group(name: str) -> str:
         return "pair-K K4 (w4a8)"
     if "w8_kernel" in name:
         return "K5 int8-shadow GEMM"
+    if "combine_terms" in name:
+        return "K4/K5 K-split combine"
     if "flash_kernel" in name or "flash_combine" in name:
         return "K7 flash attention"
     if "gemm" in name.lower() or "gemv" in name.lower() or "cutlass" in name.lower() or "sm90" in name:

@@ -11,7 +11,11 @@ CUDA-graph replay (as chip_smoke.py times them):
     of a stack of 8; weights cycle through enough copies to exceed the 50 MB
     L2, as in a decode step that reads every layer once.  Then K2's K split
     swept at the fused and unfused shapes (the knob of
-    ops/kernels.py::k2_plan).
+    ops/kernels.py::k2_plan);
+  * K5 (csrc/matmul_w8.cu) at phase 3c's instances and K9b
+    (csrc/matmul_splitk.cu, bf16 x) at phase 3e's, per Mistral-7B layer,
+    weights cycled likewise; then K9b's K split swept at each unfused shape
+    (the knob of ops/kernels.py::k9b_plan).
 
     python3 benchmarks_torch/hopper_bench.py [--root DIR]
 
@@ -122,6 +126,58 @@ def bench_pk(cases, K, P, dev, sweep):
             del x, packed, scale
 
 
+def bench_k5_k9b(cases, K, P, dev):
+    print("K5 instance (shapes, M) / K9b instance (M, run)   ms per layer (graph)")
+    for kind, m in cases.K5_INSTANCES:
+        ms = 0.0
+        for _, k, n, count in cases.UNFUSED_SHAPES if kind == "unfused" else cases.FUSED_SHAPES:
+            copies = max(1, math.ceil(2.5 * L2_BYTES / (k * n)))
+            x, packed, scale = _operands(m, k, n, copies, dev)
+            shadows = [K.make_int8_shadow(p, s, variant="ramp", block_k=1024) for p, s in zip(packed, scale)]
+            del packed, scale
+            x8, rs = K.quantize_activations(x, 1024)
+            ms += count * P.time_graph(_cycled(lambda i: K.matmul_w8_int8(
+                x8, rs, shadows[i][0], shadows[i][1], out_dtype=torch.bfloat16, block_k=1024), copies),
+                rep=30 if m <= 256 else 5) * 1e3
+            del x, x8, rs, shadows
+            torch.cuda.empty_cache()
+        print(f"  K5 {kind:8} M={m:<5} {ms:10.4f}")
+    # phase 3e's instances: bf16 x at SPLITK_INSTANCES' M, f32 x (the CUDA-core stream) at 1 and 64
+    for m, run, x_dtype in ([(m, run, torch.bfloat16) for m, run in cases.SPLITK_INSTANCES]
+                            + [(1, "f32 x", torch.float32), (64, "f32 x", torch.float32)]):
+        ms = 0.0
+        for _, k, n, count in cases.UNFUSED_SHAPES:
+            copies = max(1, math.ceil(2.5 * L2_BYTES / (k * n // 2 + (k // 64) * n * 4)))
+            x, packed, scale = _operands(m, k, n, copies, dev)
+            x = x.to(x_dtype)
+            halves = [(s[: k // 128], s[k // 128:]) for s in scale]  # absmax of each half's 64-row blocks
+            ms += count * P.time_graph(_cycled(lambda i: K.matmul_fp4(x, packed[i], halves[i]), copies),
+                                       rep=100 if m < 64 else 30) * 1e3
+            del x, packed, scale, halves
+        print(f"  K9b M={m:<4} {run:11} {ms:10.4f}")
+    torch.cuda.empty_cache()
+
+
+def sweep_k9b(cases, K, P, dev):
+    print("K9b K split sweep: us per call at each split dividing K/128 with >= 2 stages of 64 packed rows "
+          "(* k9b_plan's)")
+    for m, _ in cases.SPLITK_INSTANCES:
+        for sname, k, n, _ in cases.UNFUSED_SHAPES:
+            copies = max(1, math.ceil(2.5 * L2_BYTES / (k * n // 2 + (k // 64) * n * 4)))
+            x, packed, scale = _operands(m, k, n, copies, dev)
+            halves = [(s[: k // 128], s[k // 128:]) for s in scale]
+            tab = K.code_table(None, dev)
+            nb = k // 128
+            chosen = K.k9b_plan(m, k, n, K._sm_count(dev)).ksplit
+            cells = []
+            for s in (d for d in range(1, nb + 1) if nb % d == 0 and 2 * (nb // d) >= K.SPLIT_MIN_BLOCKS and d <= 32):
+                us = P.time_graph(_cycled(lambda i, s=s: K._launch_matmul_splitk(
+                    x, packed[i], *halves[i], None, tab, torch.bfloat16, 1, ksplit=s), copies), rep=30) * 1e6
+                cells.append(f"{s}:{us:.1f}{'*' if s == chosen else ''}")
+            print(f"  M={m:<4} {sname:12} " + " ".join(cells))
+            del x, packed, scale, halves
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("hopper_bench: needs a CUDA device", file=sys.stderr)
@@ -147,6 +203,9 @@ def main() -> int:
     sweep = root == REPO
     bench_k7(cases, A, K, P, synth_attention, dev, sweep)
     bench_pk(cases, K, P, dev, sweep)
+    bench_k5_k9b(cases, K, P, dev)
+    if sweep:
+        sweep_k9b(cases, K, P, dev)
     return 0
 
 

@@ -8,9 +8,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      one process per source, in parallel) and print the build time, and each
      source's registers per instantiation and spills; count the warpgroup-MMA
      instructions in the SASS of the redesigned kernels (cuobjdump -sass:
-     HGMMA in K7 and in K2/K3 with their K8 forms, IGMMA in K4/K8) and fail
-     if any is 0; K4's registers per thread at launch and K2/K3's dynamic
-     shared memory per block (read from the kernels' own layouts, <= 227 KB);
+     HGMMA in K7, in K2/K3 with their K8 forms and in K9b, IGMMA in K4/K8 and
+     K5) and fail if any is 0; K4's and K5's registers per thread at launch
+     and K2/K3's and K9b's dynamic shared memory per block (read from the
+     kernels' own layouts, <= 227 KB);
   2. K1: all 256 bytes x {exact, zramp, ramp, lut(NF4)} through the CUDA test
      kernel vs the plain version, bit-exact; timed on a gate|up-sized matrix;
   3. K2/K3/K4 vs their plain versions at the Mistral-7B fused shapes
@@ -60,7 +61,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      version, one bf16 ulp, on the fused shapes at M = 256 and 6016 and on the
      seven unfused shapes the CLI serves at M = 256; kernel time, bound, plain
      time, a dense bf16 torch.matmul and (K5) one torch._int_mm of the same
-     int8 product as yardsticks;
+     int8 product as yardsticks; each line with its grid and launches per
+     call;
   7. the served prefill-shadow path: the 32-layer Mistral-7B geometry
      (unfused) written as a packed checkpoint under build/, then served by
      ``python -m torch_bnb_fp4_tpu_torch.serve --ckpt DIR --prefill-shadow
@@ -98,8 +100,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and NF4 tables: K9a bit-exact at f32 and bf16 out; K9b with bf16 x at M
      in {1, 4, 64, 128, 256} (|dy| <= 2^-7 max|y|), f32 x at M in {1, 64}
      (1e-5), f16 x bit-equal to the bf16 call with f16 out; a k_shards=4
-     w_down through apply_linear against its k_shards=1 packing; kernel time,
-     bound, plain time and a dense bf16 torch.matmul yardstick;
+     w_down through apply_linear (x read in place) against its k_shards=1
+     packing; kernel time, bound, plain time and a dense bf16 torch.matmul
+     yardstick, each bf16 line with its grid and launches per call;
   9. the split-K path on the Mistral-7B geometry: (a) synth_params(layout=
      "splitk", tp=4) at full width and depth (wo/w_down K-sharded, unfused)
      served by the Engine (max_batch 4, max_len 2048, chunk 256) with prompts
@@ -157,6 +160,9 @@ PK_INSTANCES = (("K2", 1, "main"), ("K2", 8, "main"), ("K2", 32, "main"), ("K2",
                 ("K4", 256, "ring"), ("K4", 6016, "whole"), ("K2", 4, "served"), ("K2", 64, "served"),
                 ("K2", 128, "served"), ("K3", 160, "served"), ("K4", 256, "unshadowed"))
 UNFUSED_RUNS = ("served", "unshadowed")
+# phase 3c: K5's (shapes, M): the fused shapes at a 256-row chunk and a whole 6000-token prompt (off the
+# served path), the unfused shapes the CLI serves with shadows at 256
+K5_INSTANCES = (("fused", 256), ("fused", 6016), ("unfused", 256))
 # phases 3d and 8: Mixtral-8x7B's experts (name, K, N, matmuls per expert): gate|up fused as the engine
 # serves synth_params(fuse=True), unfused as the CLI loads a checkpoint
 MOE_EXPERTS = 8
@@ -442,12 +448,12 @@ def main() -> int:
         regs = [ln.split("Used ")[1].split(",")[0] for ln in log.splitlines() if "Used " in ln]
         spills = sum("0 bytes spill" not in ln for ln in log.splitlines() if "spill stores" in ln)
         print(f"    {src}: registers per instantiation {sorted(set(regs))}, instantiations with spills {spills}")
-    # the redesigned kernels must issue warpgroup MMAs: HGMMA (bf16) in K7 and K2/K3 (with their K8 forms),
-    # IGMMA (int8) in K4/K8
+    # the redesigned kernels must issue warpgroup MMAs: HGMMA (bf16) in K7, K2/K3 (with their K8 forms) and K9b,
+    # IGMMA (int8) in K4/K8 and K5
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     gmma = {}
     for src, op in (("flash_attention.cu", "HGMMA"), ("matmul_pk_w4a8.cu", "IGMMA"), ("matmul_pk.cu", "HGMMA"),
-                    ("matmul_pk_minner.cu", "HGMMA")):
+                    ("matmul_pk_minner.cu", "HGMMA"), ("matmul_w8.cu", "IGMMA"), ("matmul_splitk.cu", "HGMMA")):
         sass = subprocess.run([cuobjdump, "-sass", str(build_dir / (Path(src).stem + ".so"))], capture_output=True,
                               text=True, check=True).stdout
         gmma[src] = (op, sum(op in ln for ln in sass.splitlines()))
@@ -455,14 +461,18 @@ def main() -> int:
           ", ".join(f"{src} {op} {n}" for src, (op, n) in gmma.items()))
     for src, (op, n) in gmma.items():
         check(n > 0, f"{src}: no {op} instruction in its SASS")
-    # K4's setmaxnreg split (consumers 176, producers 80) is met only at 128 registers per thread
-    k4_regs = {v: K.w4a8_kernel_regs(v) for v in fmt.PAIRK_VARIANTS}
-    print(f"[1] K4 registers per thread at launch: {k4_regs} (its setmaxnreg split needs {K.K4_THREAD_REGS})")
+    # the setmaxnreg split of K4's and K5's loop (consumers 176, producers 80) is met only at 128 registers per
+    # thread
+    k4_regs = {v: K.w4a8_kernel_regs(v) for v in fmt.PAIRK_VARIANTS} | {"w8": K.w8_kernel_regs()}
+    print(f"[1] K4 (variants) and K5 (w8) registers per thread at launch: {k4_regs} (their setmaxnreg split needs "
+          f"{K.K4_THREAD_REGS})")
     for v, r in k4_regs.items():
-        check(r == K.K4_THREAD_REGS, f"K4 {v}: launched at {r} registers per thread, not {K.K4_THREAD_REGS}")
-    # K2/K3's dynamic shared memory, as their kernels lay it out, within the 227 KB a block may take
-    smem = {f"K2 rows {r}": K.pk_tile_smem("K2", r) for r in K.K2_ROWS} | {"K3": K.pk_tile_smem("K3")}
-    print(f"[1] K2/K3 dynamic shared memory per block (bytes): {smem}")
+        check(r == K.K4_THREAD_REGS, f"K4/K5 {v}: launched at {r} registers per thread, not {K.K4_THREAD_REGS}")
+    # K2/K3's and K9b's dynamic shared memory, as their kernels lay it out, within the 227 KB a block may take
+    smem = ({f"K2 rows {r}": K.pk_tile_smem("K2", r) for r in K.K2_ROWS} | {"K3": K.pk_tile_smem("K3")}
+            | {f"K9b rows {r} cols {c}": K.splitk_tile_smem(r, c) for r in K.K9B_ROWS for c in (128, 256)}
+            | {"K9b rows 128": K.splitk_tile_smem(128)})
+    print(f"[1] K2/K3/K9b dynamic shared memory per block (bytes): {smem}")
     for what, b in smem.items():
         check(0 < b <= 227 * 1024, f"{what}: {b} bytes of shared memory per block")
 
@@ -701,8 +711,8 @@ def main() -> int:
             del packed, scale
             torch.cuda.empty_cache()
         shadow_rows[("K6", kind, oname)] = tot
-    k5_instances = (("fused", 256, FUSED_SHAPES), ("fused", 6016, FUSED_SHAPES), ("unfused", 256, UNFUSED_SHAPES))
-    for kind, m, shapes in k5_instances:
+    for kind, m in K5_INSTANCES:
+        shapes = UNFUSED_SHAPES if kind == "unfused" else FUSED_SHAPES
         tot = dict(ms=0.0, plain_ms=0.0, bound=0.0, by={}, err=0.0, bf16_ms=0.0, int_mm_ms=0.0)
         for sname, k, n, count in shapes:
             bk = 1024
@@ -732,8 +742,10 @@ def main() -> int:
                   for _ in range(max(1, math.ceil(2.5 * L2_BYTES / (2 * k * n))))]
             bf16_ms = device_ms(cycler(lambda i, x=x, wd=wd: torch.matmul(x, wd[i])), len(wd), rep=rep)
             bnd, by = P.matmul_w8_bound_s(m, k, n, bk, 2)
+            split = K.w4a8_split(m, k, n, bk, K._sm_count(dev))
             print(f"    K5     bf16  {sname:12} {m:6} {ms * 1e3:9.1f} {bnd * 1e6:9.1f}  {by:10} {plain_ms:9.2f}   "
-                  f"{bf16_ms * 1e3:14.1f} {int_mm_ms * 1e3:10.1f}   {err:.3g}" + (f"   (x{count} per layer)" if count > 1 else ""))
+                  f"{bf16_ms * 1e3:14.1f} {int_mm_ms * 1e3:10.1f}   {err:.3g}" + (f"   (x{count} per layer)" if count > 1 else "")
+                  + f"   grid {-(-m // K.K4_TILE)} x {n // K.K4_TILE} x {split}, {1 if split == 1 else 2} launch(es) per call")
             for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound", bnd), ("bf16_ms", bf16_ms),
                            ("int_mm_ms", int_mm_ms)):
                 tot[key] += count * v
@@ -860,8 +872,15 @@ def main() -> int:
             xb = x.element_size()
             bnd, by = P.splitk_matmul_bound_s(m, k, n, x_bytes=xb, out_bytes=xb)
             xname = "bf16" if x_dtype == torch.bfloat16 else "f32"
+            if x_dtype == torch.bfloat16:
+                plan = K.k9b_plan(m, k, n, K._sm_count(dev))
+                grid = (f"   grid {plan.n_tiles} x {plan.ksplit}" + (f" x {plan.m_tiles}" if plan.m_tiles > 1 else "")
+                        + f" ({'large' if plan.rows == 128 else 'small'} kernel, {plan.rows} x {plan.cols} tiles, "
+                          f"{k // 128 // plan.ksplit} stages of 64 packed rows per split), 1 launch per call")
+            else:
+                grid = "   CUDA-core stream and its split reduction, 2 launches per call"
             print(f"    K9b    {xname:4}/{xname:4} {sname:9} {m:6} {ms * 1e3:9.1f} {bnd * 1e6:9.1f}  {by:10} "
-                  f"{plain_ms * 1e3:9.1f}   {bf16_ms * 1e3:14.1f}   {err:.3g}{sfx}")
+                  f"{plain_ms * 1e3:9.1f}   {bf16_ms * 1e3:14.1f}   {err:.3g}{sfx}{grid}")
             add(("K9b", xname, m), count, ms=ms, plain_ms=plain_ms, bound=bnd, by=by, bf16_ms=bf16_ms, err=err)
             del x
         if sname == "wk|wv":  # f16 x computes in bf16 (the JAX contract): bit-equal to the bf16 call with f16 out
@@ -889,8 +908,8 @@ def main() -> int:
         d = (y4.float() - y1.float()).abs().max().item()
         check(d <= 2.0**-7 * y1.float().abs().max().item(), f"K9b k_shards=4 w_down at M={m}: err {d}")
         worst = max(worst, d / y1.float().abs().max().item())
-    print(f"    K9b    w_down k_shards=4 through apply_linear = its k_shards=1 packing: dequantize bit-equal, "
-          f"M 1/4/64/256 within {worst:.3g} of max|y| (bf16 output rounding and f32 order)")
+    print(f"    K9b    w_down k_shards=4 through apply_linear (x read in place) = its k_shards=1 packing: dequantize "
+          f"bit-equal, M 1/4/64/256 within {worst:.3g} of max|y| (bf16 output rounding and f32 order)")
     del packed, halves, q1, q4, p4, h4, l4
     torch.cuda.empty_cache()
 
@@ -1624,7 +1643,7 @@ def main() -> int:
                     "served": (launches7, "phase 7's shadowed replay: load, attach, serve"),
                     "unshadowed": (launches7_plain, "phase 7's unshadowed replay")}
     def redesigned(kname):
-        return " [redesigned for the warpgroup MMA]" if kname in ("K2", "K3") else ""
+        return " [redesigned for the warpgroup MMA]" if kname in ("K2", "K3", "K5", "K9b") else ""
 
     for (kname, m, run), tot in rows.items():
         wrapper, src, line = meta[kname]
@@ -1659,7 +1678,7 @@ def main() -> int:
             wrapper, src, line = "dequant_pk", "dequant_pk.cu", 1329
         else:
             name = (f"K5 matmul_w8 (M={key[2]}, the 7 unfused matmuls of one Mistral-7B layer; launches of "
-                    f"phase 7's shadowed replay)")
+                    f"phase 7's shadowed replay)" + redesigned("K5"))
             wrapper, src, line = "matmul_w8", "matmul_w8.cu", 813
         kernels_json.append(dict(
             name=name, route="cuda", source=f"torch_bnb_fp4_tpu_torch/csrc/{src}",
@@ -1693,7 +1712,7 @@ def main() -> int:
     for m, run in SPLITK_INSTANCES:
         counts, run_name = run_launches[run]
         k9.append(("K9b", ("K9b", "bf16", m), f"matmul_fp4 (bf16 x, M={m}, the 7 unfused matmuls of one split-K "
-                                               f"Mistral-7B layer; launches of {run_name})",
+                                               f"Mistral-7B layer; launches of {run_name})" + redesigned("K9b"),
                    counts["matmul_splitk"], "matmul_splitk.cu", 322))
     for kname, key, what, n_launch, src, line in k9:
         tot = splitk_rows[key]

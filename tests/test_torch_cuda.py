@@ -342,6 +342,99 @@ def test_k5_vs_plain(dev, m, k, n, bk, out_dtype, bias):
         _ulp_close(got, want)
 
 
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (1, 255, 256, 300) for k, n in ((4096, 1024), (4096, 6144),
+                                                                                     (14336, 4096))]
+                         + [(6016, 4096, 1024), (6016, 4096, 6144)])
+def test_k5_wgmma_vs_plain(dev, m, k, n):
+    """The warpgroup-MMA K5 within one bf16 ulp of its plain version, any M
+    (tail tiles masked), on the K-split grids of N = 1024 / 4096 up to 300
+    rows and the unsplit ones."""
+    x, packed, scale, b = _operands(m, k, n, dev, seed=m + n)
+    w8, g = K.make_int8_shadow(packed, scale, variant="ramp", block_k=1024)
+    x8, rs = K.quantize_activations(x, 1024)
+    split = K.w4a8_split(m, k, n, 1024, K._sm_count(dev))
+    got = K.matmul_w8_int8(x8, rs, w8, g, b, out_dtype=torch.bfloat16, block_k=1024)
+    _ulp_close(got, K.matmul_w8_plain(x8, rs, w8, g, b, out_dtype=torch.bfloat16, block_k=1024, split=split))
+
+
+def test_k5_launches_at_its_register_count(dev):
+    """K5 shares K4's setmaxnreg split, which needs 128 registers per thread."""
+    assert K.w8_kernel_regs() == K.K4_THREAD_REGS
+
+
+def _graph_equals_eager_twice(fn):
+    eager = fn()
+    assert torch.equal(fn(), eager)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert torch.equal(fn(), eager)
+
+
+def _k5_k9b_split_calls(dev):
+    """A split K5 call (wk/wv at 256 rows) and split K9b calls (small and large kernels) as closures."""
+    from torch_bnb_fp4_tpu_torch.ops import format as fmt
+
+    calls = []
+    x, packed, scale, b = _operands(256, 4096, 1024, dev, seed=1)
+    w8, g = K.make_int8_shadow(packed, scale, variant="ramp", block_k=1024)
+    x8, rs = K.quantize_activations(x, 1024)
+    assert K.w4a8_split(256, 4096, 1024, 1024, K._sm_count(dev)) > 1
+    calls.append(lambda: K.matmul_w8_int8(x8, rs, w8, g, b, out_dtype=torch.bfloat16, block_k=1024))
+    for m in (1, 64, 200):
+        xs, ps, hi, lo, bs = _splitk_operands(m, 4096, 1024, dev, seed=m)
+        assert K.k9b_plan(m, 4096, 1024, K._sm_count(dev)).ksplit > 1
+        calls.append(lambda xs=xs, ps=ps, hi=hi, lo=lo, bs=bs: K.matmul_fp4(xs, ps, (hi, lo), bs, fmt.NF4_CODE))
+    return calls
+
+
+def test_k5_k9b_graph_replay_equals_eager_twice(dev):
+    """Split K5 and K9b calls replayed from a CUDA graph twice equal the eager call (K9b's tile counters are
+    re-armed by the kernel)."""
+    for fn in _k5_k9b_split_calls(dev):
+        _graph_equals_eager_twice(fn)
+
+
+def test_k5_k9b_splits_on_two_streams_at_once(dev):
+    """Split K5 and K9b calls issued on two streams at once, ten rounds each, equal the eager calls."""
+    calls = _k5_k9b_split_calls(dev)
+    eager = [fn() for fn in calls]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    outs = ([], [])
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(10):
+        for s, got in zip(streams, outs):
+            with torch.cuda.stream(s):
+                got += [fn() for fn in calls]
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    for got in outs:
+        for i, y in enumerate(got):
+            assert torch.equal(y, eager[i % len(calls)])
+
+
+def test_k9b_shared_memory_fits(dev):
+    """K9b's bf16 kernels at every row bucket and column tile, as they lay out shared memory, take at most the
+    227 KB a block may have."""
+    for rows in K.K9B_ROWS:
+        for cols in (128, 256):
+            assert 0 < K.splitk_tile_smem(rows, cols) <= 227 * 1024
+    assert 0 < K.splitk_tile_smem(128) <= 227 * 1024
+    assert K.splitk_tile_smem(12, 128) < 0  # no such bucket
+
+
 def test_k5_f16_input_through_the_shadow_route(dev):
     """apply_linear's shadow branch on the card vs on the CPU, f16 x."""
     from torch_bnb_fp4_tpu_torch.models import linear as L
@@ -589,7 +682,7 @@ def test_k9a_bit_exact(dev, k, n, out_dtype, qt):
 
 
 @pytest.mark.parametrize("qt", ["fp4", "nf4"])
-@pytest.mark.parametrize("m", [1, 3, 8, 9, 64, 256, 300])
+@pytest.mark.parametrize("m", [1, 3, 4, 8, 9, 32, 33, 64, 128, 200, 256, 300])
 @pytest.mark.parametrize("k,n", SPLITK_SHAPES)
 def test_k9b_bf16_vs_plain(dev, k, n, m, qt):
     from torch_bnb_fp4_tpu_torch.ops import format as fmt
@@ -633,6 +726,21 @@ def test_k_sharded_linear_equals_unsharded_on_card(dev, m):
     _close(L.apply_linear(q4, x), L.apply_linear(q1, x), 2.0**-7)
     torch.testing.assert_close(L.dequantize_weight(q4, torch.float32), L.dequantize_weight(q1, torch.float32),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m", [1, 4, 64, 256])
+def test_k_sharded_w_down_equals_unsharded_packing(dev, m):
+    """A Mistral-7B w_down (14336 -> 4096) packed in 4 K shards, through K9b with x read in place, against
+    the same weights in one shard (repack_k_shards: the same codes and absmax): within 2^-7 of max|y| (bf16
+    output rounding and the order of the f32 sums), and its f32-x call within 1e-5."""
+    from torch_bnb_fp4_tpu_torch.convert.quantize import repack_k_shards
+
+    x, packed, hi, lo, bias = _splitk_operands(m, 14336, 4096, dev, seed=m)
+    p4, h4, l4 = repack_k_shards(packed, hi, lo, 64, 1, 4)
+    got = K.matmul_fp4(x, p4, (h4, l4), bias, k_shards=4)
+    _close(got, K.matmul_fp4(x, packed, (hi, lo), bias), 2.0**-7)
+    xf = x.float()
+    _close(K.matmul_fp4(xf, p4, (h4, l4), bias, k_shards=4), K.matmul_fp4(xf, packed, (hi, lo), bias), 1e-5)
 
 
 def test_splitk_model_cuda_matches_cpu_tiny(dev):

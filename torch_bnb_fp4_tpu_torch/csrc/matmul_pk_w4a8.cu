@@ -24,19 +24,12 @@
 // and the x8 / packed copies into shared memory, not the int8 MMA.
 //
 // Design:
-//  * Block = two consumer warpgroups and two producer warpgroups (512
-//    threads; setmaxnreg gives the consumers 176 registers and the producers
-//    80, which only adds up when ptxas launches the kernel at 128 per thread:
-//    the launch checks it and refuses any other count), output tile 128 x 128 (each consumer warpgroup 64 rows), a ring of
-//    5 stages of 128 K-rows: the x8 tile [128 rows][128 k] and the decoded
-//    weight tile [128 n][128 k], both K-major in the 128-byte swizzle of
-//    hopper.cuh, which wgmma.mma_async m64n128k32 .s32.s8.s8 reads from
-//    shared memory; mbarriers hand stages over (full: x landed and weights
-//    decoded; empty: both consumer warpgroups are done with it).
-//  * The int32 accumulators (64 per thread) drain into the f32 ones (64 more)
-//    at each a8 K-tile boundary (a8_block_k / 128 stages, 8 at 1024): the int32
-//    partial always covers exactly one K-tile before its rescale, so the
-//    granularity of the numerics is the JAX path's.
+//  * The int8 warpgroup-MMA main loop of int8_mainloop.cuh (shared with K5):
+//    a 512-thread block of two consumer and two producer warpgroups, 128 x
+//    128 output tiles, a ring of 5 stages of 128 K-rows, the int32 partial
+//    drained into f32 at each a8 K-tile boundary (a8_block_k / 128 stages, 8
+//    at 1024; g' = g * 192/127), the grouped raster and the K split of short
+//    grids (w4a8_split) with its K-tile-ordered combine.
 //  * The producer warpgroups copy with cp.async, 2-3 stages ahead of the
 //    decode: the x8 tile, the raw packed bytes (64 pair-rows x 128 columns)
 //    and the stage's two scale rows; then they decode the weights
@@ -51,38 +44,26 @@
 //    pk::decode_pairs, times f with the same __fmul_rn, rounded half to even
 //    by adding 1.5 * 2^23: bit-equal to __float2int_rn by construction,
 //    without the conversion unit) and maps nibbles to int8 with byte
-//    permutes (3 prmt per four weights).  The consumers keep one stage's
-//    wgmmas in flight while they wait for the next.
-//  * Each weight tile is decoded M/128 times (once per 128-row M tile, was
-//    M/64).  Raster: groups of 8 M tiles walk every N tile with M fastest,
-//    so the blocks sharing an N tile run together (its packed bytes stay in
-//    L2) and a wave reads only 8 slabs of x8 rows (which stay in L2 too).
-//  * Short grids (fewer than half a wave of output tiles; ops/kernels.py::
-//    w4a8_split): blockIdx.z splits the K-tiles into S contiguous ranges;
-//    every block then writes each K-tile's f32 term (d * rs) * g' to scratch
-//    and w4a8_combine adds them to 0 in K-tile order, then the bias: the same
-//    additions in the same order as the unsplit kernel, so bit-equal to it.
+//    permutes (3 prmt per four weights).
+//  * Each weight tile is decoded M/128 times (once per 128-row M tile).
 //
 // K8 (the expert form, replacing the a8 expert pallas_call :1215 and
 // _expertify :946): the same kernels against expert e of a stacked
 // (E, K/2, N) packing; each block reads e from device memory
 // (pk::expert_index) and offsets packed, scale and bias itself.  Same tiles
 // and arithmetic as the 2-D path: bit-equal to a 2-D launch on packed[e].
-#include "hopper.cuh"
-#include "pairk_decode.cuh"
+#include "int8_mainloop.cuh"
+#include "pairk_decode.cuh"  // K1 (decode_pairs), scale loads, the expert index
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 128, kThreads = 512;
-constexpr int kProducerRegs = 80, kConsumerRegs = 176;  // setmaxnreg: 256 * (80 + 176) = the SM's 65536
-constexpr int kThreadRegs = (kProducerRegs + kConsumerRegs) / 2;  // what each thread must be launched with
+using i8::kBK;
+using i8::kBN;
+using i8::kTile;
+constexpr int kStageBytes = 2 * kTile;  // x8 and weights (1024-byte aligned: the swizzle reads bits 7-9)
 constexpr int kStages = 5;  // x8 / weight tiles in the ring
 constexpr int kAhead = 3;   // stages whose copies fly while one decodes
 constexpr int kRaw = kAhead + 1;  // slots of raw packed bytes and scale rows
-constexpr int kGroupM = 8;  // M tiles per raster group
-constexpr int kMaxBlockK = 1 << 17;  // 127 * 127 * a8_block_k stays inside int32
-constexpr int kTile = kBM * kBK;                  // bytes of the x8 tile (= the weight tile)
-constexpr int kStageBytes = 2 * kTile;         // x8 and weights (1024-byte aligned: the swizzle reads bits 7-9)
 constexpr int kRawBytes = kBK / 2 * kBN;       // 64 packed pair-rows x 128 columns
 constexpr int kSlotBytes = kRawBytes + 4 * kBN * 4;  // + 4 scale rows: the stage's 2, the next K-tile's 2
 constexpr int kOffG = kStages * kStageBytes;   // [kStages][kBN] f32: g of each stage's K-tile
@@ -103,6 +84,19 @@ struct Args {
   int scale_dtype, out_dtype, M, K, N, a8_block_k, n_experts, split;
 };
 
+// named barrier of the two producer warpgroups alone
+__device__ __forceinline__ void producer_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
+
+// the x8 tile of rows m0.. and K-columns kb..kb+127 into its swizzled slot ``xs`` (cp.async, rows past M
+// zero-filled); called by producer thread ``tp`` (0..255)
+__device__ __forceinline__ void copy_x8(unsigned char* xs, const int8_t* x8, int M, int K, int m0, int kb, int tp) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // 1024 chunks of 16 bytes
+    const int c = tp + 256 * i, r = c >> 3, ch = c & 7, m = m0 + r;
+    hop::cp_async16(xs + hop::sw128(r, ch), x8 + static_cast<size_t>(m < M ? m : 0) * K + kb + ch * 16, m < M);
+  }
+}
+
 // four nibbles (k order, low nibble first) -> four int8 from the 16-entry table t
 __device__ __forceinline__ uint32_t lookup4(const uint32_t (&t)[4], uint32_t nib) {
   const uint32_t sel = nib & 0x7777u;
@@ -111,11 +105,8 @@ __device__ __forceinline__ uint32_t lookup4(const uint32_t (&t)[4], uint32_t nib
   return __byte_perm(lo, hi, 0x3210u | ((nib & 0x8888u) >> 1));  // bit 3 of a nibble picks hi
 }
 
-// named barrier of the producer warpgroup alone
-__device__ __forceinline__ void producer_sync() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); }
-
 template <int V>
-__global__ void __launch_bounds__(kThreads, 1) w4a8_kernel(const Args a) {
+__global__ void __launch_bounds__(i8::kThreads, 1) w4a8_kernel(const Args a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kOffBar);
@@ -126,27 +117,14 @@ __global__ void __launch_bounds__(kThreads, 1) w4a8_kernel(const Args a) {
   const float* bias = a.bias == nullptr ? nullptr : a.bias + e * a.N;
 
   const int tid = threadIdx.x, warp = tid >> 5;
-  // grouped raster: kGroupM M tiles walk every N tile together, M fastest, so
-  // a wave holds a few x8 row slabs and the N tiles' packed bytes in L2
-  const int m_tiles = (a.M + kBM - 1) / kBM, n_tiles = a.N / kBN;
-  const int grp = blockIdx.x / (kGroupM * n_tiles), first_m = grp * kGroupM;
-  const int gm = min(kGroupM, m_tiles - first_m), local = blockIdx.x - grp * kGroupM * n_tiles;
-  const int m0 = (first_m + local % gm) * kBM, n0 = (local / gm) * kBN;
-  const int nk = a.K / a.a8_block_k, sub = a.a8_block_k / kBK;  // K-tiles, stages per K-tile
-  const int kt_lo = blockIdx.z * nk / a.split, kt_hi = (blockIdx.z + 1) * nk / a.split;
-  const int s_lo = kt_lo * sub, n_stages = (kt_hi - kt_lo) * sub;
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      hop::mbar_init(&full[s], 256);
-      hop::mbar_init(&empty[s], 256);
-    }
-    hop::mbar_init_fence();
-  }
-  __syncthreads();
+  const i8::Range rg = i8::block_range(a.M, a.N, a.K, a.a8_block_k, a.split);
+  const int m0 = rg.m0, n0 = rg.n0, sub = rg.sub, kt_lo = rg.kt_lo, kt_hi = rg.kt_hi, s_lo = rg.s_lo;
+  const int n_stages = rg.n_stages;
+  i8::init_ring(full, empty, kStages);
 
   if (warp >= 8) {
     // ---- producer warpgroups: copies kAhead stages ahead, then the weight decode ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(i8::kProducerRegs));
     const int tp = tid - 256, col = tp & 127, qb = tp >> 7;  // column col, quant block qb of a stage
     const int esz = a.scale_dtype == pk::kBF16 ? 2 : 4, qbk = a.a8_block_k / 64;  // scale rows per K-tile
     const int n_kt = kt_hi - kt_lo;  // K-tiles of this block's range
@@ -159,14 +137,7 @@ __global__ void __launch_bounds__(kThreads, 1) w4a8_kernel(const Args a) {
     // stage j's x8 tile; stage j's raw packed bytes and scale rows (its own two and, but in the range's
     // last K-tile, the two at the same place in the next K-tile)
     auto issue_x = [&](int j) {
-      const int kb = (s_lo + j) * kBK;
-      unsigned char* xs = smem + (j % kStages) * kStageBytes;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {  // 1024 chunks of 16 bytes
-        const int c = tp + 256 * i, r = c >> 3, ch = c & 7, m = m0 + r;
-        hop::cp_async16(xs + hop::sw128(r, ch), a.x8 + static_cast<size_t>(m < a.M ? m : 0) * a.K + kb + ch * 16,
-                        m < a.M);
-      }
+      copy_x8(smem + (j % kStages) * kStageBytes, a.x8, a.M, a.K, m0, (s_lo + j) * kBK, tp);
     };
     auto issue_raw = [&](int j) {
       const int kb = (s_lo + j) * kBK;
@@ -261,127 +232,24 @@ __global__ void __launch_bounds__(kThreads, 1) w4a8_kernel(const Args a) {
     }
     hop::cp_async_wait<0>();
   } else {
-    // ---- consumer warpgroups: rows 64 * wg.. of the tile ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    const int wg = warp >> 2, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
-    const int ra = m0 + wg * 64 + (warp & 3) * 16 + gid;  // this thread's rows ra and ra + 8
-    const float c192_127 = 192.0f / 127.0f;
-    int d[64];
-    float acc[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      d[i] = 0;
-      acc[i] = 0.f;
-    }
-    int pend = -1;  // the stage whose wgmmas may still be in flight
-    for (int s = 0; s < n_stages; ++s) {
-      const int st = s % kStages;
-      hop::mbar_wait(&full[st], (s / kStages) & 1);
-      const unsigned char* xs = smem + st * kStageBytes;
-      const unsigned char* ws = xs + kTile;
-      const uint64_t xdesc = hop::desc_sw128(xs + wg * 64 * 128, 16), wdesc = hop::desc_sw128(ws, 16);
-      const int first = s % sub == 0;
-      hop::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBK / 32; ++kk)
-        hop::wgmma_m64n128k32_s8(d, xdesc + ((kk * 32) >> 4), wdesc + ((kk * 32) >> 4), !(first && kk == 0));
-      hop::wgmma_commit();
-      if (s % sub != sub - 1) {  // keep this stage's wgmmas in flight; the previous one is done
-        hop::wgmma_wait<1>();
-        if (pend >= 0) hop::mbar_arrive(&empty[pend % kStages]);
-        pend = s;
-        continue;
-      }
-      hop::wgmma_wait<0>();
-      hop::fence_regs(d);
-      if (pend >= 0) hop::mbar_arrive(&empty[pend % kStages]);
-      pend = -1;
-      // rescale this K-tile's exact int32 partial: (d * rs) * (g * 192/127)
-      const int kt = kt_lo + s / sub;
-      const float* gs = reinterpret_cast<const float*>(smem + kOffG) + st * kBN;
-      const float r0 = ra < a.M ? a.rs[static_cast<size_t>(ra) * nk + kt] : 0.f;
-      const float r1 = ra + 8 < a.M ? a.rs[static_cast<size_t>(ra + 8) * nk + kt] : 0.f;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float gn = __fmul_rn(gs[8 * j + 2 * tig + (q & 1)], c192_127);
-          const float term = __fmul_rn(__fmul_rn(static_cast<float>(d[4 * j + q]), q < 2 ? r0 : r1), gn);
-          if (a.split == 1) {
-            acc[4 * j + q] = __fadd_rn(acc[4 * j + q], term);
-          } else {
-            const int m = q < 2 ? ra : ra + 8;
-            if (m < a.M) a.terms[(static_cast<size_t>(kt) * a.M + m) * a.N + n0 + 8 * j + 2 * tig + (q & 1)] = term;
-          }
-        }
-      }
-      hop::mbar_arrive(&empty[st]);
-    }
-    if (a.split == 1) {
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int m = q < 2 ? ra : ra + 8, n = n0 + 8 * j + 2 * tig + (q & 1);
-          if (m < a.M) {
-            float v = acc[4 * j + q];
-            if (bias != nullptr) v = __fadd_rn(v, bias[n]);
-            pk::store_out(a.out, a.out_dtype, static_cast<size_t>(m) * a.N + n, v);
-          }
-        }
-      }
-    }
+    i8::consume<kStages, kStageBytes>(smem, full, empty, reinterpret_cast<const float*>(smem + kOffG),
+                                      192.0f / 127.0f, rg, i8::Out{a.rs, bias, a.out, a.terms, a.out_dtype, a.M,
+                                      a.N, a.split}, [](int) {});
   }
 }
 
-// split > 1: out = ((0 + term_0) + term_1) + ... in K-tile order, then the bias; four outputs a thread
-__global__ void w4a8_combine(const Args a) {
-  const size_t i = (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
-  const size_t mn = static_cast<size_t>(a.M) * a.N;
-  if (i >= mn) return;
-  const size_t e = pk::expert_index(a.expert, a.n_experts);
-  const int nk = a.K / a.a8_block_k;
-  float v[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int kt = 0; kt < nk; ++kt) {
-    const float4 t = *reinterpret_cast<const float4*>(a.terms + kt * mn + i);
-    v[0] = __fadd_rn(v[0], t.x);
-    v[1] = __fadd_rn(v[1], t.y);
-    v[2] = __fadd_rn(v[2], t.z);
-    v[3] = __fadd_rn(v[3], t.w);
-  }
-  if (a.bias != nullptr) {
-    const float* b = a.bias + e * a.N + i % a.N;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = __fadd_rn(v[j], b[j]);
-  }
-  pk::store_out4(a.out, a.out_dtype, i, v);
-}
-
-// Registers per thread the kernel was built with.  The setmaxnreg split above needs exactly
-// kThreadRegs: a lower count leaves the consumers' setmaxnreg.inc waiting forever.
+// Registers per thread the kernel was built with (the setmaxnreg split needs i8::kThreadRegs).
 template <int V>
 int kernel_regs() {
   static int regs = -1;
-  if (regs < 0) {
-    cudaFuncAttributes fa;
-    const cudaError_t err = cudaFuncGetAttributes(&fa, w4a8_kernel<V>);
-    if (err != cudaSuccess) return -static_cast<int>(err);
-    regs = fa.numRegs;
-  }
+  if (regs < 0) regs = i8::kernel_regs(reinterpret_cast<const void*>(w4a8_kernel<V>));
   return regs;
 }
 
 template <int V>
 int launch(const Args& a, cudaStream_t s) {
-  if (kernel_regs<V>() != kThreadRegs) return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaError_t err = cudaFuncSetAttribute(w4a8_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  w4a8_kernel<V><<<dim3((a.M + kBM - 1) / kBM * (a.N / kBN), 1, a.split), kThreads, kSmem, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || a.split == 1) return static_cast<int>(err);
-  const size_t mn = static_cast<size_t>(a.M) * a.N;
-  w4a8_combine<<<static_cast<unsigned>((mn / 4 + 255) / 256), 256, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return i8::launch(w4a8_kernel<V>, kernel_regs<V>(), kSmem, a.M, a.N, a.split, a.terms, a.bias, a.expert,
+                    a.n_experts, a.out, a.out_dtype, a.K / a.a8_block_k, s, a);
 }
 
 }  // namespace
@@ -397,7 +265,7 @@ extern "C" int pk_matmul_pk_w4a8(const void* x8, const void* rs, const void* pac
                                  int scale_dtype, const void* bias, void* out, int out_dtype, void* terms, int M,
                                  int K, int N, int a8_block_k, int split, int variant, const int* expert,
                                  int n_experts, void* stream) {
-  if (M <= 0 || N % kBN || a8_block_k <= 0 || a8_block_k % kBK || a8_block_k > kMaxBlockK || K % a8_block_k ||
+  if (M <= 0 || N % kBN || a8_block_k <= 0 || a8_block_k % kBK || a8_block_k > i8::kMaxBlockK || K % a8_block_k ||
       split < 1 || split > K / a8_block_k || (split > 1 && terms == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;

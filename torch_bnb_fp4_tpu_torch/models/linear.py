@@ -13,8 +13,8 @@ Two layouts, as in the JAX package:
     state kept as they are): ``ops.kernels.matmul_fp4`` / ``gemv_fp4`` (K9b)
     and ``dequantize_tpu`` (K9a), K padded to 1024 (or to k_shards*128 for a
     K-sharded packing).  ``k_shards`` > 1 stores K as that many
-    self-contained packings (the row-parallel layout of wo and w_down);
-    :func:`apply_linear` reorders x so that one kernel call covers them all.
+    self-contained packings (the row-parallel layout of wo and w_down); one
+    kernel call covers them all, reading x in place.
     Split-K is never fused and never gets an int8 shadow.
 
 The int8 prefill shadow (:func:`attach_int8_shadow`) decodes and requantizes
@@ -202,10 +202,12 @@ def quantize_linear(w: np.ndarray, bias: np.ndarray | None = None, *, blocksize:
 
 def _shard_reorder_x(x2: torch.Tensor, k_shards: int) -> torch.Tensor:
     """x columns reordered so that a K-sharded split-K packing runs as ONE
-    kernel call: shard d's packed rows meet x columns [d*K/D, d*K/D + K/2D)
-    (hi) and the next K/2D (lo), while the kernel splits x at K/2.  One
-    (M, D, 2, K/2D) -> (M, 2, D, K/2D) permute (the JAX package's
-    ``_shard_reorder_x``)."""
+    unsharded call: shard d's packed rows meet x columns [d*K/D, d*K/D +
+    K/2D) (hi) and the next K/2D (lo), while an unsharded call splits x at
+    K/2.  One (M, D, 2, K/2D) -> (M, 2, D, K/2D) permute (the JAX package's
+    ``_shard_reorder_x``), kept as the reference the tests hold
+    ``ops.kernels.splitk_x_columns`` against: the port's K9b and its plain
+    version take the shard count and read x in place instead."""
     m, k = x2.shape
     return x2.reshape(m, k_shards, 2, k // (2 * k_shards)).transpose(1, 2).reshape(m, k)
 
@@ -215,8 +217,9 @@ def apply_linear(q: QuantLinear, x: torch.Tensor, *, out_dtype=None) -> torch.Te
     through the batch-1 route; with a shadow attached, M >= ``A8_MIN_M`` rows
     of non-f32 x through K5 (any variant, lut included); other rows through
     ``matmul_fp4_pk``'s M-based choice (the JAX package's
-    models/linear.py:475-498).  Split-K: x reordered for a K-sharded packing,
-    then ``gemv_fp4`` (one row) or ``matmul_fp4`` (K9b); no shadow."""
+    models/linear.py:475-498).  Split-K: ``gemv_fp4`` (one row) or
+    ``matmul_fp4`` (K9b), which reads a K-sharded packing's x in place; no
+    shadow."""
     *lead, k = x.shape
     if k != q.k_in:
         raise ValueError(f"input feature dim {k} does not match layer k_in={q.k_in} "
@@ -233,10 +236,9 @@ def apply_linear(q: QuantLinear, x: torch.Tensor, *, out_dtype=None) -> torch.Te
     cb = q.codebook if q.variant == "lut" else None
     kw = dict(blocksize=q.blocksize, out_dtype=out_dtype, variant=q.variant)
     if q.layout == "splitk":
-        if q.k_shards > 1:
-            x2 = _shard_reorder_x(x2, q.k_shards)
         out = (K.gemv_fp4 if m == 1 else K.matmul_fp4)(x2, q.packed, (q.scale, q.scale_lo), bias, q.codebook,
-                                                        blocksize=q.blocksize, out_dtype=out_dtype)
+                                                        blocksize=q.blocksize, out_dtype=out_dtype,
+                                                        k_shards=q.k_shards)
     elif m == 1:
         out = K.gemv_fp4_pk(x2, q.packed, q.scale, bias, cb, **kw)
     elif q.w8 is not None and m >= K.A8_MIN_M and x2.dtype != torch.float32:

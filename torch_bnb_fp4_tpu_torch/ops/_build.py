@@ -43,14 +43,16 @@ SIGNATURES = {
     "matmul_pk_w4a8.cu": ("pk_matmul_pk_w4a8", [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _I,
                                                 _P]),
     "flash_attention.cu": ("pk_flash_attention", [_P] * 9 + [_I] * 8 + [_I64] * 9 + [_F, _F, _I, _I, _I, _P]),
-    "matmul_w8.cu": ("pk_matmul_w8", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "matmul_w8.cu": ("pk_matmul_w8", [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
     "dequant_pk.cu": ("pk_dequant_pk", [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P]),
     "dequant_splitk.cu": ("pk_dequant_splitk", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "matmul_splitk.cu": ("pk_matmul_splitk", [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "matmul_splitk.cu": ("pk_matmul_splitk", [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                              _I, _P]),
 }
 # other C functions a source exports: name -> (source, argtypes)
 QUERIES = {"pk_matmul_pk_w4a8_regs": ("matmul_pk_w4a8.cu", [_I]), "pk_matmul_pk_smem": ("matmul_pk.cu", [_I]),
-           "pk_matmul_pk_minner_smem": ("matmul_pk_minner.cu", [])}
+           "pk_matmul_pk_minner_smem": ("matmul_pk_minner.cu", []), "pk_matmul_w8_regs": ("matmul_w8.cu", []),
+           "pk_matmul_splitk_smem": ("matmul_splitk.cu", [_I, _I])}
 
 _lock = threading.Lock()
 _funcs: dict[str, ctypes._CFuncPtr] = {}

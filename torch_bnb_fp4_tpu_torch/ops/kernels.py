@@ -13,11 +13,11 @@ version on the card.
   K2 matmul_pk          csrc/matmul_pk.cu          GEMV / small-M (m-outer), bf16 wgmma
   K3 matmul_pk_minner   csrc/matmul_pk_minner.cu   decode-once GEMM (m-inner), bf16 wgmma
   K4 matmul_pk_w4a8     csrc/matmul_pk_w4a8.cu     int8 tensor-core GEMM
-  K5 matmul_w8          csrc/matmul_w8.cu          int8 GEMM over a prefill shadow
+  K5 matmul_w8          csrc/matmul_w8.cu          int8 GEMM over a prefill shadow, int8 wgmma (K4's loop)
   K6 dequantize_tpu_pk  csrc/dequant_pk.cu         pair-K dequantize (Wt = w * s)
   K8 expert=...         the K2/K3/K4 sources       expert e of a stacked (E, K/2, N) packing
   K9a dequantize_tpu    csrc/dequant_splitk.cu     split-K dequantize (Wt = code * absmax)
-  K9b matmul_fp4        csrc/matmul_splitk.cu      split-K fused dequant-matmul (gemv_fp4: one row)
+  K9b matmul_fp4        csrc/matmul_splitk.cu      split-K fused dequant-matmul, bf16 wgmma (gemv_fp4: one row)
 
 K8 is the expert form of K2, K3 and K4 (``expert=`` on their wrappers and on
 ``matmul_fp4_pk``): the kernel reads the expert index from device memory and
@@ -31,8 +31,9 @@ codebook (FP4, NF4 or any bnb table) as data.  Their launches are counted
 under ``dequant_splitk`` and ``matmul_splitk``.
 
 Block shapes are constants of the kernels; there is no per-chip table.  The
-launch plans of K2 and K3 (``k2_plan``, ``k3_plan``: tile, K split, shared
-memory) are pure Python, so the CPU tests hold them.
+launch plans of K2, K3, K4/K5 and K9b (``k2_plan``, ``k3_plan``,
+``w4a8_split``, ``k9b_plan``: tile, K split) are pure Python, so the CPU
+tests hold them.
 """
 
 from __future__ import annotations
@@ -53,9 +54,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # JAX package's a8_min_m, ops/kernels.py:127-139); activation K-tile request
 A8_MIN_M = 256
 A8_BLOCK_K = 1024
-# K2's f32-x kernel (and K9b's stream) split K until the grid holds about this
-# many blocks per SM (swept on an H100: 4 was best at M = 1 and 8 over the four
-# Mistral-7B shapes)
+# K2's f32-x kernel (and K9b's f32-x stream) split K until the grid holds about
+# this many blocks per SM (swept on an H100: 4 was best at M = 1 and 8 over the
+# four Mistral-7B shapes)
 K2_BLOCKS_PER_SM = 4
 # K2/K3 (bf16 x, warpgroup MMA): the x rows of a K2 block (the n of its wgmma),
 # the fewest quant blocks a K split keeps, and the int32 counters of the
@@ -450,14 +451,16 @@ class TilePlan(NamedTuple):
     n_tiles: int
 
 
-def fill_split(tiles: int, nb: int, sms: int, most: int | None = None) -> int:
-    """K splits of a grid of ``tiles`` output tiles over ``nb`` quant blocks:
-    the most (at most ``most``) that divide nb, keep at least
-    SPLIT_MIN_BLOCKS quant blocks per split and keep the grid within one wave
-    of ``sms`` blocks (one block per SM); 1 where the tiles alone fill the
-    wave.  A second, partial wave cost more than the deeper split saved in
-    every case swept on the H100 (``benchmarks_torch/hopper_bench.py``)."""
-    ok = [d for d in range(1, nb + 1) if nb % d == 0 and nb // d >= min(SPLIT_MIN_BLOCKS, nb) and tiles * d <= sms
+def fill_split(tiles: int, nb: int, sms: int, most: int | None = None, per: int = 1) -> int:
+    """K splits of a grid of ``tiles`` output tiles over ``nb`` stages of
+    ``per`` quant blocks (64 rows of K) each: the most (at most ``most``)
+    that divide nb, keep at least SPLIT_MIN_BLOCKS quant blocks per split and
+    keep the grid within one wave of ``sms`` blocks (one block per SM); 1
+    where the tiles alone fill the wave.  A second, partial wave cost more
+    than the deeper split saved in every case swept on the H100
+    (``benchmarks_torch/hopper_bench.py``)."""
+    least = min(SPLIT_MIN_BLOCKS, nb * per)
+    ok = [d for d in range(1, nb + 1) if nb % d == 0 and nb // d * per >= least and tiles * d <= sms
           and (most is None or d <= most)]
     return ok[-1] if ok else 1
 
@@ -581,12 +584,6 @@ def _n_experts(packed, expert) -> int:
     return 1 if expert is None else packed.shape[0]
 
 
-def _gemm_bm(m: int, n: int, sms: int) -> int:
-    """M tile of K9b's tensor-core GEMM: 128 unless that leaves most of the
-    ``sms`` SMs idle."""
-    return 128 if (n // 128) * -(-m // 128) >= sms else 64
-
-
 def matmul_pk_minner(x, packed, scale, bias=None, lut=None, *, blocksize=64, out_dtype=None, variant, expert=None):
     """K3: decode-once GEMM; bf16 x on the warpgroup MMA (``k3_plan``), f32 x
     on CUDA cores.  ``expert``: K8, expert e of stacked operands (as
@@ -615,29 +612,46 @@ def matmul_pk_minner(x, packed, scale, bias=None, lut=None, *, blocksize=64, out
     return out
 
 
-K4_TILE = 128  # K4's output tile (M and N) and K rows per stage
+# K4 and K5 share one int8 warpgroup-MMA main loop (csrc/int8_mainloop.cuh)
+K4_TILE = 128  # the loop's output tile (M and N) and K rows per stage
 K4_MAX_SPLIT = 4  # K-tile ranges at most
-K4_MAX_BLOCK_K = 1 << 17  # 127 * 127 * a8_block_k stays inside K4's int32 accumulator
-K4_THREAD_REGS = 128  # K4's setmaxnreg split (2 x 128 threads at 176, 2 x 128 at 80) needs this launch count
+K4_MAX_BLOCK_K = 1 << 17  # 127 * 127 * block_k stays inside the loop's int32 accumulator
+K4_THREAD_REGS = 128  # the loop's setmaxnreg split (2 x 128 threads at 176, 2 x 128 at 80) needs this launch count
+
+
+def _int8_regs(name: str, regs: int) -> int:
+    if regs < 0:
+        raise RuntimeError(f"{name}: cudaFuncGetAttributes failed with cudaError {-regs}")
+    return regs
 
 
 @functools.lru_cache(maxsize=8)
 def w4a8_kernel_regs(variant: str) -> int:
     """Registers per thread of K4's kernel for ``variant`` on the current
     card (``cudaFuncGetAttributes``); K4 launches only at ``K4_THREAD_REGS``."""
-    regs = _build.query("pk_matmul_pk_w4a8_regs")(VARIANT_CODE[variant])
-    if regs < 0:
-        raise RuntimeError(f"matmul_pk_w4a8: cudaFuncGetAttributes failed with cudaError {-regs}")
-    return regs
+    return _int8_regs("matmul_pk_w4a8", _build.query("pk_matmul_pk_w4a8_regs")(VARIANT_CODE[variant]))
+
+
+@functools.lru_cache(maxsize=1)
+def w8_kernel_regs() -> int:
+    """Registers per thread of K5's kernel; it launches only at ``K4_THREAD_REGS`` too."""
+    return _int8_regs("matmul_w8", _build.query("pk_matmul_w8_regs")())
+
+
+def _check_int8_regs(name: str, regs: int) -> None:
+    if regs != K4_THREAD_REGS:
+        raise RuntimeError(f"{name}: the kernel was built at {regs} registers per thread; its setmaxnreg split "
+                           f"needs exactly {K4_THREAD_REGS}")
 
 
 @functools.lru_cache(maxsize=1024)
 def w4a8_split(m: int, k: int, n: int, a8_block_k: int, sms: int) -> int:
-    """K-tile ranges K4 takes for this shape on a card with ``sms`` SMs: 1
-    when its 128 x 128 output tiles fill half a wave or more; else the split
-    (at most ``K4_MAX_SPLIT`` and the K-tiles) that minimizes waves x K-tiles
-    per range, the smaller one on a tie.  The ranges' per-K-tile terms are
-    summed in K-tile order by a second pass, so every split is bit-equal."""
+    """K-tile ranges K4 (and K5, with its block_k) takes for this shape on a
+    card with ``sms`` SMs: 1 when its 128 x 128 output tiles fill half a wave
+    or more; else the split (at most ``K4_MAX_SPLIT`` and the K-tiles) that
+    minimizes waves x K-tiles per range, the smaller one on a tie.  The
+    ranges' per-K-tile terms are summed in K-tile order by a second pass, so
+    every split is bit-equal."""
     tiles = -(-m // K4_TILE) * (n // K4_TILE)
     nk = k // a8_block_k
     if 2 * tiles > sms:
@@ -660,10 +674,7 @@ def matmul_pk_w4a8(x8, rs, packed, scale, bias=None, *, blocksize=64, out_dtype,
     if a8_block_k <= 0 or k % a8_block_k or a8_block_k % K4_TILE or a8_block_k > K4_MAX_BLOCK_K:
         raise ValueError(f"a8_block_k={a8_block_k} must divide K={k}, be a multiple of {K4_TILE} and at most "
                          f"{K4_MAX_BLOCK_K} for the CUDA kernel")
-    regs = w4a8_kernel_regs(variant)
-    if regs != K4_THREAD_REGS:
-        raise RuntimeError(f"matmul_pk_w4a8: the {variant} kernel was built at {regs} registers per thread; its "
-                           f"setmaxnreg split needs exactly {K4_THREAD_REGS}")
+    _check_int8_regs(f"matmul_pk_w4a8 ({variant})", w4a8_kernel_regs(variant))
     split = w4a8_split(m, k, n, a8_block_k, _sm_count(x8.device))
     out = torch.empty((m, n), dtype=out_dtype, device=x8.device)
     terms = None if split == 1 else torch.empty((k // a8_block_k, m, n), dtype=torch.float32, device=x8.device)
@@ -824,22 +835,36 @@ def make_int8_shadow(packed, scale, codebook=None, *, blocksize=64, variant, blo
 # ---------------------------------------------------------------------------
 
 
-def matmul_w8_plain(x8, rs, w8, g, bias=None, *, out_dtype, block_k):
+def matmul_w8_plain(x8, rs, w8, g, bias=None, *, out_dtype, block_k, split=1):
     """Plain K5: exact per-K-tile integer dots (float64 holds them exactly),
-    then acc = acc + (d * rs) * g tile by tile in f32."""
+    then acc = acc + (d * rs) * g tile by tile in f32.  ``split`` > 1
+    follows the kernel's K split: each of the contiguous K-tile ranges
+    writes its tiles' f32 terms (d * rs) * g, which are then added to 0 in
+    K-tile order: the same additions as unsplit."""
     m, k = x8.shape
     n = w8.shape[1]
     nk = k // block_k
     xt = x8.double().reshape(m, nk, block_k).transpose(0, 1)  # (nk, m, bk)
     d = torch.bmm(xt, w8.double().reshape(nk, block_k, n)).float()  # (nk, m, n) exact
     acc = torch.zeros((m, n), dtype=torch.float32, device=x8.device)
+    if split == 1:
+        for t in range(nk):
+            acc = acc + (d[t] * rs[:, t : t + 1]) * g[t][None, :]
+        return _finish(acc, bias, out_dtype)
+    if not 1 <= split <= nk:
+        raise ValueError(f"split={split} must be between 1 and the {nk} K-tiles")
+    terms = torch.empty((nk, m, n), dtype=torch.float32, device=x8.device)
+    for z in range(split):  # range z: K-tiles [z nk / split, (z + 1) nk / split), as the kernel's blockIdx.z
+        for t in range(z * nk // split, (z + 1) * nk // split):
+            terms[t] = (d[t] * rs[:, t : t + 1]) * g[t][None, :]
     for t in range(nk):
-        acc = acc + (d[t] * rs[:, t : t + 1]) * g[t][None, :]
+        acc = acc + terms[t]
     return _finish(acc, bias, out_dtype)
 
 
 def matmul_w8_int8(x8, rs, w8, g, bias=None, *, out_dtype, block_k):
-    """K5 on pre-quantized activations: the CUDA kernel on a CUDA tensor,
+    """K5 on pre-quantized activations: the CUDA kernel on a CUDA tensor (K4's
+    int8 warpgroup-MMA loop with ``w4a8_split``'s K split),
     :func:`matmul_w8_plain` on a CPU one."""
     if not x8.is_cuda:
         return matmul_w8_plain(x8, rs, w8, g, bias, out_dtype=out_dtype, block_k=block_k)
@@ -847,18 +872,23 @@ def matmul_w8_int8(x8, rs, w8, g, bias=None, *, out_dtype, block_k):
     n = w8.shape[1]
     if x8.dtype != torch.int8 or w8.dtype != torch.int8 or g.dtype != torch.float32 or rs.dtype != torch.float32:
         raise ValueError(f"K5 takes int8 x8 and w8 and f32 rs and g, got {x8.dtype}, {w8.dtype}, {rs.dtype}, {g.dtype}")
-    if k % block_k or block_k % 64 or n % 128:
-        raise ValueError(f"K5 needs block_k | K, block_k % 64 == 0 and N % 128 == 0, got K={k} block_k={block_k} N={n}")
+    if k % block_k or block_k % K4_TILE or block_k > K4_MAX_BLOCK_K or n % 128:
+        raise ValueError(f"K5 needs block_k | K, block_k % {K4_TILE} == 0, block_k <= {K4_MAX_BLOCK_K} and "
+                         f"N % 128 == 0, got K={k} block_k={block_k} N={n}")
     if bias is not None and bias.dtype != torch.float32:
         raise ValueError(f"bias must be float32, got {bias.dtype}")
     if out_dtype not in _DTYPE_CODE:
         raise ValueError(f"the CUDA kernel writes f32, bf16 or f16, got {out_dtype}")
     _check_buffers(x8=x8, rs=rs, w8=w8, g=g, bias=bias)
+    _check_int8_regs("matmul_w8", w8_kernel_regs())
+    split = w4a8_split(m, k, n, block_k, _sm_count(x8.device))
     out = torch.empty((m, n), dtype=out_dtype, device=x8.device)
+    terms = None if split == 1 else torch.empty((k // block_k, m, n), dtype=torch.float32, device=x8.device)
     fn = _build.kernel("matmul_w8.cu")
     LAUNCHES["matmul_w8"] += 1
     _check_status("matmul_w8", fn(x8.data_ptr(), rs.data_ptr(), w8.data_ptr(), g.data_ptr(), _ptr(bias),
-                                  out.data_ptr(), _DTYPE_CODE[out_dtype], m, k, n, block_k, _stream(x8)))
+                                  out.data_ptr(), _DTYPE_CODE[out_dtype], _ptr(terms), m, k, n, block_k, split,
+                                  _stream(x8)))
     return out
 
 
@@ -958,16 +988,59 @@ def dequantize_splitk_plain(packed, absmax_hi, absmax_lo, table, *, blocksize=64
     return torch.cat([hi, lo], dim=0).to(out_dtype)
 
 
-def matmul_splitk_plain(x, packed, absmax_hi, absmax_lo, bias, table, *, blocksize=64, out_dtype):
+def splitk_weights_plain(packed, absmax_hi, absmax_lo, table, *, blocksize=64):
+    """K9b's bf16 weights the way its kernels decode them: each byte X looked
+    up as (table[X >> 4], table[X & 15]) in a 256-entry table (the small
+    kernel's per-lane table; the large kernel reads the 16-entry table by
+    nibble, the same values), each value times the absmax of its half's
+    64-row block in f32 and rounded once to bf16.  (hi, lo): Wt rows [0, K/2)
+    and [K/2, K), each (K/2, N) bf16."""
+    kp, n = packed.shape
+    byte = torch.arange(256, device=packed.device)
+    pairs = torch.stack([table[byte >> 4], table[byte & 15]], dim=1)[packed.to(torch.int64)]  # (K/2, N, 2) f32
+    return tuple((pairs[..., h].reshape(kp // blocksize, blocksize, n) * s.float()[:, None, :])
+                 .reshape(kp, n).to(torch.bfloat16) for h, s in ((0, absmax_hi), (1, absmax_lo)))
+
+
+def splitk_x_columns(kp: int, k_shards: int = 1, device=None):
+    """(hi, lo): the x column each packed row meets with its high and its low
+    nibble, each (K/2,) int64.  A packing of ``k_shards`` K shards is that
+    many self-contained slices: packed row i of shard d = i // (K/2D) meets x
+    column d K/D + i % (K/2D) and the one K/2D further.  The CUDA kernels
+    compute the same columns per 64-row block and read x in place; the plain
+    version gathers x with them (the JAX package reorders x instead, as
+    models/linear.py::_shard_reorder_x does; the tests hold one against the
+    other)."""
+    kpl = kp // k_shards
+    i = torch.arange(kp, device=device)
+    hi = (i // kpl) * 2 * kpl + i % kpl
+    return hi, hi + kpl
+
+
+def matmul_splitk_plain(x, packed, absmax_hi, absmax_lo, bias, table, *, blocksize=64, out_dtype, k_shards=1,
+                        ksplit=1):
     """Plain K9b: the weights as K9a decodes them in f32, rounded once to
-    bf16 for non-f32 ``x``; an f32 matmul of x against them, bias added in
-    f32, one cast to ``out_dtype``."""
-    hi, lo = _splitk_halves(packed, table, absmax_hi, absmax_lo, blocksize)
-    if x.dtype != torch.float32:
-        hi, lo = hi.to(torch.bfloat16).float(), lo.to(torch.bfloat16).float()
+    bf16 for non-f32 ``x`` (:func:`splitk_weights_plain`); an f32 matmul of x
+    against them, bias added in f32, one cast to ``out_dtype``.  ``k_shards``
+    > 1: x read through :func:`splitk_x_columns`.  ``ksplit`` > 1 follows the
+    bf16 kernels' K split: contiguous ranges of 64-row blocks, each range's
+    f32 partial, the partials summed in range order."""
     kp = packed.shape[0]
+    if x.dtype != torch.float32:
+        hi, lo = (w.float() for w in splitk_weights_plain(packed, absmax_hi, absmax_lo, table, blocksize=blocksize))
+    else:
+        hi, lo = _splitk_halves(packed, table, absmax_hi, absmax_lo, blocksize)
+    ch, cl = splitk_x_columns(kp, k_shards, x.device)
     xf = x.float()
-    acc = xf[:, :kp] @ hi + xf[:, kp:] @ lo
+    xh, xl = xf[:, ch], xf[:, cl]
+    nb = kp // blocksize
+    if nb % ksplit:
+        raise ValueError(f"ksplit={ksplit} must divide the {nb} absmax blocks")
+    acc = None
+    for r in range(ksplit):
+        rows = slice(r * kp // ksplit, (r + 1) * kp // ksplit)
+        part = xh[:, rows] @ hi[rows] + xl[:, rows] @ lo[rows]
+        acc = part if acc is None else acc + part
     return _finish(acc, bias, out_dtype)
 
 
@@ -1013,59 +1086,111 @@ def dequantize_tpu(packed, absmax, codebook=None, *, blocksize=64, out_dtype=tor
     return out
 
 
+K9B_ROWS = (8, 16, 32)  # x rows of K9b's small kernel (the n of its wgmma); 128-row tiles above
+K9B_MAX_SPLIT = 4  # K splits of K9b's large kernel at most: the last block of a tile sums them
+
+
 @functools.lru_cache(maxsize=1024)
-def _splitk_launch(m: int, kp: int, n: int, tensor_cores: bool, sms: int) -> tuple[int, int, int]:
-    """(path, K splits, rows) of a K9b launch.  bf16 x above 8 rows takes the
-    tensor-core GEMM (path 1, no K split, M tile 64 or 128); everything else
-    the CUDA-core stream (path 0): 1, 2, 4 or 8 x rows per block, 512 columns,
-    and the fewest K splits that fill about ``K2_BLOCKS_PER_SM`` blocks on
-    each SM, dividing the K/128 quant-block rows, with the block's x rows (hi
-    and lo halves, f32) inside 48 KB of shared memory.  Memoized: it runs on
-    every decode-step call."""
-    if tensor_cores and m > 8:
-        return 1, 0, _gemm_bm(m, n, sms)
+def k9b_plan(m: int, k: int, n: int, sms: int) -> TilePlan:
+    """K9b with bf16 x (csrc/matmul_splitk.cu).  Up to 32 rows the small
+    kernel: one block takes every row of x (rows = M rounded up to 8, 16 or
+    32) and 256 columns (128 below N = 4096, so N = 1024 keeps 8 column
+    tiles), the weights decoded once into registers; the K split as K2's
+    (``fill_split`` over the stages of 64 packed rows, each two 64-row quant
+    blocks of either half, d <= K / (16 M): the f32 partials move no more
+    bytes than the packed weights).  Above, the large kernel: 128 x 128
+    tiles, one decode per M tile, K split at most ``K9B_MAX_SPLIT``.
+    Memoized: it runs on every decode-step call."""
+    nb = k // 128
+    if m <= K9B_ROWS[-1]:
+        cols = 256 if n >= 4096 else 128
+        n_tiles = -(-n // cols)
+        rows = next(r for r in K9B_ROWS if r >= m)
+        return TilePlan(rows, cols, fill_split(n_tiles, nb, sms, max(1, k // (16 * m)), per=2), 1, n_tiles)
+    n_tiles, m_tiles = n // 128, -(-m // 128)
+    return TilePlan(128, 128, fill_split(n_tiles * m_tiles, nb, sms, K9B_MAX_SPLIT, per=2), m_tiles, n_tiles)
+
+
+def splitk_tile_smem(rows: int, cols: int = 128) -> int:
+    """Dynamic shared memory per block of K9b's bf16 kernel at ``rows`` x
+    rows and ``cols`` columns (rows 128: the large kernel), as the kernel's
+    own layout sets it; builds the kernels on first use."""
+    return _build.query("pk_matmul_splitk_smem")(rows, cols)
+
+
+@functools.lru_cache(maxsize=1024)
+def _splitk_f32_launch(m: int, kp: int, n: int, sms: int) -> tuple[int, int]:
+    """(K splits, rows) of K9b's f32-x stream: 1, 2, 4 or 8 x rows per block,
+    512 columns, and the fewest K splits that fill about
+    ``K2_BLOCKS_PER_SM`` blocks on each SM, dividing the K/128 absmax-block
+    rows, with the block's x rows (hi and lo halves, f32) inside 48 KB of
+    shared memory."""
     rows = 1 if m == 1 else 2 if m == 2 else 4 if m <= 4 else 8
     nb = kp // 64
     blocks = -(-n // 512) * -(-m // rows)
     target = -(-K2_BLOCKS_PER_SM * sms // blocks)
     for d in range(1, nb + 1):
         if nb % d == 0 and d >= target and rows * 2 * (kp // d) * 4 <= 48 * 1024:
-            return 0, d, rows
-    return 0, nb, rows
+            return d, rows
+    return nb, rows
 
 
-def matmul_splitk(x, packed, absmax_hi, absmax_lo, bias, table, *, blocksize=64, out_dtype):
+def matmul_splitk(x, packed, absmax_hi, absmax_lo, bias, table, *, blocksize=64, out_dtype, k_shards=1):
     """K9b on a compute-dtype ``x`` (f32 or bf16; the CUDA kernel on a CUDA
-    tensor, :func:`matmul_splitk_plain` on a CPU one)."""
+    tensor, :func:`matmul_splitk_plain` on a CPU one).  ``k_shards``: the
+    packing's K shards; the bf16 kernels read x in place
+    (:func:`splitk_x_columns`), f32 x is gathered for the CUDA-core stream."""
+    kp, n = packed.shape
+    if k_shards < 1 or kp % (blocksize * k_shards):
+        raise ValueError(f"K/2={kp} must divide into k_shards={k_shards} slices of whole {blocksize}-row blocks")
     if not x.is_cuda:
         return matmul_splitk_plain(x, packed, absmax_hi, absmax_lo, bias, table, blocksize=blocksize,
-                                   out_dtype=out_dtype)
+                                   out_dtype=out_dtype, k_shards=k_shards)
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the CUDA kernel takes x in f32 or bf16, got {x.dtype}")
     if out_dtype not in _DTYPE_CODE:
         raise ValueError(f"the CUDA kernel writes f32, bf16 or f16, got {out_dtype}")
     _check_splitk_cuda(packed, absmax_hi, absmax_lo, table, blocksize, x=x, bias=bias)
+    return _launch_matmul_splitk(x, packed, absmax_hi, absmax_lo, bias, table, out_dtype, k_shards)
+
+
+def _launch_matmul_splitk(x, packed, absmax_hi, absmax_lo, bias, table, out_dtype, k_shards, ksplit=None):
+    """Launch K9b on checked CUDA operands, with ``k9b_plan``'s K split or
+    (bf16 x; the split sweep of ``benchmarks_torch/hopper_bench.py``) a
+    given one."""
     m, k = x.shape
     kp, n = packed.shape
-    path, ksplit, rows = _splitk_launch(m, kp, n, x.dtype == torch.bfloat16, _sm_count(x.device))
-    ws = None if path == 1 else torch.empty((ksplit, m, n), dtype=torch.float32, device=x.device)
+    if x.dtype == torch.bfloat16:
+        plan = k9b_plan(m, k, n, _sm_count(x.device))
+        if ksplit is not None:
+            plan = plan._replace(ksplit=ksplit)
+        ksplit, rows, cols = plan.ksplit, plan.rows, plan.cols
+        ws, counters = _split_buffers(plan, m, n, x.device)
+    else:  # the CUDA-core stream reads one shard: a sharded x is gathered into the unsharded order
+        if k_shards > 1:
+            x, k_shards = x[:, torch.cat(splitk_x_columns(kp, k_shards, x.device))].contiguous(), 1
+        (ksplit, rows), cols, counters = _splitk_f32_launch(m, kp, n, _sm_count(x.device)), 0, None
+        ws = torch.empty((ksplit, m, n), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     fn = _build.kernel("matmul_splitk.cu")
     LAUNCHES["matmul_splitk"] += 1
     _check_status("matmul_splitk", fn(
         x.data_ptr(), _DTYPE_CODE[x.dtype], packed.data_ptr(), absmax_hi.data_ptr(), absmax_lo.data_ptr(),
-        _ptr(bias), table.data_ptr(), _ptr(ws), out.data_ptr(), _DTYPE_CODE[out_dtype], m, k, n, path, ksplit, rows,
-        _stream(x)))
+        _ptr(bias), table.data_ptr(), _ptr(ws), _ptr(counters), out.data_ptr(), _DTYPE_CODE[out_dtype], m, k, n,
+        k_shards, ksplit, rows, cols, _stream(x)))
     return out
 
 
-def matmul_fp4(x, packed, absmax, bias=None, codebook=None, *, blocksize=64, out_dtype=None, decode_impl=None):
+def matmul_fp4(x, packed, absmax, bias=None, codebook=None, *, blocksize=64, out_dtype=None, decode_impl=None,
+               k_shards=1):
     """Fused split-K dequant-matmul: y[M, N] = x[M, K] @ Wt[K, N] (+ bias)
     (the JAX package's ``matmul_fp4``, ops/kernels.py:378).  ``packed`` uint8
     (K/2, N); ``absmax`` the (hi, lo) pair or one (K/blocksize, N) array of
     TRUE absmax; ``codebook`` None (FP4) or a (16,) table.  x may be f32
     (true f32 dot), bf16, or f16, which computes in bf16 and returns f16 as
-    in the JAX package; accumulation is f32."""
+    in the JAX package; accumulation is f32.  ``k_shards`` (the port's
+    addition): the packing is that many K shards (``format.pack_tpu_sharded``)
+    and x keeps its own column order."""
     _check_decode_impl(decode_impl, codebook)
     if packed.ndim != 2 or packed.dtype != torch.uint8:
         raise ValueError(f"packed must be 2-D uint8 (K/2, N), got {tuple(packed.shape)} {packed.dtype}")
@@ -1079,13 +1204,14 @@ def matmul_fp4(x, packed, absmax, bias=None, codebook=None, *, blocksize=64, out
     x = x.to(compute_dtype).contiguous()
     table = code_table(codebook, x.device)
     return matmul_splitk(x, packed, shi.contiguous(), slo.contiguous(), bias, table, blocksize=blocksize,
-                         out_dtype=out_dtype)
+                         out_dtype=out_dtype, k_shards=k_shards)
 
 
-def gemv_fp4(x, packed, absmax, bias=None, codebook=None, *, blocksize=64, out_dtype=None, decode_impl=None):
+def gemv_fp4(x, packed, absmax, bias=None, codebook=None, *, blocksize=64, out_dtype=None, decode_impl=None,
+             k_shards=1):
     """Batch-1 route of the split-K layout: one row through K9b (the JAX
     package's ``gemv_fp4``, :485; the same numbers as ``matmul_fp4``)."""
     if x.shape[0] != 1:
         raise ValueError(f"gemv_fp4 is the batch-1 fast path; got x.shape={tuple(x.shape)} (use matmul_fp4)")
     return matmul_fp4(x, packed, absmax, bias, codebook, blocksize=blocksize, out_dtype=out_dtype,
-                      decode_impl=decode_impl)
+                      decode_impl=decode_impl, k_shards=k_shards)
