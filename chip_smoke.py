@@ -32,8 +32,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      (d) TinyLlama at batch 2 with mixed valid lengths, (e) blocks whose rows
      see no key (zeros); kernel time, bound, plain time, the port's dense
      path and one scaled_dot_product_attention call (the yardstick, timed by
-     CUDA-graph replay as K7 is, its eager time beside it); then a
-     dense-vs-K7 grid of Lq x Lk at the Mistral heads;
+     CUDA-graph replay as K7 is, its eager time beside it); (f) case (a)'s
+     shape with e4m3 K/V (K7's fp8 form, bf16 q) against its plain version at
+     the same per-row tolerance, timed beside case (a) in turns, with SDPA on
+     K/V widened to bf16 as the yardstick (no library call takes e4m3 K/V
+     beside a bf16 q); the fp8 KV write cast (kv_cast) of all 65536 bf16 bit
+     patterns, the same bytes on the card as on the CPU; then a dense-vs-K7
+     grid of Lq x Lk at the Mistral heads;
   4. a 2-layer model at full Mistral-7B width from seeded weights, on the
      card (kernels) and on the CPU (plain versions): 300- and 1024-token
      prompts (the 1024 one takes the flash route: K7 on the card, its plain
@@ -43,7 +48,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      fused) served by the Engine (max_batch 8, max_len 1024, inner_steps 8)
      with 6 requests (prompts 20..700 tokens, 32 new tokens each) plus a
      batch-1 generate; every kernel's launch count must be > 0.  The
-     engine's logits for the 20-token request are held against generate's at
+     engine decodes by CUDA-graph replay (as in every later phase); its
+     logits for the 20-token request are held against generate's at
      every step up to the first token where the two differ (if any), which
      must be a near-tie.  Then batch-1 decode tok/s of the FP4 model beside
      its dense bf16 twin;
@@ -115,7 +121,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      the CLI with --prefill-shadow over HTTP, tokens equal to an in-process
      replay, K9b launching and K5 not; K9a's dequantize_weight of one layer
      bit-exact with the numpy golden.
-Prints the kernel table as one JSON line, then the final status line.
+  10. the full serving engine on the 32-layer Mistral-7B geometry (phase 5's
+     weights): (a) warmup() of an engine with batch buckets (max_batch 8,
+     max_len 1024, inner_steps 8, logprobs) captures every decode graph,
+     then serves phase 5's prompts with no new program (traces flat), each
+     request held against eager batch-1 generate as phase 5 holds its
+     engine, ms/step beside the card-alone steps of phase 5 at batch 8 and
+     (one request alone, bucket 1) at batch 1, logprobs against log_softmax
+     of the logits; (b) sampling (temperature 0.8, top_k 50, top_p 0.9, min_p
+     0.05): two engines with seed 7 give the same tokens, seed 8 others, every
+     logprob <= 0; (c) speculation (spec_tokens 4) on prompts that repeat a
+     16-token period: tokens equal the plain engine's or differ at a near-tie
+     of the eager logits, tokens per verify forward and ms per emitted token;
+     (d) prefix cache and store (prefill_chunk 256): four requests sharing a
+     1024-token prompt, two together, two after: 3 hits, tokens equal the
+     engine without the cache (or a near-tie), TTFT with and without; (e) the
+     fp8 KV cache: phase 6's ring engine with e4m3 rings (half the KV bytes),
+     prompts of 100, 300 and 4500 tokens launching K7's fp8 form, and a
+     2-layer cut with e4m3 caches on the card vs the CPU within phase 4's
+     tolerance; (f) the CLI on a 4-layer checkpoint with --warmup-prompt-len
+     --temperature --top-p --prefix-cache --prefix-store --kv-dtype
+     float8_e4m3fn --logprobs: a sampled and a temperature-0 request over
+     HTTP, the latter equal to the in-process greedy engine, SIGINT -> 0.
+Every engine (phases 5-10) decodes by CUDA-graph replay; its launch counts
+include the replays.  Prints the kernel table as one JSON line, then the
+final status line.
 Kernel times are CUDA-graph replays timed with CUDA events (the card's own
 time, without the Python wrappers' launch cost, which is printed beside them
 as eager_us); serving times are host clocks around synchronized work.
@@ -256,48 +286,67 @@ def hold_runs(tag, names, ref_lg, ref_tokens, lg, tokens):
 
 
 class Recorder:
-    """Wraps ``T.forward`` while ``eng`` serves: keeps, on the device, the
-    last-position logits of every batch-1 call (prefill chunks or a whole
-    prompt) with the uid of the chunked prefill in flight (None for a
-    whole-prompt prefill) and CUDA events around the call, and the logits
-    of request ``uid``'s row in every batched decode call."""
+    """While ``eng`` serves, keeps on the device: the last-position logits of
+    every prefill forward (a whole prompt or a chunk: the calls with
+    ``last_index``) with its request's uid and CUDA events around the call;
+    and every request's decode logits.  The engine decodes by CUDA-graph
+    replay, where a wrapper around ``T.forward`` runs only at capture, so the
+    decode rows come from the engine's ``step_logits`` buffer, read after
+    each tick (entering before the engine's first decode tick, or before its
+    warmup)."""
 
-    def __init__(self, T, eng, uid):
-        self.T, self.eng, self.uid, self.forward = T, eng, uid, T.forward
-        self.prefill, self.decode = [], []  # (uid, rows, logits, start, end); logits
+    def __init__(self, T, eng):
+        self.T, self.eng, self.forward = T, eng, T.forward
+        self.prefill = []  # (uid, rows, logits, start, end)
+        self.decode = {}  # uid -> [logits of its decode steps]
 
     def __enter__(self):
+        import torch
+
+        e = self.eng
         self.T.forward = self._call
+        e.step_logits = torch.zeros((e.ecfg.inner_steps, e.ecfg.max_batch, e.cfg.vocab_size), dtype=torch.float32,
+                                    device=e.device)
+        step, bind = e.step, e._bind
+
+        def recorded_bind(slot, req, *a):  # a whole-prompt prefill's calls belong to the request bound next
+            self.prefill = [(req.uid if u is None else u, *rest) for u, *rest in self.prefill]
+            return bind(slot, req, *a)
+
+        def recorded_step():
+            n = step()
+            for i, r in enumerate(e.slot_req):
+                if r is not None and e.last_decode_steps:
+                    self.decode.setdefault(r.uid, []).extend(
+                        e.step_logits[j, i].clone() for j in range(e.last_decode_steps))
+            return n
+
+        e.step, e._bind = recorded_step, recorded_bind
         return self
 
     def __exit__(self, *exc):
         self.T.forward = self.forward
+        del self.eng.step, self.eng._bind
+        self.eng.step_logits = None
 
     def _call(self, p, c, tokens, cache, **kw):
         import torch
 
-        if tokens.shape[0] == 1:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            lg, cache = self.forward(p, c, tokens, cache, **kw)
-            ev[1].record()
-            uid = self.eng._pf["req"].uid if self.eng._pf is not None else None
-            self.prefill.append((uid, tokens.shape[1], lg[0, -1].float().clone(), *ev))
-            return lg, cache
+        if "last_index" not in kw:  # a decode step (eager only while its graph is captured)
+            return self.forward(p, c, tokens, cache, **kw)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
         lg, cache = self.forward(p, c, tokens, cache, **kw)
-        slot = next((i for i, r in enumerate(self.eng.slot_req) if r is not None and r.uid == self.uid), None)
-        if slot is not None:
-            self.decode.append(lg[slot, -1].float().clone())
+        ev[1].record()
+        uid = self.eng._pf["req"].uid if self.eng._pf is not None else None
+        self.prefill.append((uid, tokens.shape[1], lg[0, -1].float().clone(), *ev))
         return lg, cache
 
-    def logits(self, n):
+    def logits(self, uid, n):
         """Request ``uid``'s logits for its first ``n`` tokens, on the CPU: its
-        last prefill chunk, or else the first whole-prompt prefill (requests
-        are admitted in order, so the one held here is submitted first), then
-        its decode rows."""
-        chunks = [r[2] for r in self.prefill if r[0] == self.uid]
-        first = chunks[-1] if chunks else next(r[2] for r in self.prefill if r[0] is None)
-        return [first.cpu()] + [x.cpu() for x in self.decode[: n - 1]]
+        last prefill call, then its decode rows."""
+        first = [r[2] for r in self.prefill if r[0] == uid][-1]
+        return [first.cpu()] + [x.cpu() for x in self.decode.get(uid, [])[: n - 1]]
 
 
 def engine_vs_generate(T, Engine, params, cfg, ecfg, reqs, eng_tokens, gen_tokens, dev):
@@ -308,9 +357,9 @@ def engine_vs_generate(T, Engine, params, cfg, ecfg, reqs, eng_tokens, gen_token
     import torch
 
     eng = Engine(params, cfg, ecfg)
-    with Recorder(T, eng, reqs[0].uid) as rec:
+    with Recorder(T, eng) as rec:
         rerun = eng.run(reqs)[reqs[0].uid].tokens
-    eng_lg = rec.logits(NEW_TOKENS)
+    eng_lg = rec.logits(reqs[0].uid, NEW_TOKENS)
     check(rerun == eng_tokens, "engine rerun gave other tokens for the 20-token prompt")
     check([int(v.argmax()) for v in eng_lg] == eng_tokens, "recorded engine logits do not give its tokens")
 
@@ -662,6 +711,50 @@ def main() -> int:
               f"{sdpa_ms * 1e3:10.1f} {sdpa_eager_ms * 1e3:10.1f}   {err:.3g} ({ref_max:.3g}; {row_err:.3g})   "
               f"{what}; split {split}; {pairs} visible pairs, {4 * d * hq * pairs / (ms * 1e-3) / 1e12:.0f} TFLOP/s")
         del ops, q, k, v, got, want, mask
+    # (f) case (a)'s shape over an fp8 KV cache: bf16 q, e4m3 K/V (K7's fp8 form); beside case (a), replayed
+    case, what, b, lq, lk, hq, hk, d, lens, q_off, window, cap, scale = FLASH_CASES[0]
+    q, k, v, qpos, valid, kpos = synth_attention(b, lq, lk, hq, hk, d, lens=lens, q_offset=q_off, seed=lq + lk + d,
+                                                 device=dev)
+    k8, v8 = T.kv_cast(k, torch.float8_e4m3fn), T.kv_cast(v, torch.float8_e4m3fn)
+    ops8 = (q, k8, v8, qpos, valid, kpos)
+    split = A.kernel_split(b, lq, lk, hq, hk, K._sm_count(dev), d)
+    before = K.launch_counts()
+    got = A.flash_attention(*ops8, window, scale, cap)
+    check(K.launch_counts()["flash_attention_fp8"] == before["flash_attention_fp8"] + 1
+          and K.launch_counts()["flash_attention"] == before["flash_attention"], "K7 case f: the fp8 form did not launch")
+    plain = lambda: A.flash_attention_plain(*ops8, window, scale, cap,  # noqa: E731
+                                            block_q=A.kernel_blocks(hq, hk, d)[0], block_k=A.BLOCK_K, split=split)
+    want = plain()
+    torch.cuda.synchronize()
+    (err, row_err), ref_max = attention_err(got, want), want.float().abs().max().item()
+    check(bool(torch.isfinite(got).all()) and got.dtype == torch.bfloat16, "K7 case f: non-finite or not bf16")
+    check(row_err <= 2.0**-7, f"K7 case f: |do| / max|o| of its row reaches {row_err} > 2^-7")
+    ms_a, ms, ms_a2 = (device_ms(lambda o=o: A.flash_attention(*o, window, scale, cap), rep=10)
+                       for o in ((q, k, v, qpos, valid, kpos), ops8, (q, k, v, qpos, valid, kpos)))
+    plain_ms = timed(plain, rep=2)
+    mask = T.attention_mask(qpos, kpos, valid, window)
+    # the yardstick: SDPA takes no e4m3 K/V beside a bf16 q, so it runs on K/V widened to bf16 (timed only)
+    kw, vw = k8.to(torch.bfloat16), v8.to(torch.bfloat16)
+    sdpa_ms = device_ms(lambda: sdpa(q, kw, vw, mask, scale), rep=10)
+    pairs = P.visible_pairs(qpos, valid, kpos, window)
+    bnd, by = P.attention_bound_s(q, k8, pairs)
+    flash_rows["f"] = dict(what=what + ", e4m3 K/V", ms=ms, plain_ms=plain_ms, library_ms=None,
+                           sdpa_widened_ms=sdpa_ms, bound_ms=bnd * 1e3, bound_by=by, max_abs_err=err,
+                           row_err=row_err, pairs=pairs, split=split, bf16_ms=(ms_a + ms_a2) / 2)
+    print(f"     (f)  {ms * 1e3:8.1f} {bnd * 1e6:9.1f}  {by:10} {plain_ms:9.1f}          -  {sdpa_ms * 1e3:10.1f}"
+          f"          -   {err:.3g} ({ref_max:.3g}; {row_err:.3g})   case (a) with e4m3 K/V (K7's fp8 form): beside "
+          f"case (a) in turns {ms_a * 1e3:.1f} / {ms_a2 * 1e3:.1f} us; sdpa_us on K/V widened to bf16 (no library "
+          f"call takes e4m3 K/V beside a bf16 q); split {split}")
+    del q, k, v, k8, v8, kw, vw, ops8, got, want, mask
+    # the fp8 KV write cast (models.transformer.kv_cast): the same byte on the card and on the CPU for every
+    # bf16 bit pattern
+    x16 = torch.arange(-(2**15), 2**15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    cast_card = T.kv_cast(x16.to(dev), torch.float8_e4m3fn).view(torch.uint8).cpu()
+    cast_cpu = T.kv_cast(x16, torch.float8_e4m3fn).view(torch.uint8)
+    check(torch.equal(cast_card, cast_cpu), f"fp8 KV cast: {int((cast_card != cast_cpu).sum())} of 65536 bf16 "
+                                            "patterns give another byte on the card than on the CPU")
+    print("[3b] fp8 KV write cast (kv_cast): all 65536 bf16 bit patterns give the same e4m3 byte on the card as on "
+          "the CPU")
     torch.cuda.empty_cache()
     print("[3b] dense-vs-K7 grid at the Mistral heads (32/8, D 128, window 4096; us: dense / K7, dense/K7)")
     grid = {}
@@ -1047,7 +1140,7 @@ def main() -> int:
         eng.submit(r)
     interleaved = 0
     K.reset_launch_counts()
-    with Recorder(T, eng, big) as rec:
+    with Recorder(T, eng) as rec:
         t0 = time.perf_counter()
         while eng.pending or eng._pf is not None or any(r is not None for r in eng.slot_req):
             before = {r.uid: len(eng.slot_tokens[i]) for i, r in enumerate(eng.slot_req)
@@ -1073,7 +1166,7 @@ def main() -> int:
         check(launches6[name] > 0, f"phase 6 never launched {name}")
     big_chunks = [(n, e0.elapsed_time(e1)) for uid, n, _, e0, e1 in rec.prefill if uid == big]
     full_chunks = [ms for n, ms in big_chunks if n == ecfg6.prefill_chunk]
-    ring_lg = rec.logits(NEW_TOKENS)
+    ring_lg = rec.logits(big, NEW_TOKENS)
     ring_tokens = res6[big].tokens
     print(f"[6] ring engine served prompts {LONG_PROMPTS} ({NEW_TOKENS} new tokens each) in {wall:.2f} s: "
           f"{st6['tok_per_s']:.1f} tok/s, mean TTFT {st6['mean_ttft_s'] * 1e3:.1f} ms "
@@ -1091,7 +1184,7 @@ def main() -> int:
         """Serve the 6000-token request alone; returns (tokens, logits, stats, launches)."""
         e = Engine(params, cfg, ecfg_x)
         K.reset_launch_counts()
-        with Recorder(T, e, big) as r:
+        with Recorder(T, e) as r:
             t = time.perf_counter()
             out = e.run([Request(uid=big, prompt=long_prompts[big], max_new_tokens=NEW_TOKENS)])[big]
             torch.cuda.synchronize()
@@ -1101,7 +1194,7 @@ def main() -> int:
         print(f"[6] {label}: cache rows {sorted({a.shape[1] for a in e.cache.k})}, kv_cache_bytes "
               f"{stx['kv_cache_bytes']}, served in {t:.2f} s, TTFT {out.ttft_s * 1e3:.1f} ms, K7 launches "
               f"{lx['flash_attention']}, K4 launches {lx['matmul_pk_w4a8']}")
-        return out.tokens, r.logits(NEW_TOKENS), stx, lx
+        return out.tokens, r.logits(big, NEW_TOKENS), stx, lx
 
     full_tokens, full_lg, st_full, _ = serve_alone(
         EngineConfig(max_batch=4, max_len=8192, inner_steps=8, prefill_chunk=256, sliding_kv=False),
@@ -1171,7 +1264,7 @@ def main() -> int:
 
         def replay(p, label):
             e = Engine(p, cfg7, ecfg7)
-            with Recorder(T, e, big7) as r:
+            with Recorder(T, e) as r:
                 t = time.perf_counter()
                 out = e.run(reqs7)
                 torch.cuda.synchronize()
@@ -1180,7 +1273,7 @@ def main() -> int:
             print(f"[7] {label}: served in {t:.2f} s, 4500-token prompt: {len(chunk_ms)} 256-row chunks, "
                   f"{sum(chunk_ms) / len(chunk_ms):.2f} ms mean (min {min(chunk_ms):.2f}, max {max(chunk_ms):.2f}; "
                   f"CUDA events around each chunk forward), TTFT {out[big7].ttft_s * 1e3:.1f} ms")
-            return out, r.logits(NEW_TOKENS), sum(chunk_ms) / len(chunk_ms)
+            return out, r.logits(big7, NEW_TOKENS), sum(chunk_ms) / len(chunk_ms)
 
         res7, shadow_lg, shadow_chunk_ms = replay(shadowed, "in-process replay with shadows")
         launches7 = K.launch_counts()
@@ -1327,7 +1420,7 @@ def main() -> int:
     big8 = MOE_PROMPTS.index(4500)
     eng = Engine(params, mcfg, EngineConfig(max_batch=4, max_len=8192, inner_steps=8, prefill_chunk=256))
     K.reset_launch_counts()
-    with Recorder(T, eng, big8) as rec:
+    with Recorder(T, eng) as rec:
         t0 = time.perf_counter()
         res8 = eng.run(reqs8)
         torch.cuda.synchronize()
@@ -1629,6 +1722,304 @@ def main() -> int:
         shutil.rmtree(ckpt9, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # -- phase 10: the full serving engine on the Mistral-7B geometry --------------------------------
+    t0 = time.perf_counter()
+    params = synth_params(cfg, seed=3, fuse=True, device=dev)  # phase 5's weights
+    torch.cuda.synchronize()
+    print(f"[10] Mistral-7B geometry FP4 params (phase 5's seed) built in {time.perf_counter() - t0:.1f} s")
+
+    def forced_logits(prompt, tokens, p=None, c=None):
+        """Eager batch-1 forwards (generate's: the prompt, then one token at a
+        time) fed ``tokens``: the last-position logits before each, on the CPU."""
+        p, c = params if p is None else p, cfg if c is None else c
+        cache = T.KVCache.zeros(c, 1, len(prompt) + len(tokens), device=dev)
+        toks, out = torch.tensor([prompt], dtype=torch.int32, device=dev), []
+        with torch.no_grad():
+            for t in tokens:
+                lg, cache = T.forward(p, c, toks, cache, last_only=True)
+                out.append(lg[0, -1].float().cpu())
+                toks = torch.tensor([[t]], dtype=torch.int32, device=dev)
+        return out
+
+    def eager_generate(prompt, n):
+        """Batch-1 greedy decode with T.generate's forwards: (tokens, logits before each)."""
+        cache = T.KVCache.zeros(cfg, 1, len(prompt) + n, device=dev)
+        toks, out, lgs = torch.tensor([prompt], dtype=torch.int32, device=dev), [], []
+        with torch.no_grad():
+            for _ in range(n):
+                lg, cache = T.forward(params, cfg, toks, cache, last_only=True)
+                lgs.append(lg[0, -1].float().cpu())
+                out.append(int(lgs[-1].argmax()))
+                toks = torch.tensor([[out[-1]]], dtype=torch.int32, device=dev)
+        return out, lgs
+
+    def near_tie(tag, names, prompt, ref_tokens, tokens):
+        """Two greedy runs of one prompt: equal tokens, or at the first
+        difference a near-tie in the eager forward's logits fed the reference
+        run's tokens (each winner within 2^-7 * max|logit| of the other)."""
+        j = next((t for t, (a, b) in enumerate(zip(ref_tokens, tokens)) if a != b), None)
+        if j is None:
+            check(len(tokens) == len(ref_tokens), f"{tag}: {len(tokens)} tokens, the reference {len(ref_tokens)}")
+            return f"{len(tokens)}/{len(tokens)} tokens equal"
+        g = forced_logits(prompt, ref_tokens[: j + 1])[j]
+        a, b = ref_tokens[j], tokens[j]
+        tie = 2.0**-7 * g.abs().max().item()
+        margin = (g[a] - g[b]).item()
+        check(abs(margin) <= tie, f"{tag}: {names[1]} differs from {names[0]} at token {j}, not a near-tie "
+                                  f"(margin {margin} > {tie})")
+        return (f"first difference at token {j}: {names[0]} {a} vs {names[1]} {b}, margin {margin:.4g} in the eager "
+                f"logits (near-tie limit {tie:.4g})")
+
+    # (a) warmup, then phase 5's prompts through the graphed engine with batch buckets, and one request alone
+    ecfg10 = EngineConfig(max_batch=8, max_len=1024, inner_steps=8, batch_buckets=True, logprobs=True)
+    eng = Engine(params, cfg, ecfg10)
+    reqs10 = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
+    with Recorder(T, eng) as rec:
+        t0 = time.perf_counter()
+        warm = eng.warmup(max_prompt_len=max(PROMPTS))
+        warm_s = time.perf_counter() - t0
+        n_graphs = len(eng._graphs)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res10 = eng.run(reqs10)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches10 = K.launch_counts()
+        st10 = eng.stats()
+        eng.step_times.clear()
+        alone = eng.run([Request(uid=100, prompt=prompts[0], max_new_tokens=NEW_TOKENS)])[100]
+        alone_ms = float(np.percentile(np.asarray(eng.step_times), 50)) * 1e3
+        alone_batch = eng.stats()["decode_batch"]
+    check(eng.traces == warm, f"[10a] serving after warmup() added programs: {warm} -> {eng.traces}")
+    check(alone_batch == 1 and st10["decode_batch"] == 8, f"[10a] buckets {st10['decode_batch']}, alone {alone_batch}")
+    for name in ("matmul_pk", "matmul_pk_minner", "matmul_pk_w4a8"):
+        check(launches10[name] > 0, f"[10a] the engine never launched {name}")
+    check(launches10["matmul_pk"] >= st10["decode_steps"] * 4 * cfg.n_layers,
+          f"[10a] {launches10['matmul_pk']} K2 launches for {st10['decode_steps']} graph-replayed decode steps")
+    print(f"[10a] warmup(max_prompt_len={max(PROMPTS)}) in {warm_s:.1f} s: {n_graphs} decode graphs captured (batch "
+          f"buckets 1-8 x depths 1-8), traces {warm}; serving added none")
+    print(f"[10a] graphed engine served prompts {PROMPTS} ({NEW_TOKENS} new tokens each) in {wall:.2f} s: "
+          f"{st10['tok_per_s']:.1f} tok/s, mean TTFT {st10['mean_ttft_s'] * 1e3:.1f} ms, decode "
+          f"{st10['step_p50_s'] * 1e3:.2f} ms/step p50 at batch {st10['decode_batch']} (phase 5: eager engine "
+          f"{st['step_p50_s'] * 1e3:.2f}, the batch-8 step on the card alone {eng_dev_ms:.3f}); one request alone: "
+          f"{alone_ms:.2f} ms/step p50 at batch {alone_batch} (phase 5's batch-1 step on the card alone "
+          f"{fp4_dev_ms:.3f}); launches {json.dumps(launches10)}")
+    gen10 = {}
+    for i, p in enumerate(prompts):
+        gen10[i] = eager_generate(p, NEW_TOKENS)
+        hold_runs("[10a]", ("eager generate", f"graphed engine (prompt {len(p)})"), gen10[i][1], gen10[i][0],
+                  rec.logits(i, NEW_TOKENS), res10[i].tokens)
+    check(gen10[0][0] == gen_out[0].tolist(), "[10a] eager generate differs from phase 5's T.generate")
+    hold_runs("[10a]", ("eager generate", "graphed engine alone (bucket 1)"), gen10[0][1], gen10[0][0],
+              rec.logits(100, NEW_TOKENS), alone.tokens)
+    # logprobs: the graphed engine's against log_softmax of its own recorded logits, and the request served alone
+    # against log_softmax of eager T.forward on the same rows (a 32-row prefill bucket spliced into a 1024-row
+    # cache, then one token at a time at batch 1: what bucket 1 computes)
+    lp_err = 0.0
+    for i in range(len(prompts)):
+        lgs = rec.logits(i, NEW_TOKENS)
+        for tok, lp, lg in zip(res10[i].tokens, res10[i].logprobs, lgs):
+            lp_err = max(lp_err, abs(lp - torch.log_softmax(lg, -1)[tok].item()))
+    p0 = prompts[0]
+    lp_pad = eng._bucket(len(p0))
+    small = T.KVCache.zeros(cfg, 1, lp_pad, device=dev)
+    big = T.KVCache.zeros(cfg, 1, ecfg10.max_len, device=dev)
+    padded = torch.zeros((1, lp_pad), dtype=torch.int32)
+    padded[0, : len(p0)] = torch.tensor(p0)
+    eager_lp = []
+    with torch.no_grad():
+        lg, small = T.forward(params, cfg, padded.to(dev), small, last_index=len(p0) - 1)
+        for a, b_ in zip(big.k + big.v, small.k + small.v):
+            a[:, :lp_pad].copy_(b_)
+        big = T.KVCache(k=big.k, v=big.v, length=torch.tensor([len(p0)], dtype=torch.int32, device=dev))
+        for t in alone.tokens:
+            eager_lp.append(torch.log_softmax(lg[0, -1].float(), -1)[t].item())
+            lg, big = T.forward(params, cfg, torch.tensor([[t]], dtype=torch.int32, device=dev), big)
+    alone_lp_err = max(abs(a - b_) for a, b_ in zip(alone.logprobs, eager_lp))
+    check(lp_err <= 1e-3 and alone_lp_err <= 1e-3, f"[10a] logprobs off by {lp_err} (batched) / {alone_lp_err} (alone)")
+    print(f"[10a] greedy logprobs: max |lp - log_softmax(logits)[token]| {lp_err:.3g} over the 6 requests (the "
+          f"engine's recorded logits), {alone_lp_err:.3g} for the request alone against eager T.forward")
+    del rec, small, big
+    eng_ms_a = st10["step_p50_s"] * 1e3
+
+    # (b) sampling: two engines with one seed give the same tokens, a third seed others
+    scfg = dict(max_batch=8, max_len=1024, inner_steps=8, temperature=0.8, top_k=50, top_p=0.9, min_p=0.05,
+                logprobs=True)
+    samp = {}
+    for tag, seed in (("seed 7", 7), ("seed 7 again", 7), ("seed 8", 8)):
+        e = Engine(params, cfg, EngineConfig(seed=seed, **scfg))
+        out = e.run([Request(uid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)])
+        samp[tag] = [out[i] for i in range(len(prompts))]
+        del e
+    for c in samp["seed 7"] + samp["seed 8"]:
+        check(len(c.tokens) == 16 and len(c.logprobs) == 16 and all(math.isfinite(v) and v <= 0 for v in c.logprobs),
+              f"[10b] {c}")
+    same = all(a.tokens == b.tokens for a, b in zip(samp["seed 7"], samp["seed 7 again"]))
+    differ = sum(a.tokens != b.tokens for a, b in zip(samp["seed 7"], samp["seed 8"]))
+    check(same and differ > 0, f"[10b] same seed equal: {same}; requests differing under another seed: {differ}")
+    print(f"[10b] sampling (temperature 0.8, top_k 50, top_p 0.9, min_p 0.05): two seed-7 engines gave the same "
+          f"tokens for all {len(prompts)} requests, seed 8 other tokens for {differ}; every logprob finite and <= 0 "
+          f"(min {min(min(c.logprobs) for c in samp['seed 7']):.3g})")
+
+    # (c) speculation on prompts that repeat a 16-token period, against the plain greedy engine
+    g10 = torch.Generator().manual_seed(10)
+    spec_prompts = [(torch.randint(0, cfg.vocab_size, (16,), generator=g10).tolist() * 8)[:n] for n in (128, 96, 64, 128)]
+    runs = {}
+    for tag, extra in (("plain", {}), ("spec", dict(spec_tokens=4))):
+        e = Engine(params, cfg, EngineConfig(max_batch=8, max_len=1024, inner_steps=8, **extra))
+        e.warmup(prompt_lens=[len(p) for p in spec_prompts])
+        out = e.run([Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(spec_prompts)])
+        runs[tag] = ([out[i].tokens for i in range(len(spec_prompts))], e.stats())
+        del e
+    for i, p in enumerate(spec_prompts):
+        print(f"[10c] prompt {i} ({len(p)} tokens): " + near_tie(f"[10c] prompt {i}", ("plain engine", "spec engine"), p,
+                                                                  runs["plain"][0][i], runs["spec"][0][i]))
+    sst = runs["spec"][1]
+    print(f"[10c] speculation (spec_tokens 4, spec_ngram 3): {sst['spec_tokens_per_forward']:.3f} tokens per verify "
+          f"forward per slot; {sst['step_p50_s'] * 1e3:.2f} ms per emitted token p50 vs the plain engine's "
+          f"{runs['plain'][1]['step_p50_s'] * 1e3:.2f} ms/step on the same prompts and (a)'s {eng_ms_a:.2f}")
+
+    # (d) prefix cache and store: a 1024-token system prompt shared by 4 requests, two together, then two more
+    sysp = torch.randint(0, cfg.vocab_size, (1024,), generator=g10).tolist()
+    pre = [sysp + torch.randint(0, cfg.vocab_size, (40 + 10 * i,), generator=g10).tolist() for i in range(4)]
+    pruns = {}
+    for tag, extra in (("no cache", {}), ("prefix cache", dict(prefix_cache=True, prefix_store=2))):
+        e = Engine(params, cfg, EngineConfig(max_batch=4, max_len=2048, inner_steps=8, prefill_chunk=256, **extra))
+        e.run([Request(uid=i, prompt=pre[i], max_new_tokens=NEW_TOKENS) for i in (0, 1)])
+        out = e.run([Request(uid=i, prompt=pre[i], max_new_tokens=NEW_TOKENS) for i in (2, 3)])
+        pruns[tag] = ([out[i] for i in range(4)], e.stats())
+        del e
+    pst = pruns["prefix cache"][1]
+    check(pst["prefix_hits"] == 3 and pst["prefix_tokens_reused"] == 3 * 1024,
+          f"[10d] prefix hits {pst['prefix_hits']}, tokens reused {pst['prefix_tokens_reused']} (want 3, 3072)")
+    for i in range(4):
+        print(f"[10d] request {i}: " + near_tie(f"[10d] request {i}", ("engine without the cache", "prefix engine"),
+                                                pre[i], pruns["no cache"][0][i].tokens,
+                                                pruns["prefix cache"][0][i].tokens))
+    ttft = {tag: [round(c.ttft_s * 1e3, 1) for c in r[0]] for tag, r in pruns.items()}
+    print(f"[10d] prefix cache + store (chunk 256): {pst['prefix_hits']} hits, {pst['prefix_tokens_reused']} prompt "
+          f"tokens reused, {pst['prefix_store_entries']} store entries; TTFT per request ms with the cache "
+          f"{ttft['prefix cache']} (mean {sum(ttft['prefix cache']) / 4:.1f}) vs without {ttft['no cache']} (mean "
+          f"{sum(ttft['no cache']) / 4:.1f})")
+
+    # (e) fp8 KV: phase 6's ring engine with an e4m3 cache
+    e = Engine(params, cfg, EngineConfig(max_batch=4, max_len=8192, inner_steps=8, prefill_chunk=256,
+                                         kv_dtype="float8_e4m3fn"))
+    check(sorted({a.shape[1] for a in e.cache.k}) == [4352] and e.cache.k[0].dtype == torch.float8_e4m3fn,
+          "[10e] the fp8 engine's cache is not e4m3 4352-row rings")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    res_e = e.run([Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(long_prompts[:3])])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches10e = K.launch_counts()
+    ste = e.stats()
+    del e
+    for i in range(3):
+        check(len(res_e[i].tokens) == NEW_TOKENS, f"[10e] request {i}: {res_e[i]}")
+    check(ste["kv_cache_bytes"] * 2 == st6["kv_cache_bytes"],
+          f"[10e] kv_cache_bytes {ste['kv_cache_bytes']} is not half of phase 6's {st6['kv_cache_bytes']}")
+    check(launches10e["flash_attention_fp8"] > 0 and launches10e["flash_attention"] == 0,
+          f"[10e] launches {launches10e}")
+    print(f"[10e] fp8 KV engine (4352-row e4m3 rings) served prompts {LONG_PROMPTS[:3]} in {wall:.2f} s: TTFT per "
+          f"request ms {[round(res_e[i].ttft_s * 1e3, 1) for i in range(3)]}, decode {ste['step_p50_s'] * 1e3:.2f} "
+          f"ms/step p50; kv_cache_bytes {ste['kv_cache_bytes']} = half of phase 6's bf16 {st6['kv_cache_bytes']}; "
+          f"launches {json.dumps(launches10e)}")
+    del params
+    torch.cuda.empty_cache()
+    cfg2 = T.ModelConfig(**{**cfg.__dict__, "n_layers": 2})
+    p_gpu = synth_params(cfg2, seed=1, fuse=True, device=dev)
+    p_cpu = T.params_to(p_gpu, "cpu")
+    prompt = torch.randint(0, cfg2.vocab_size, (1, 1024), generator=torch.Generator().manual_seed(4), dtype=torch.int32)
+    c_gpu = T.KVCache.zeros(cfg2, 1, 1028, dtype=torch.float8_e4m3fn, device=dev)
+    c_cpu = T.KVCache.zeros(cfg2, 1, 1028, dtype=torch.float8_e4m3fn, device="cpu")
+    toks, t_cpu = prompt, 0.0
+    for step_i in range(5):  # the prompt (K7's fp8 form on the card, its plain version on the CPU), 4 decode steps
+        K.reset_launch_counts()
+        with torch.no_grad():
+            lg_gpu, c_gpu = T.forward(p_gpu, cfg2, toks.to(dev), c_gpu, last_only=True)
+            t = time.perf_counter()
+            lg_cpu, c_cpu = T.forward(p_cpu, cfg2, toks, c_cpu, last_only=True)
+            t_cpu += time.perf_counter() - t
+        lg_gpu = lg_gpu.cpu()
+        fl8 = K.launch_counts()["flash_attention_fp8"]
+        check(fl8 == (cfg2.n_layers if step_i == 0 else 0), f"[10e] 2-layer cut step {step_i}: {fl8} fp8 K7 launches")
+        d = (lg_gpu - lg_cpu).abs().max().item()
+        rel = ((lg_gpu - lg_cpu).norm() / lg_cpu.norm()).item()
+        check(bool(torch.isfinite(lg_gpu).all()) and d <= 6e-2 * lg_cpu.abs().max().item() and rel <= 3e-2,
+              f"[10e] 2-layer fp8 cut step {step_i}: max|d| {d}, rel L2 {rel}")
+        print(f"[10e] 2-layer full-width cut, e4m3 caches, 1024-token prompt, step {step_i}: max|dlogit| {d:.4g} of "
+              f"max {lg_cpu.abs().max().item():.4g}, rel L2 {rel:.3g} (limits 6e-2 of max, 3e-2), fp8 K7 launches "
+              f"{fl8}")
+        toks = lg_cpu[:, -1].argmax(-1).to(torch.int32)[:, None]
+    print(f"[10e] 2-layer cut: CPU side {t_cpu:.1f} s")
+    del p_gpu, p_cpu, c_gpu, c_cpu
+    torch.cuda.empty_cache()
+
+    # (f) the CLI with the new flags on a 4-layer checkpoint at Mistral-7B width
+    cfg4 = T.ModelConfig(**{**cfg.__dict__, "n_layers": 4})
+    ckpt10 = root / "build" / "chip_smoke_engine_ckpt"
+    shutil.rmtree(ckpt10, ignore_errors=True)
+    sampled_p, greedy_p = (torch.randint(0, cfg.vocab_size, (n,), generator=g10).tolist() for n in (300, 100))
+    flags = ["--warmup-prompt-len", "512", "--temperature", "0.7", "--top-p", "0.9", "--prefix-cache",
+             "--prefix-store", "2", "--kv-dtype", "float8_e4m3fn", "--logprobs", "--prefill-chunk", "256"]
+    log10 = root / "build" / "chip_smoke_engine_server.log"
+    try:
+        p4 = synth_params(cfg4, seed=17, device=dev)  # unfused, as the CLI loads a checkpoint
+        save_checkpoint(str(ckpt10), cfg4, p4)
+        del p4
+        torch.cuda.empty_cache()
+        cmd = [sys.executable, "-m", "torch_bnb_fp4_tpu_torch.serve", "--ckpt", str(ckpt10), "--max-batch", "4",
+               "--max-len", "2048", "--port", "0", *flags]
+        with open(log10, "w") as err:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=err, text=True)
+            try:
+                lines = queue.Queue()
+                threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+                line = lines.get(timeout=600)
+                check(line.startswith("serving on http://"), f"[10f] the server printed {line!r}")
+                url, startup_s = line.split()[-1], time.perf_counter() - t0
+                out = {}
+                bodies = {"sampled": {"prompt": sampled_p, "max_tokens": NEW_TOKENS},
+                          "greedy": {"prompt": greedy_p, "max_tokens": NEW_TOKENS, "temperature": 0}}
+                threads = [threading.Thread(target=lambda k=k: out.__setitem__(k, http_post(url, bodies[k])))
+                           for k in bodies]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                check(sorted(out) == ["greedy", "sampled"], "[10f] a request over HTTP did not complete")
+                for k, c in out.items():
+                    check(len(c["tokens"]) == NEW_TOKENS and len(c.get("logprobs", [])) == NEW_TOKENS
+                          and all(v <= 0 for v in c["logprobs"]), f"[10f] {k} request: {c}")
+                stats10 = http_get(url, "/v1/stats")
+                proc.send_signal(signal.SIGINT)
+                rc = proc.wait(timeout=120)
+                check(rc == 0, f"[10f] the server exited with {rc} on SIGINT")
+            except BaseException:
+                err.flush()
+                print("[10f] server log (tail):\n" + log10.read_text()[-4000:], file=sys.stderr)
+                raise
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        cfg4r, p4r = load_checkpoint(str(ckpt10), device=dev)
+        greedy_eng = Engine(p4r, cfg4r, EngineConfig(max_batch=4, max_len=2048, prefill_chunk=256, prefix_cache=True,
+                                                     prefix_store=2, kv_dtype="float8_e4m3fn", logprobs=True))
+        local = greedy_eng.run([Request(uid=0, prompt=greedy_p, max_new_tokens=NEW_TOKENS)])[0]
+        check(local.tokens == out["greedy"]["tokens"], "[10f] the temperature-0 request over HTTP differs from the "
+                                                       "in-process greedy engine")
+        print(f"[10f] CLI {' '.join(flags)}: serving line after {startup_s:.1f} s (load and warmup); a sampled "
+              f"300-token and a temperature-0 100-token request at once, both with {NEW_TOKENS} logprobs; the "
+              f"temperature-0 tokens equal the in-process greedy engine's; SIGINT -> rc 0; server launches "
+              f"{json.dumps(stats10['launches'])}")
+        del p4r, greedy_eng
+    finally:
+        shutil.rmtree(ckpt10, ignore_errors=True)
+    torch.cuda.empty_cache()
+
     # -- kernel table ------------------------------------------------------------------
     k_launch = launches["matmul_pk"] + launches["matmul_pk_minner"] + launches["matmul_pk_w4a8"]
     kernels_json.append(dict(
@@ -1722,6 +2113,13 @@ def main() -> int:
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound"] * 1e3,
             bound_by=max(tot["by"], key=tot["by"].get), library_ms=None,
             **({"bf16_matmul_ms": tot["bf16_ms"]} if kname == "K9b" else {})))
+    fr = flash_rows["f"]
+    kernels_json.append(dict(
+        name=f"K7 flash_attention, fp8 K/V form ({fr['what']}; launches of phase 10e's fp8-KV engine)", route="cuda",
+        source="torch_bnb_fp4_tpu_torch/csrc/flash_attention.cu", replaces="torch_bnb_fp4_tpu/ops/attention.py:40",
+        launches=launches10e["flash_attention_fp8"], max_abs_err=fr["max_abs_err"], row_err=fr["row_err"], ms=fr["ms"],
+        plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"], bound_by=fr["bound_by"], library_ms=None,
+        sdpa_on_widened_kv_ms=fr["sdpa_widened_ms"], bf16_form_ms=fr["bf16_ms"], split=fr["split"]))
     print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -776,3 +776,82 @@ def test_splitk_model_cuda_matches_cpu_tiny(dev):
         graph.replay()
         torch.cuda.synchronize()
         torch.testing.assert_close(out, eager, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["mistral_ring_chunk", "mistral_causal_prompt", "gemma2_softcap",
+                                  "tinyllama_mixed_lengths", "rows_see_no_key"])
+def test_k7_fp8_kv_vs_plain(dev, name):
+    """K7's fp8 form (bf16 q, float8_e4m3fn K/V as an fp8 KV cache stores
+    them) against its plain version with the kernel's blocks and split, at
+    the bf16 cases' per-row tolerance; counted apart from the bf16 form."""
+    from torch_bnb_fp4_tpu_torch.models.transformer import kv_cast
+    from torch_bnb_fp4_tpu_torch.ops import attention as A
+    from torch_bnb_fp4_tpu_torch.utils.synth import synth_attention
+
+    b, lq, lk, hq, hk, d, lens, q_off, window, cap, scale = FLASH_CASES[name]
+    q, k, v, *pos = synth_attention(b, lq, lk, hq, hk, d, lens=lens, q_offset=q_off, seed=lq + lk, device=dev)
+    k8, v8 = kv_cast(k, torch.float8_e4m3fn), kv_cast(v, torch.float8_e4m3fn)
+    before = K.launch_counts()
+    got = A.flash_attention(q, k8, v8, *pos, window, scale, cap)
+    after = K.launch_counts()
+    assert after["flash_attention_fp8"] == before["flash_attention_fp8"] + 1
+    assert after["flash_attention"] == before["flash_attention"]
+    split = A.kernel_split(b, lq, lk, hq, hk, K._sm_count(dev), d)
+    want = A.flash_attention_plain(q, k8, v8, *pos, window, scale, cap, block_q=A.kernel_blocks(hq, hk, d)[0],
+                                   block_k=A.BLOCK_K, split=split)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    _k7_close(got, want)
+
+
+def test_kv_cast_on_card_equals_cpu(dev):
+    """The fp8 KV write cast (models.transformer.kv_cast) gives the same byte
+    on the card as on the CPU for every bf16 bit pattern."""
+    from torch_bnb_fp4_tpu_torch.models.transformer import kv_cast
+
+    x = torch.arange(-(2**15), 2**15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    got = kv_cast(x.to(dev), torch.float8_e4m3fn).view(torch.uint8).cpu()
+    torch.testing.assert_close(got, kv_cast(x, torch.float8_e4m3fn).view(torch.uint8), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["plain", "spec", "fp8_chunked"])
+def test_graphed_engine_equals_eager_generate(dev, mode):
+    """The engine on the card decodes by CUDA-graph replay: after warmup()
+    serving captures nothing (traces flat), its greedy tokens equal eager
+    ``generate``'s (prompts of whole 32-row buckets, so both prefill the same
+    rows), and the launch counts include every replay (K2 at least once per
+    linear per decode step).  ``fp8_chunked`` serves from an e4m3 cache with
+    chunked prefill: its tokens are not held against the bf16 ``generate``
+    (the cache rounds K/V), only its logprobs, flat traces and cache dtype."""
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+    from torch_bnb_fp4_tpu_torch.serve import Engine, EngineConfig, Request
+    from torch_bnb_fp4_tpu_torch.utils.synth import synth_params
+
+    cfg = T.ModelConfig.tiny_test(n_layers=2)
+    params = synth_params(cfg, seed=5, fuse=True, device=dev)
+    g = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in (32, 64, 32)]
+    kw = dict(max_batch=4, max_len=128, inner_steps=4, batch_buckets=True, logprobs=True)
+    if mode == "spec":
+        kw.update(spec_tokens=3, spec_ngram=2)
+        prompts = [(p[:8] * 4)[:32] for p in prompts]  # periodic prompts: drafts get accepted
+    if mode == "fp8_chunked":
+        kw.update(kv_dtype="float8_e4m3fn", prefill_chunk=32)
+    eng = Engine(params, cfg, EngineConfig(**kw))
+    warm = eng.warmup(max_prompt_len=64)
+    K.reset_launch_counts()
+    res = eng.run([Request(uid=i, prompt=p, max_new_tokens=12) for i, p in enumerate(prompts)])
+    assert eng.traces == warm
+    steps = eng.stats()["decode_steps"]
+    assert K.launch_counts()["matmul_pk"] >= steps * 4 * cfg.n_layers
+    for i, p in enumerate(prompts):
+        c = res[i]
+        assert len(c.tokens) == 12 and len(c.logprobs) == 12 and all(lp <= 0 for lp in c.logprobs)
+        if mode == "fp8_chunked":
+            continue
+        want = T.generate(params, cfg, torch.tensor([p], dtype=torch.int32, device=dev), 12)[0].tolist()
+        assert c.tokens == want, (i, c.tokens, want)
+    if mode == "fp8_chunked":
+        assert all(a.dtype == torch.float8_e4m3fn for a in eng.cache.k + eng.cache.v)
+    if mode == "spec":
+        assert eng.stats()["spec_tokens_per_forward"] >= 1.0

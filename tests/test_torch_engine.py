@@ -7,7 +7,7 @@ together.  One request is also held against the JAX package's ``generate``
 on the same weights, carried across with convert/from_numpy.py.  Chunked
 prefill interleaves with decoding and matches ``generate``; the ring engine
 matches the full-cache engine (as tests/test_sliding.py:193-209).  ``submit``
-rejects the sampling parameters and adapters a greedy engine cannot honour
+rejects the sampling parameters a greedy engine cannot honour, and adapters,
 with the JAX engine's exception type, and ``abort`` cancels a request
 queued, between prefill chunks or decoding (as tests/test_serve.py).
 """
@@ -82,14 +82,6 @@ def test_capacity_limits_generation(params):
     res = eng.run([Request(uid=1, prompt=list(range(1, 13)), max_new_tokens=50)])
     assert len(res[1].tokens) == 16 - 12 and res[1].finish_reason == "length"
     assert res[1].tokens == _oracle(params, list(range(1, 13)), 4)
-
-
-@pytest.mark.parametrize("field,value", [("temperature", 0.7), ("admit_budget", 2), ("spec_tokens", 2),
-                                         ("prefix_cache", True), ("kv_dtype", "float8_e4m3fn"),
-                                         ("batch_buckets", True), ("logprobs", True)])
-def test_unported_engine_features_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        EngineConfig(**{field: value})
 
 
 def test_submit_validation(params):

@@ -4,9 +4,11 @@ The cases of tests/test_server.py, ported: non-streaming and streaming
 completions equal the port's greedy ``generate`` token for token, concurrent
 requests batch, stop ids, text prompts through a tokenizer, bad sampling
 parameters and bad requests are 400s after which the server still serves,
-abort over HTTP, 404.  The CLI refuses the JAX flags it has not ported, runs
-as a subprocess on the CPU (serving line, one prompt, SIGINT, exit code 0)
-and, without ``--device cpu``, needs a card.
+abort over HTTP, 404.  The CLI serves with each of the JAX CLI's sampling,
+speculation, prefix-cache, logprob, KV-dtype and warmup flags, refuses
+settings with the JAX CLI's errors, refuses the LoRA, TP and multi-host flags
+it has not ported, runs as a subprocess on the CPU (serving line, prompts,
+SIGINT, exit code 0) and, without ``--device cpu``, needs a card.
 """
 
 import json
@@ -22,7 +24,7 @@ import pytest
 import torch
 
 from torch_bnb_fp4_tpu_torch.models import transformer as T
-from torch_bnb_fp4_tpu_torch.serve import Engine, EngineConfig, EngineServer
+from torch_bnb_fp4_tpu_torch.serve import Engine, EngineConfig, EngineServer, Request
 from torch_bnb_fp4_tpu_torch.serve import __main__ as cli
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -190,21 +192,122 @@ def test_bad_requests(server):
         assert ei.value.code == 404
 
 
-@pytest.mark.parametrize("argv", [["--temperature", "0.7"], ["--top-p", "0.9"], ["--top-k", "5"],
-                                  ["--spec-tokens", "2"], ["--prefix-cache"], ["--prefix-store", "2"],
-                                  ["--logprobs"], ["--multihost"], ["--coordinator", "h:1"], ["--tp", "2"],
-                                  ["--kv-dtype", "float8_e4m3fn"], ["--lora", "d"], ["--lora-merge"],
-                                  ["--warmup-prompt-len", "64"]], ids=lambda a: a[0])
+@pytest.mark.parametrize("argv", [["--multihost"], ["--coordinator", "h:1"], ["--tp", "2"], ["--lora", "d"],
+                                  ["--lora-merge"]], ids=lambda a: a[0])
 def test_cli_refuses_unported_flags(capsys, argv):
     with pytest.raises(SystemExit) as ei:
         cli.main(["--device", "cpu", *argv])
     assert ei.value.code == 2 and "not yet ported" in capsys.readouterr().err
 
 
+NEW_FLAGS = {
+    "--temperature": (["--temperature", "0.7"], dict(temperature=0.7)),
+    "--top-p": (["--top-p", "0.9"], dict(top_p=0.9)),
+    "--top-k": (["--top-k", "5"], dict(top_k=5)),
+    "--spec-tokens": (["--spec-tokens", "2"], dict(spec_tokens=2)),
+    "--prefix-cache": (["--prefix-cache"], dict(prefix_cache=True)),
+    "--prefix-store": (["--prefix-cache", "--prefix-store", "2"], dict(prefix_cache=True, prefix_store=2)),
+    "--logprobs": (["--logprobs"], dict(logprobs=True)),
+    "--kv-dtype": (["--kv-dtype", "float8_e4m3fn"], dict(kv_dtype="float8_e4m3fn")),
+    "--warmup-prompt-len": (["--warmup-prompt-len", "32"], {}),
+}
+
+
+@pytest.mark.parametrize("flag", list(NEW_FLAGS))
+def test_cli_serves_with_each_new_flag(flag):
+    """The CLI's engine with one of the JAX CLI's flags (--device cpu, the
+    tiny random model), served over HTTP: the setting reaches the engine, and
+    a completion comes back (greedy ones equal generate; --logprobs carries
+    one logprob per token; --warmup-prompt-len has run every program)."""
+    argv, want = NEW_FLAGS[flag]
+    eng = cli.build_engine(cli._parser().parse_args(["--device", "cpu", "--max-len", "64", *argv]))
+    assert {k: getattr(eng.ecfg, k) for k in want} == want
+    if flag == "--warmup-prompt-len":
+        assert eng.traces["decode"] >= 4 and eng.traces["prefill"] >= 1
+    if flag == "--kv-dtype":
+        assert eng.cache.k[0].dtype == torch.float8_e4m3fn
+    srv = EngineServer(eng, port=0).start()
+    try:
+        got = _post(srv, {"prompt": [3, 1, 4, 1, 5], "max_tokens": 5})
+    finally:
+        srv.stop()
+    assert len(got["tokens"]) == 5 and all(0 <= t < eng.cfg.vocab_size for t in got["tokens"])
+    if flag == "--logprobs":
+        assert len(got["logprobs"]) == 5 and max(got["logprobs"]) <= 0
+    else:
+        assert "logprobs" not in got
+    if eng.ecfg.temperature == 0 and eng.ecfg.kv_dtype == "bfloat16":
+        want_toks = T.generate(eng.params, eng.cfg, torch.tensor([[3, 1, 4, 1, 5]], dtype=torch.int32), 5)
+        assert got["tokens"] == want_toks[0].tolist()
+
+
+@pytest.mark.parametrize("argv", [["--prefix-store", "2"], ["--top-p", "0"], ["--temperature", "-1"],
+                                  ["--top-k", "-1"], ["--prefill-chunk", "48"],
+                                  ["--spec-tokens", "2", "--max-len", "3"]], ids=lambda a: "_".join(a))
+def test_cli_validation_errors_match_jax(monkeypatch, argv):
+    """Settings the JAX CLI refuses (its Engine raises ValueError) the port's
+    CLI refuses with the same type and message."""
+    from torch_bnb_fp4_tpu.serve import __main__ as jax_cli
+
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    with pytest.raises(ValueError) as want:
+        jax_cli.main()
+    with pytest.raises(ValueError) as got:
+        cli.main(["--device", "cpu", *argv])
+    assert str(got.value) == str(want.value)
+
+
 def test_cli_needs_cuda_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(["--port", "0"])
+
+
+def test_cli_serves_the_new_flags_together_and_stops_on_sigint():
+    """The CLI as a subprocess with phase 10f's flags of chip_smoke.py
+    (--device cpu): warmup before the serving line; a sampled request and a
+    temperature-0 one at once, both with logprobs; the temperature-0 tokens
+    equal an in-process greedy engine's with the same cache settings; SIGINT
+    exits 0."""
+    flags = ["--warmup-prompt-len", "64", "--temperature", "0.7", "--top-p", "0.9", "--prefix-cache",
+             "--prefix-store", "2", "--kv-dtype", "float8_e4m3fn", "--logprobs", "--prefill-chunk", "32"]
+    proc = subprocess.Popen([sys.executable, "-m", "torch_bnb_fp4_tpu_torch.serve", "--device", "cpu", "--port", "0",
+                             "--max-len", "128", *flags], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving on http://127.0.0.1:"), (line, proc.stderr.read() if proc.poll() else "")
+        url = line.split()[-1]
+        bodies = {"sampled": {"prompt": list(range(1, 41)), "max_tokens": 6},
+                  "greedy": {"prompt": [9, 8, 7, 6], "max_tokens": 6, "temperature": 0}}
+        out = {}
+
+        def post(k):
+            req = urllib.request.Request(url + "/v1/completions", data=json.dumps(bodies[k]).encode())
+            with urllib.request.urlopen(req, timeout=120) as r:
+                out[k] = json.loads(r.read())
+
+        threads = [threading.Thread(target=post, args=(k,)) for k in bodies]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        for k in bodies:
+            assert len(out[k]["tokens"]) == 6 and len(out[k]["logprobs"]) == 6 and max(out[k]["logprobs"]) <= 0, k
+        proc.send_signal(signal.SIGINT)
+        stdout, err = proc.communicate(timeout=60)
+        assert proc.returncode == 0, err[-2000:]
+        assert "warmup done" in err
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    cfg = T.ModelConfig.tiny_test(n_layers=2)
+    params = T.quantize_params(cfg, T.random_weights(cfg, seed=0), device="cpu")
+    greedy = Engine(params, cfg, EngineConfig(max_len=128, prefix_cache=True, prefix_store=2, prefill_chunk=32,
+                                              kv_dtype="float8_e4m3fn")).run(
+        [Request(uid=0, prompt=[9, 8, 7, 6], max_new_tokens=6)])[0]
+    assert greedy.tokens == out["greedy"]["tokens"]
 
 
 def test_cli_serves_and_stops_on_sigint():

@@ -61,7 +61,30 @@
 //  * q (B, Lq, Hq, D) and the cache (B, rows, Hk, D) are read in place
 //    through their strides; ragged Lq / Lk edges are masked here (keys past
 //    Lk are zero-filled and invalid).  No transposes, no padding copies.
+//
+// The fp8 form (template F8: bf16 q, float8_e4m3fn K/V from an fp8 KV cache;
+// the JAX kernel's dot_general(q, k) on a bf16 q and e4m3 k, and its
+// p.astype(v.dtype) before the PV dot):
+//  * TMA brings each e4m3 K/V tile at half the bf16 bytes: one [64 keys][D
+//    bytes] box per operand, unswizzled, into a staging ring of F8_STAGES
+//    tiles (its own mbarriers), kept F8_STAGES tiles ahead.
+//  * A producer warpgroup (4 warps; the bf16 form has one producer warp)
+//    widens each staged tile exactly to bf16 (e4m3 -> f16 -> f32 -> bf16,
+//    every step exact) into the bf16 ring stage, in the swizzled layout the
+//    bf16 form's wgmma descriptors read, then arrives on the stage's full
+//    barrier.  The consumers are the bf16 form's, unchanged: S on bf16 wgmma
+//    equals the f32 dot of q with the e4m3 values.
+//  * P is rounded to e4m3 (round to nearest even; p <= 1 never saturates)
+//    and widened back to bf16 (exact), which is JAX's p.astype(v.dtype); P V
+//    stays a bf16 wgmma with V read through trans-b.  Hopper's fp8 wgmma
+//    takes K-major operands only and V is MN-major here, so fp8 wgmma is not
+//    used for P V.
+//  * Bound: K/V bytes are halved, q and o stay bf16, the operations are the
+//    bf16 form's; the widening costs shared-memory bandwidth and the
+//    producer warpgroup's issue slots (a right kernel first, tuning later).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -77,8 +100,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+  const void* k;  // bf16, or e4m3 bytes in the fp8 form
+  const void* v;
   __nv_bfloat16* o;
   float* part_acc;  // split > 1: (S, B, Lq, Hq, D) f32
   float* part_ml;   // split > 1: (S, 2, B, Lq, Hq) f32, m then l
@@ -91,20 +114,24 @@ struct Params {
   int use_cap, window, use_window;
 };
 
-template <int D>
+template <int D, bool F8>
 struct Cfg {
   static constexpr int NC = D == 256 ? 1 : 2;  // consumer warpgroups
   static constexpr int ROWS = 64 * NC;
   static constexpr int STAGES = D == 256 ? 2 : 4;
-  static constexpr int THREADS = 128 * NC + 32;  // + one producer warp
-  static constexpr int CH = D / 8;               // 16-byte chunks per row
-  static constexpr int KV_BYTES = kBK * D * 2;   // one K or V tile: D / 64 panels of kBK rows
-  static constexpr int OFF_KV = ROWS * D * 2;    // after the Q tile (D / 64 panels of ROWS rows)
-  static constexpr int OFF_KPOS = OFF_KV + STAGES * 2 * KV_BYTES;
+  static constexpr int PW = F8 ? 4 : 1;               // producer warps
+  static constexpr int THREADS = 128 * NC + 32 * PW;  // + the producer warp(s)
+  static constexpr int CH = D / 8;                    // 16-byte chunks per row
+  static constexpr int KV_BYTES = kBK * D * 2;        // one K or V tile: D / 64 panels of kBK rows
+  static constexpr int F8_STAGES = D == 256 ? 1 : 2;  // fp8 form: staged e4m3 K/V tiles
+  static constexpr int F8_BYTES = kBK * D;            // one staged e4m3 K or V tile, [kBK][D] bytes
+  static constexpr int OFF_KV = ROWS * D * 2;         // after the Q tile (D / 64 panels of ROWS rows)
+  static constexpr int OFF_F8 = OFF_KV + STAGES * 2 * KV_BYTES;
+  static constexpr int OFF_KPOS = OFF_F8 + (F8 ? F8_STAGES * 2 * F8_BYTES : 0);
   static constexpr int OFF_KRANGE = OFF_KPOS + STAGES * kBK * 4;  // the tiles' key-position ranges
   static constexpr int OFF_RPOS = OFF_KRANGE + STAGES * 8;
-  static constexpr int OFF_BAR = OFF_RPOS + ROWS * 4;  // full[STAGES], empty[STAGES]
-  static constexpr int OFF_CNT = OFF_BAR + 2 * STAGES * 8;
+  static constexpr int OFF_BAR = OFF_RPOS + ROWS * 4;  // full[STAGES], empty[STAGES], staged[F8_STAGES]
+  static constexpr int OFF_CNT = OFF_BAR + (2 * STAGES + F8_STAGES) * 8;
   static constexpr int OFF_LIST = OFF_CNT + 16;  // listed tiles (int), then the need flags (bytes)
   static size_t smem(int nk) { return 1024 + OFF_LIST + static_cast<size_t>(nk) * 5; }
 };
@@ -114,10 +141,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+// two e4m3 values (low byte first) widened to a bf16 pair (low half first);
+// e4m3 -> f16 -> f32 -> bf16 is exact at every step
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t two) {
+  const __half2 h = __half2(__nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(two & 0xffffu), __NV_E4M3));
+  const float2 f = __half22float2(h);
+  return pack_bf16(f.x, f.y);
+}
+
+// p rounded to e4m3 (nearest even; p in [0, 1] never saturates), then widened to bf16: JAX's p.astype(v.dtype)
+__device__ __forceinline__ uint32_t pack_e4m3_bf16(float lo, float hi) {
+  return e4m3x2_to_bf16x2(__nv_cvt_float2_to_fp8x2(make_float2(lo, hi), __NV_SATFINITE, __NV_E4M3));
+}
+
+template <int D, bool F8>
+__global__ void __launch_bounds__(Cfg<D, F8>::THREADS, 1)
     flash_kernel(const Params p, const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv) {
-  using C = Cfg<D>;
+  using C = Cfg<D, F8>;
   extern __shared__ unsigned char smem_raw[];
   // operand panels need 1024-byte alignment (the swizzle reads address bits 7-9)
   unsigned char* smem = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -127,6 +167,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
   int* rpos_s = reinterpret_cast<int*>(smem + C::OFF_RPOS);  // [ROWS]
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
   uint64_t* empty = full + C::STAGES;
+  uint64_t* staged = empty + C::STAGES;  // fp8 form: the staging ring's TMA barriers
   int* count_s = reinterpret_cast<int*>(smem + C::OFF_CNT);
   int* list = reinterpret_cast<int*>(smem + C::OFF_LIST);
   uint8_t* need = reinterpret_cast<uint8_t*>(list + p.nk);
@@ -169,9 +210,11 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
   }
   if (tid == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
-      hop::mbar_init(&full[s], 33);  // the producer's 32 lanes + its expect_tx
+      // bf16: the producer's 32 lanes + its expect_tx; fp8: the producer warpgroup's 128 threads
+      hop::mbar_init(&full[s], F8 ? 128 : 33);
       hop::mbar_init(&empty[s], 128 * C::NC);
     }
+    for (int s = 0; s < C::F8_STAGES; ++s) hop::mbar_init(&staged[s], 1);  // lane 0's expect_tx
     hop::mbar_init_fence();
   }
   hop::fence_proxy_async();  // the Q tile is read by wgmma
@@ -189,8 +232,9 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
   __syncthreads();
   const int ntiles = *count_s;
 
-  if (warp == 4 * C::NC) {
-    // ---- producer warp: K/V tiles by TMA, key positions into the ring ----
+  if (warp >= 4 * C::NC) {
+    // ---- producer warp(s): K/V tiles by TMA (fp8: staged, then widened), key positions into the ring ----
+    const bool pos_warp = warp == 4 * C::NC;  // the warp that writes the key positions
     // this lane's two key positions of tile t, INT_MAX where invalid (no query sees them);
     // fetched one tile ahead
     auto fetch = [&](int t) {
@@ -200,13 +244,47 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
       const bool v0 = k0 < p.Lk && kval[c0] != 0, v1 = k1 < p.Lk && kval[c1] != 0;
       return make_int2(v0 ? p0 : INT_MAX, v1 ? p1 : INT_MAX);
     };
-    int2 kp_next = ntiles > 0 ? fetch(list[0]) : make_int2(0, 0);
+    const int ptid = tid - 128 * C::NC;  // 0..32 * PW - 1
+    // fp8 form: the e4m3 K and V tiles of list[i] by TMA into staging slot i % F8_STAGES, one
+    // [kBK keys][D bytes] box each; keys past Lk read as 0
+    auto stage = [&](int i) {
+      const int fs = i % C::F8_STAGES;
+      unsigned char* sd = smem + C::OFF_F8 + fs * 2 * C::F8_BYTES;
+      hop::mbar_expect_tx(&staged[fs], 2 * C::F8_BYTES);
+      hop::tma_load_4d(sd, &tk, &staged[fs], 0, hk, list[i] * kBK, b);
+      hop::tma_load_4d(sd + C::F8_BYTES, &tv, &staged[fs], 0, hk, list[i] * kBK, b);
+    };
+    if constexpr (F8) {
+      if (ptid == 0)
+        for (int i = 0; i < C::F8_STAGES && i < ntiles; ++i) stage(i);
+    }
+    int2 kp_next = pos_warp && ntiles > 0 ? fetch(list[0]) : make_int2(0, 0);
     for (int i = 0; i < ntiles; ++i) {
       const int st = i % C::STAGES;
       if (i >= C::STAGES) hop::mbar_wait(&empty[st], ((i / C::STAGES) - 1) & 1);
       const int t = list[i];
-      if (lane == 0) {  // D / 64 boxes of [64 keys][64 columns] each for K and V; keys past Lk read as 0
-        unsigned char* kd = smem + C::OFF_KV + st * 2 * C::KV_BYTES;
+      unsigned char* kd = smem + C::OFF_KV + st * 2 * C::KV_BYTES;
+      if constexpr (F8) {
+        // widen the staged e4m3 tiles into the ring stage: each thread takes 16 bytes (16 keys' columns)
+        // at a time and writes two swizzled 16-byte bf16 chunks
+        const int fs = i % C::F8_STAGES;
+        hop::mbar_wait(&staged[fs], (i / C::F8_STAGES) & 1);
+        const unsigned char* sd = smem + C::OFF_F8 + fs * 2 * C::F8_BYTES;
+        constexpr int UPR = D / 16;  // 16-byte units per key row
+#pragma unroll 4
+        for (int u = ptid; u < 2 * kBK * UPR; u += 32 * C::PW) {
+          const int mi = u / (kBK * UPR), r = (u / UPR) % kBK, c16 = u % UPR;
+          const uint4 raw = *reinterpret_cast<const uint4*>(sd + mi * C::F8_BYTES + r * D + c16 * 16);
+          const uint4 lo = make_uint4(e4m3x2_to_bf16x2(raw.x), e4m3x2_to_bf16x2(raw.x >> 16),
+                                      e4m3x2_to_bf16x2(raw.y), e4m3x2_to_bf16x2(raw.y >> 16));
+          const uint4 hi = make_uint4(e4m3x2_to_bf16x2(raw.z), e4m3x2_to_bf16x2(raw.z >> 16),
+                                      e4m3x2_to_bf16x2(raw.w), e4m3x2_to_bf16x2(raw.w >> 16));
+          // columns 16 c16 .. +16: panel c16 / 4, chunks 2 (c16 % 4) and 2 (c16 % 4) + 1
+          unsigned char* dp = kd + mi * C::KV_BYTES + (c16 >> 2) * (kBK * 128);
+          *reinterpret_cast<uint4*>(dp + hop::sw128(r, 2 * (c16 & 3))) = lo;
+          *reinterpret_cast<uint4*>(dp + hop::sw128(r, 2 * (c16 & 3) + 1)) = hi;
+        }
+      } else if (lane == 0) {  // D / 64 boxes of [64 keys][64 columns] each for K and V; keys past Lk read as 0
         hop::mbar_expect_tx(&full[st], 2 * C::KV_BYTES);
 #pragma unroll
         for (int pn = 0; pn < D / 64; ++pn) {
@@ -214,17 +292,26 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
           hop::tma_load_4d(kd + C::KV_BYTES + pn * (kBK * 128), &tv, &full[st], pn * 64, hk, t * kBK, b);
         }
       }
-      const int2 kp = kp_next;
-      if (i + 1 < ntiles) kp_next = fetch(list[i + 1]);
-      kpos_s[st * kBK + lane] = kp.x;
-      kpos_s[st * kBK + lane + 32] = kp.y;
-      const int kmin = __reduce_min_sync(0xffffffffu, min(kp.x, kp.y));
-      const int kmax = __reduce_max_sync(0xffffffffu, max(kp.x, kp.y));
-      if (lane == 0) {
-        krange_s[2 * st] = kmin;
-        krange_s[2 * st + 1] = kmax;
+      if (pos_warp) {
+        const int2 kp = kp_next;
+        if (i + 1 < ntiles) kp_next = fetch(list[i + 1]);
+        kpos_s[st * kBK + lane] = kp.x;
+        kpos_s[st * kBK + lane + 32] = kp.y;
+        const int kmin = __reduce_min_sync(0xffffffffu, min(kp.x, kp.y));
+        const int kmax = __reduce_max_sync(0xffffffffu, max(kp.x, kp.y));
+        if (lane == 0) {
+          krange_s[2 * st] = kmin;
+          krange_s[2 * st + 1] = kmax;
+        }
       }
-      __syncwarp();
+      if constexpr (F8) {
+        hop::fence_proxy_async();  // the widened tile is read by wgmma (async proxy)
+        // every producer thread is done with staging slot i % F8_STAGES: refill it
+        asm volatile("bar.sync 1, %0;\n" ::"n"(32 * C::PW) : "memory");
+        if (ptid == 0 && i + C::F8_STAGES < ntiles) stage(i + C::F8_STAGES);
+      } else {
+        __syncwarp();
+      }
       hop::mbar_arrive(&full[st]);
     }
   } else {
@@ -330,12 +417,16 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
           for (int e = 0; e < OW; ++e) o[c][e] *= (e & 3) < 2 ? al0 : al1;
       }
 
-      // acc += P V, P rounded to bf16 (the S accumulator is P's A fragment)
+      // acc += P V, P rounded to bf16 (fp8 form: to e4m3, then widened to bf16; the S accumulator is P's
+      // A fragment)
       hop::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        const uint32_t a[4] = {pack_bf16(s[8 * kk], s[8 * kk + 1]), pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
-                               pack_bf16(s[8 * kk + 4], s[8 * kk + 5]), pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
+        uint32_t a[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          a[h] = F8 ? pack_e4m3_bf16(s[8 * kk + 2 * h], s[8 * kk + 2 * h + 1])
+                    : pack_bf16(s[8 * kk + 2 * h], s[8 * kk + 2 * h + 1]);
 #pragma unroll
         for (int c = 0; c < NCH; ++c) {
           // keys 16kk.. of the panels holding columns 128c.. (two 64-column panels kBK * 128 bytes apart)
@@ -405,31 +496,34 @@ __global__ void flash_combine(const float* __restrict__ part_acc, const float* _
   o[i] = __float2bfloat16_rn(acc / fmaxf(l, 1e-30f));
 }
 
-// the cache (B, Lk, Hk, D) as a TMA tensor map with [64 keys][64 columns] boxes in the 128-byte swizzle
-int cache_map(CUtensorMap* map, const void* base, const Params& p, int D, int64_t sb, int64_t sl, int64_t sh) {
+// the cache (B, Lk, Hk, D) as a TMA tensor map: bf16 with [64 keys][64 columns] boxes in the 128-byte
+// swizzle, or (fp8 form) e4m3 bytes with one unswizzled [64 keys][D bytes] box
+int cache_map(CUtensorMap* map, const void* base, const Params& p, int D, bool f8, int64_t sb, int64_t sl,
+              int64_t sh) {
+  const int64_t es = f8 ? 1 : 2;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(p.Hk),
                               static_cast<cuuint64_t>(p.Lk), static_cast<cuuint64_t>(p.B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(sl) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, kBK, 1};
-  return hop::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box,
-                       CU_TENSOR_MAP_SWIZZLE_128B);
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh * es), static_cast<cuuint64_t>(sl * es),
+                                 static_cast<cuuint64_t>(sb * es)};
+  const cuuint32_t box[4] = {f8 ? static_cast<cuuint32_t>(D) : 64u, 1, kBK, 1};
+  return hop::make_map(map, f8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims,
+                       strides, box, f8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int D>
+template <int D, bool F8>
 int launch(Params p, cudaStream_t s) {
-  using C = Cfg<D>;
+  using C = Cfg<D, F8>;
   const size_t smem = C::smem(p.nk);
   if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tk, tv;
-  int st = cache_map(&tk, p.k, p, D, p.skb, p.skl, p.skh);
-  if (st == 0) st = cache_map(&tv, p.v, p, D, p.svb, p.svl, p.svh);
+  int st = cache_map(&tk, p.k, p, D, F8, p.skb, p.skl, p.skh);
+  if (st == 0) st = cache_map(&tv, p.v, p, D, F8, p.svb, p.svl, p.svh);
   if (st != 0) return st;
-  cudaError_t e =
-      cudaFuncSetAttribute(flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t e = cudaFuncSetAttribute(flash_kernel<D, F8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((p.Lq + p.BQ - 1) / p.BQ, p.B * p.Hk, p.S);
-  flash_kernel<D><<<grid, C::THREADS, smem, s>>>(p, tk, tv);
+  flash_kernel<D, F8><<<grid, C::THREADS, smem, s>>>(p, tk, tv);
   e = cudaGetLastError();
   if (e != cudaSuccess || p.S == 1) return static_cast<int>(e);
   const int64_t rows = static_cast<int64_t>(p.B) * p.Lq * p.Hq;
@@ -440,8 +534,9 @@ int launch(Params p, cudaStream_t s) {
 
 }  // namespace
 
-// q (B, Lq, Hq, D), k and v (B, Lk, Hk, D) bf16 with element strides s*b,
-// s*l, s*h and a contiguous last dim (16-byte aligned rows); o (B, Lq, Hq, D)
+// q (B, Lq, Hq, D), k and v (B, Lk, Hk, D) bf16 (kv_fp8: k and v e4m3 bytes)
+// with element strides s*b, s*l, s*h and a contiguous last dim (16-byte
+// aligned rows, byte strides multiples of 16); o (B, Lq, Hq, D)
 // bf16 contiguous; qpos (B, Lq) i32, kpos (B, Lk) i32, kval (B, Lk) bytes 0/1.
 // D in {64, 128, 256}; Hq % Hk == 0 with G = Hq / Hk <= rows (128 for D <= 128,
 // 64 for D = 256) and block_q = rows / G.  split S >= 1 key ranges; for S > 1
@@ -452,15 +547,15 @@ extern "C" int pk_flash_attention(const void* q, const void* k, const void* v, v
                                   int Lk, int Hq, int Hk, int D, int block_q, int split, int64_t sqb, int64_t sql,
                                   int64_t sqh, int64_t skb, int64_t skl, int64_t skh, int64_t svb, int64_t svl,
                                   int64_t svh, float scale, float cap, int use_cap, int window, int use_window,
-                                  void* stream) {
-  const int rows = D == 256 ? Cfg<256>::ROWS : Cfg<128>::ROWS;
+                                  int kv_fp8, void* stream) {
+  const int rows = D == 256 ? Cfg<256, false>::ROWS : Cfg<128, false>::ROWS;
   if (Hk <= 0 || Hq % Hk || Hq / Hk > rows || block_q != rows / (Hq / Hk) || Lq <= 0 || Lk <= 0 || B <= 0 ||
       split < 1 || (split > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.k = k;
+  p.v = v;
   p.o = static_cast<__nv_bfloat16*>(o);
   p.part_acc = static_cast<float*>(part_acc);
   p.part_ml = static_cast<float*>(part_ml);
@@ -493,9 +588,9 @@ extern "C" int pk_flash_attention(const void* q, const void* k, const void* v, v
   p.use_window = use_window;
   auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch<64>(p, s);
-    case 128: return launch<128>(p, s);
-    case 256: return launch<256>(p, s);
+    case 64: return kv_fp8 ? launch<64, true>(p, s) : launch<64, false>(p, s);
+    case 128: return kv_fp8 ? launch<128, true>(p, s) : launch<128, false>(p, s);
+    case 256: return kv_fp8 ? launch<256, true>(p, s) : launch<256, false>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

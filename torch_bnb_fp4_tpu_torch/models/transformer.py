@@ -255,8 +255,9 @@ def ring_rows(cap: int, window: int | None, write_chunk: int) -> int:
 
 @dataclasses.dataclass
 class KVCache:
-    """bf16 KV cache, one (B, rows_i, n_kv, head_dim) pair per layer, with a
-    per-sequence ``length`` (B,) int32 (continuous batching needs one write
+    """KV cache, one (B, rows_i, n_kv, head_dim) pair per layer in its storage
+    dtype (bf16, or ``float8_e4m3fn``, written through :func:`kv_cast`), with
+    a per-sequence ``length`` (B,) int32 (continuous batching needs one write
     offset per slot).
 
     ``rows_i`` is ``max_len``, or with ``write_chunk > 0`` a rolling ring of
@@ -427,9 +428,29 @@ class _StepContext:
     attend: dict  # (cache rows, window) -> attend(q, k, v, scale, logit_softcap), from _attention_route
 
 
+E4M3_MAX = 448.0
+
+
+def kv_cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in a KV cache's storage ``dtype``.  For ``float8_e4m3fn`` the
+    rounding is written out, so that the CPU and the card write the same byte
+    whatever PyTorch's own cast does on each: round to nearest even, which is
+    the byte JAX's ``astype`` writes for |x| <= 464, and saturation to +-448
+    above, where JAX writes NaN (ROADMAP R6).  NaN stays NaN.  Other dtypes
+    take PyTorch's cast."""
+    if dtype != torch.float8_e4m3fn:
+        return x.to(dtype)
+    xf = x.float()
+    a = xf.abs().clamp(max=E4M3_MAX)
+    e = torch.frexp(a).exponent  # a in [2^(e-1), 2^e)
+    # the e4m3 spacing there: 2^(e-4) (3 mantissa bits), 2^-9 below 2^-6 (subnormals); built from its bits
+    step = ((e - 4).clamp(min=-9) + 127).to(torch.int32).bitwise_left_shift(23).view(torch.float32)
+    return torch.copysign(torch.round(a / step) * step, xf).to(dtype)
+
+
 def _write_kv(cache: torch.Tensor, new: torch.Tensor, ctx: _StepContext) -> None:
     """Write ``new`` (B, L, Hk, D) at each sequence's offset, IN PLACE."""
-    cache[ctx.write_b, ctx.write_rows[cache.shape[1]]] = new.to(cache.dtype)
+    cache[ctx.write_b, ctx.write_rows[cache.shape[1]]] = kv_cast(new, cache.dtype)
 
 
 def _apply_expert(stacked, e, x, **kw):
@@ -547,7 +568,8 @@ def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor, cache: 
         positions = cache.length[:, None] + torch.arange(l, dtype=torch.int32, device=tokens.device)[None, :]
     x = params.embed[tokens.long()].to(torch.bfloat16)
     if cfg.embed_scale:
-        x = x * torch.tensor(cfg.dim**0.5, dtype=torch.bfloat16, device=x.device)
+        # made on the device (no host copy, so a decode step can be captured in a CUDA graph)
+        x = x * torch.full((), cfg.dim**0.5, dtype=torch.bfloat16, device=x.device)
     new_len = cache.length + l
     dev = tokens.device
     cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)

@@ -42,7 +42,7 @@ SIGNATURES = {
                                                     _P, _I, _P]),
     "matmul_pk_w4a8.cu": ("pk_matmul_pk_w4a8", [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _I,
                                                 _P]),
-    "flash_attention.cu": ("pk_flash_attention", [_P] * 9 + [_I] * 8 + [_I64] * 9 + [_F, _F, _I, _I, _I, _P]),
+    "flash_attention.cu": ("pk_flash_attention", [_P] * 9 + [_I] * 8 + [_I64] * 9 + [_F, _F, _I, _I, _I, _I, _P]),
     "matmul_w8.cu": ("pk_matmul_w8", [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]),
     "dequant_pk.cu": ("pk_dequant_pk", [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P]),
     "dequant_splitk.cu": ("pk_dequant_splitk", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),

@@ -6,8 +6,11 @@ an optional sliding window and an optional Gemma-2 logit softcap, so rolling
 ring caches, whose slot order is not position order after a wrap, work as
 they are.
 
-``flash_attention`` keeps the JAX signature and the (B, L, H, D) layout.  A
-CUDA tensor goes to the hand-written kernel (``csrc/flash_attention.cu``,
+``flash_attention`` keeps the JAX signature and the (B, L, H, D) layout.
+K and V may come from an fp8 cache (``float8_e4m3fn``) beside a bf16 q, as
+in the JAX kernel: the scores are the f32 dot of q with the e4m3 values, and
+the probability tile is rounded to e4m3 (``p.astype(v.dtype)``) before the
+PV dot.  A CUDA tensor goes to the hand-written kernel (``csrc/flash_attention.cu``,
 built by ``_build``) or the call raises; a CPU tensor goes to
 :func:`flash_attention_plain`.  There is no fallback from one to the other.
 
@@ -60,9 +63,15 @@ def kernel_split(b: int, lq: int, lk: int, hq: int, hk: int, sms: int, d: int = 
     return max(1, min(sms // blocks, -(-lk // block_k) // MIN_SPLIT_TILES, MAX_SPLIT))
 
 
+def _fp8_kv(q, k, v) -> bool:
+    """bf16 q over float8_e4m3fn K/V: the fp8 KV cache's form."""
+    return q.dtype == torch.bfloat16 and k.dtype == v.dtype == torch.float8_e4m3fn
+
+
 def _check_operands(q, k, v, q_positions, kv_valid, kv_positions) -> None:
-    """What both routes need: GQA head counts, matching shapes and dtypes, one
-    device, and a contiguous last (head) dimension."""
+    """What both routes need: GQA head counts, matching shapes, one float
+    dtype (or bf16 q with e4m3 K/V), one device, and a contiguous last (head)
+    dimension."""
     if q.ndim != 4 or k.ndim != 4 or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"q (B, Lq, Hq, D) and k, v (B, Lk, Hk, D) expected, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -72,8 +81,9 @@ def _check_operands(q, k, v, q_positions, kv_valid, kv_positions) -> None:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ in batch or head dim")
     if hq % hk:
         raise ValueError(f"Hq={hq} must be a multiple of Hk={hk}")
-    if not (q.dtype == k.dtype == v.dtype) or not q.dtype.is_floating_point:
-        raise ValueError(f"q, k, v must share one float dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (_fp8_kv(q, k, v) or (q.dtype == k.dtype == v.dtype and q.dtype.is_floating_point)):
+        raise ValueError(f"q, k, v must share one float dtype, or be a bf16 q with float8_e4m3fn k and v; got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if tuple(q_positions.shape) != (b, lq) or q_positions.dtype != torch.int32:
         raise ValueError(f"q_positions must be int32 {(b, lq)}, got {q_positions.dtype} {tuple(q_positions.shape)}")
     if tuple(kv_positions.shape) != (b, lk) or kv_positions.dtype != torch.int32:
@@ -110,7 +120,8 @@ def flash_attention_plain(q, k, v, q_positions, kv_valid, kv_positions, sliding_
     ranges merge in order: M = max m_z, e_z = exp(m_z - M), l = sum l_z e_z,
     acc = sum acc_z e_z (from 0, z = 0 first).  Given the kernel's blocks and
     split, it therefore rounds p where the kernel does; split 1 (the default)
-    is the JAX recurrence itself."""
+    is the JAX recurrence itself.  With e4m3 K/V (bf16 q) p is rounded to
+    e4m3, as JAX's ``p.astype(v.dtype)``."""
     _check_operands(q, k, v, q_positions, kv_valid, kv_positions)
     if block_q < 1 or block_k < 1:
         raise ValueError(f"block_q and block_k must be positive, got {block_q}, {block_k}")
@@ -168,20 +179,21 @@ def flash_attention_plain(q, k, v, q_positions, kv_valid, kv_positions, sliding_
 
 
 def _check_cuda_operands(q, k, v) -> None:
-    """What the CUDA kernel assumes on top of :func:`_check_operands`: bf16,
-    a head dim it is built for, at most ``block_rows(D)`` query heads per kv
-    head, and 16-byte aligned rows (it loads 16 bytes per thread)."""
+    """What the CUDA kernel assumes on top of :func:`_check_operands`: bf16
+    q with bf16 or e4m3 K/V, a head dim it is built for, at most
+    ``block_rows(D)`` query heads per kv head, and 16-byte aligned rows and
+    strides (its TMA boxes and loads move 16 bytes at a time)."""
     d, hq, hk = q.shape[3], q.shape[2], k.shape[2]
     if q.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA flash kernel takes bf16 q/k/v, got {q.dtype}")
+        raise ValueError(f"the CUDA flash kernel takes a bf16 q (K/V bf16 or float8_e4m3fn), got {q.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"the CUDA flash kernel is built for head dims {HEAD_DIMS}, got {d}")
     if hq // hk > block_rows(d):
         raise ValueError(f"the CUDA flash kernel takes at most {block_rows(d)} query heads per kv head at D={d}, "
                          f"got {hq // hk}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
-            raise ValueError(f"{name} must be 16-byte aligned with strides that are multiples of 8 elements")
+        if t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
+            raise ValueError(f"{name} must be 16-byte aligned with strides that are multiples of 16 bytes")
 
 
 def flash_attention(q, k, v, q_positions, kv_valid, kv_positions, sliding_window=None, scale=None,
@@ -227,11 +239,12 @@ def _flash_attention(q, k, v, q_positions, kv_valid, kv_positions, sliding_windo
         part_ml = torch.empty((split, 2, b, lq, hq), dtype=torch.float32, device=q.device)
     qpos, kpos, kval = q_positions.contiguous(), kv_positions.contiguous(), kv_valid.contiguous()
     fn = _build.kernel("flash_attention.cu")
-    LAUNCHES["flash_attention"] += 1
+    fp8 = _fp8_kv(q, k, v)
+    LAUNCHES["flash_attention_fp8" if fp8 else "flash_attention"] += 1
     _check_status("flash_attention", fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(), qpos.data_ptr(), kpos.data_ptr(), kval.data_ptr(),
         b, lq, lk, hq, hk, d, kbq, split, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], scale,
         0.0 if logit_softcap is None else float(logit_softcap), int(logit_softcap is not None),
-        0 if sliding_window is None else int(sliding_window), int(sliding_window is not None), _stream(q)))
+        0 if sliding_window is None else int(sliding_window), int(sliding_window is not None), int(fp8), _stream(q)))
     return out

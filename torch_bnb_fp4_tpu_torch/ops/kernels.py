@@ -68,7 +68,7 @@ SPLIT_COUNTERS = 8192
 # launches per wrapper: each CUDA launch adds one (plain CPU calls do not);
 # "flash_attention" is K7's, counted by ops/attention.py
 LAUNCHES = {"decode_pairs": 0, "matmul_pk": 0, "matmul_pk_minner": 0, "matmul_pk_w4a8": 0, "flash_attention": 0,
-            "matmul_w8": 0, "dequant_pk": 0, "matmul_pk_expert": 0, "matmul_pk_minner_expert": 0,
+            "flash_attention_fp8": 0, "matmul_w8": 0, "dequant_pk": 0, "matmul_pk_expert": 0, "matmul_pk_minner_expert": 0,
             "matmul_pk_w4a8_expert": 0, "dequant_splitk": 0, "matmul_splitk": 0}
 
 
@@ -79,6 +79,14 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def add_launch_counts(delta: dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` to the counts: a CUDA graph's replays run
+    the launches its capture counted (and a capture, which runs nothing,
+    takes its own back with ``times=-1``)."""
+    for k, n in delta.items():
+        LAUNCHES[k] += times * n
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:

@@ -1,6 +1,6 @@
-"""Greedy continuous-batching engine and its HTTP server."""
+"""Continuous-batching engine and its HTTP server."""
 
-from .engine import Completion, Engine, EngineConfig, Request
+from .engine import Completion, Engine, EngineConfig, Request, prompt_lookup_draft
 from .server import EngineServer
 
-__all__ = ["Completion", "Engine", "EngineConfig", "EngineServer", "Request"]
+__all__ = ["Completion", "Engine", "EngineConfig", "EngineServer", "Request", "prompt_lookup_draft"]

@@ -1,8 +1,11 @@
 """Serve a packed-FP4 checkpoint over HTTP.
 
     python -m torch_bnb_fp4_tpu_torch.serve --ckpt <packed_dir> [--port 8000]
-        [--max-batch 8] [--max-len 2048] [--inner-steps 8] [--prefill-chunk 0]
-        [--no-sliding-kv] [--prefill-shadow] [--tokenizer DIR] [--device cuda]
+        [--max-batch 8] [--max-len 2048] [--inner-steps 8] [--temperature 0]
+        [--top-p 1.0] [--top-k 0] [--prefill-chunk 0] [--spec-tokens 0]
+        [--prefix-cache] [--prefix-store 0] [--no-sliding-kv] [--logprobs]
+        [--kv-dtype bfloat16] [--warmup-prompt-len N] [--prefill-shadow]
+        [--tokenizer DIR] [--device cuda]
 
 Counterpart of ``python -m torch_bnb_fp4_tpu.serve``: convert once, then
 serve the packed bytes and POST token-id prompts (serve/server.py).  Without
@@ -15,7 +18,9 @@ every format-1/2 checkpoint, K-sharded row-parallel entries repacked to one
 shard at load) serves through K9b; --prefill-shadow then skips every split-K
 linear, which keeps K9b for prefill too.  ``--device`` (default
 cuda) is the port's own flag: the server runs on the card unless asked for
-the CPU.  The JAX CLI's other flags are accepted and refused with "not yet
+the CPU.  --warmup-prompt-len runs every serving program (the decode CUDA
+graphs included) before the server accepts requests.  The JAX CLI's LoRA,
+tensor-parallel and multi-host flags are accepted and refused with "not yet
 ported" when set.  Ctrl-C (SIGINT) stops the server and exits 0.
 """
 
@@ -23,11 +28,10 @@ from __future__ import annotations
 
 import argparse
 import logging
+import time
 
 # JAX CLI flags the port does not serve yet (refused when not at their default)
-_UNPORTED = ("--temperature", "--top-p", "--top-k", "--spec-tokens", "--prefix-cache", "--prefix-store",
-             "--logprobs", "--multihost", "--coordinator", "--tp", "--kv-dtype", "--lora", "--lora-merge",
-             "--warmup-prompt-len")
+_UNPORTED = ("--multihost", "--coordinator", "--tp", "--lora", "--lora-merge")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -49,38 +53,38 @@ def _parser() -> argparse.ArgumentParser:
                     help="local HF tokenizer dir: enables {'text': ...} prompts and decoded 'text' in completions")
     ap.add_argument("--device", default="cuda", help="torch device to serve on (cpu runs the plain versions)")
     ap.add_argument("-v", "--verbose", action="store_true")
-    # accepted for the JAX CLI's command lines; refused below when set
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--spec-tokens", type=int, default=0)
     ap.add_argument("--prefix-cache", action="store_true")
-    ap.add_argument("--prefix-store", type=int, default=0)
-    ap.add_argument("--logprobs", action="store_true")
+    ap.add_argument("--prefix-store", type=int, default=0,
+                    help="keep up to N retired requests' KV on the card so a shared system prompt hits the prefix "
+                         "cache after its donor finishes (N decode slots' worth of KV; LRU; requires "
+                         "--prefix-cache)")
+    ap.add_argument("--logprobs", action="store_true", help="emit per-token logprobs on every completion")
+    ap.add_argument("--kv-dtype", default="bfloat16", choices=["bfloat16", "float8_e4m3fn"])
+    ap.add_argument("--warmup-prompt-len", type=int, default=0,
+                    help="run every serving program (decode CUDA graphs, prefill buckets) for prompts up to this "
+                         "length before accepting traffic")
+    # accepted for the JAX CLI's command lines; refused below when set
     ap.add_argument("--multihost", action="store_true")
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--tp", type=int, default=0)
-    ap.add_argument("--kv-dtype", default="bfloat16", choices=["bfloat16", "float8_e4m3fn"])
     ap.add_argument("--lora", action="append", default=None, metavar="DIR|NAME=DIR")
     ap.add_argument("--lora-merge", action="store_true")
-    ap.add_argument("--warmup-prompt-len", type=int, default=0)
     return ap
 
 
-def main(argv: list[str] | None = None) -> None:
-    ap = _parser()
-    args = ap.parse_args(argv)
-    for flag in _UNPORTED:
-        dest = flag[2:].replace("-", "_")
-        if getattr(args, dest) != ap.get_default(dest):
-            ap.error(f"{flag} is not yet ported to torch_bnb_fp4_tpu_torch")
-    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
-                        format="%(asctime)s %(name)s %(message)s")
-
+def build_engine(args: argparse.Namespace):
+    """The engine the parsed flags ask for: the model (the checkpoint, or a
+    tiny random one), the shadows, the engine settings, and the warmup when
+    --warmup-prompt-len is set.  Invalid settings raise ``ValueError`` as
+    the JAX engine does."""
     from ..models import transformer as T
     from ..models.linear import attach_prefill_shadow
     from ..utils.device import resolve_device
-    from . import Engine, EngineConfig, EngineServer
+    from . import Engine, EngineConfig
 
     device = resolve_device(args.device)
     if args.ckpt:
@@ -94,9 +98,32 @@ def main(argv: list[str] | None = None) -> None:
     if args.prefill_shadow:
         params = attach_prefill_shadow(params)
         logging.info("attached int8 prefill shadows (+1 byte/weight on the device)")
-    eng = Engine(params, cfg, EngineConfig(max_batch=args.max_batch, max_len=args.max_len,
-                                           inner_steps=args.inner_steps, prefill_chunk=args.prefill_chunk,
-                                           sliding_kv=not args.no_sliding_kv))
+    eng = Engine(params, cfg, EngineConfig(
+        max_batch=args.max_batch, max_len=args.max_len, inner_steps=args.inner_steps, temperature=args.temperature,
+        top_p=args.top_p, top_k=args.top_k, prefill_chunk=args.prefill_chunk, spec_tokens=args.spec_tokens,
+        prefix_cache=args.prefix_cache, prefix_store=args.prefix_store, sliding_kv=not args.no_sliding_kv,
+        kv_dtype=args.kv_dtype, logprobs=args.logprobs))
+    if args.warmup_prompt_len:
+        logging.info("warming up (prompts to %d)...", args.warmup_prompt_len)
+        t0 = time.perf_counter()
+        traces = eng.warmup(max_prompt_len=args.warmup_prompt_len)
+        logging.info("warmup done in %.1f s: %s", time.perf_counter() - t0, traces)
+    return eng
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = _parser()
+    args = ap.parse_args(argv)
+    for flag in _UNPORTED:
+        dest = flag[2:].replace("-", "_")
+        if getattr(args, dest) != ap.get_default(dest):
+            ap.error(f"{flag} is not yet ported to torch_bnb_fp4_tpu_torch")
+    logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
+                        format="%(asctime)s %(name)s %(message)s")
+
+    from . import EngineServer
+
+    eng = build_engine(args)
     tok = None
     if args.tokenizer:
         from transformers import AutoTokenizer

@@ -1,30 +1,43 @@
-"""Greedy continuous-batching serving engine (single device, slot-based).
+"""Continuous-batching serving engine (single device, slot-based).
 
-Counterpart of the greedy core of ``torch_bnb_fp4_tpu/serve/engine.py``:
+Counterpart of ``torch_bnb_fp4_tpu/serve/engine.py`` (every ``EngineConfig``
+field; LoRA adapters and meshes are not ported):
 
-  * one batched decode over ``max_batch`` fixed slots, each slot with its own
-    cache offset (``KVCache.length`` is per sequence), run ``n`` steps per
-    tick as a Python loop with ONE host fetch of the tokens per tick;
-  * prefill runs per request at batch 1 on a small cache of the prompt's
-    32-row bucket, and its KV rows are copied into the slot;
-  * chunked prefill (``prefill_chunk``): a pending prompt goes through that
-    small cache one chunk per tick, interleaved with the decode ticks, so a
-    long prompt delays each tick by one chunk instead of its whole prefill;
-    it is copied into its slot once, when complete;
+  * one batched decode over ``max_batch`` fixed slots (or, with
+    ``batch_buckets``, over the smallest power-of-two prefix of them that
+    covers the active ones), each slot with its own cache offset
+    (``KVCache.length`` is per sequence), ``n`` steps per tick with ONE host
+    fetch of the tokens per tick;
+  * on the card every decode tick replays a CUDA graph, one per (batch
+    bucket, power-of-two depth n) and per (bucket, s) for speculation,
+    captured at first use (:meth:`Engine.warmup` moves every capture before
+    serving), as the JAX engine runs one jitted program per shape.  A
+    captured function reads and writes only the engine's static device
+    buffers: the tokens, the active mask, per-slot temperature and top_p,
+    the cache and its lengths in, the tokens, logprobs and draft counts out.
+    Host code updates those buffers in place and never rebinds them.  On the
+    CPU the same functions run eagerly;
+  * sampling (temperature, top-k, top-p, min-p; per-request temperature and
+    top_p) draws Gumbel-max noise from the engine's ``torch.Generator``,
+    seeded from ``EngineConfig.seed`` and registered with every graph, so a
+    replay draws fresh noise; a greedy engine runs pure argmax;
+  * prefill runs eagerly per request at batch 1 on a small cache of the
+    prompt's 32-row bucket (or one ``prefill_chunk`` per tick), and its KV
+    rows are copied into the slot; prefix caching forks a donor's rows (a
+    live slot, or a retired request kept in ``prefix_store`` extra cache
+    rows) instead of recomputing them;
+  * speculative decoding drafts ``spec_tokens`` by prompt lookup in a
+    device-resident token history and verifies them in one (B, k+1) forward
+    (greedy: exact match; sampling: rejection sampling);
   * sliding-window layers keep rolling rings of ``ring_rows`` rows
-    (``sliding_kv``, with chunked prefill: its writes are ring-aligned);
-  * the host loop only moves token ids and bookkeeping.
+    (``sliding_kv``, with chunked prefill and without speculation);
+  * ``kv_dtype="float8_e4m3fn"`` stores the cache in e4m3 (written through
+    ``models.transformer.kv_cast``).
 
 KV writes are in place (``index_put_`` / ``copy_`` on the engine's cache
 tensors); the JAX engine donates its cache to functional programs instead.
 A finished slot's stale rows need no clearing: the next prefill overwrites
 rows [0, Lp) and resets the length, and attention masks past the length.
-
-Not yet ported (setting them raises ``NotImplementedError``): sampling,
-logprobs, admission budgets, batch buckets, the fp8 KV cache, speculative
-decoding, prefix caching and the retired-prefix store, warmup, LoRA adapters
-and multi-device meshes.  A request that asks for sampling or an adapter is a
-bad request (``ValueError``), as on the JAX package's greedy engine.
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ import numpy as np
 import torch
 
 from ..models import transformer as T
+from ..ops import kernels as K
 
 log = logging.getLogger("torch_bnb_fp4_tpu_torch.serve")
 
@@ -50,9 +64,10 @@ class Request:
     max_new_tokens: int = 64
     eos_id: int | None = None
     stop_ids: list[int] | None = None  # extra stop tokens; finish_reason "stop"
-    # per-request sampling / adapter overrides: a greedy engine accepts
-    # temperature 0 and top_p 1, which change nothing, and rejects the rest
-    # with ValueError, as the JAX engine does
+    # per-request sampling overrides (None = the engine's): temperature needs
+    # a sampling engine (EngineConfig.temperature > 0), top_p one with a
+    # nucleus path (EngineConfig.top_p < 1); temperature 0 makes just this
+    # request greedy.  Adapters (LoRA) are not ported: any name is rejected.
     temperature: float | None = None
     top_p: float | None = None
     adapter: str | None = None
@@ -66,66 +81,233 @@ class Completion:
     finish_reason: str  # "eos" | "stop" | "length" | "abort"
     ttft_s: float = 0.0  # submit -> first token (queue wait + prefill), host clock
     total_s: float = 0.0  # submit -> completion
-    logprobs: list[float] | None = None  # per-token logprobs: not yet ported, always None
+    # per-token log_softmax of the raw logits (EngineConfig.logprobs only)
+    logprobs: list[float] | None = None
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine settings.  ``max_batch``, ``max_len``, ``inner_steps``, ``seed``,
-    ``prefill_chunk`` (0 = whole-prompt prefill; else a multiple of 32) and
-    ``sliding_kv`` (rings on sliding-window layers; takes effect only with
-    chunked prefill) are ported; every other field keeps the JAX engine's name
-    and default and raises when set to anything else."""
+    """Engine settings, with the JAX engine's names, defaults and meaning
+    (see ``torch_bnb_fp4_tpu/serve/engine.py``).  Invalid values raise
+    ``ValueError`` with the JAX engine's messages."""
 
     max_batch: int = 8  # decode slots
     max_len: int = 2048  # per-slot KV capacity
     inner_steps: int = 8  # decode steps per host round trip (bucketed to 2^k)
-    temperature: float = 0.0
-    top_k: int = 0
-    top_p: float = 1.0
-    min_p: float = 0.0
+    temperature: float = 0.0  # 0 = greedy
+    top_k: int = 0  # 0 = off
+    top_p: float = 1.0  # 1 = off
+    min_p: float = 0.0  # 0 = off
     seed: int = 0
-    admit_budget: int = 0
-    prefill_chunk: int = 0
-    batch_buckets: bool = False
-    kv_dtype: str = "bfloat16"
-    spec_tokens: int = 0
+    admit_budget: int = 0  # prefills admitted per tick (0 = unlimited)
+    prefill_chunk: int = 0  # 0 = whole-prompt prefill; else a multiple of 32
+    batch_buckets: bool = False  # decode over the smallest power-of-two slot prefix
+    kv_dtype: str = "bfloat16"  # or "float8_e4m3fn"
+    spec_tokens: int = 0  # prompt-lookup draft length (0 = no speculation)
     spec_ngram: int = 3
     prefix_cache: bool = False
-    prefix_store: int = 0
-    sliding_kv: bool = True
+    prefix_store: int = 0  # retired-prefix rows (requires prefix_cache)
+    sliding_kv: bool = True  # rings on sliding-window layers (chunked prefill, no speculation)
     logprobs: bool = False
 
-    _PORTED = ("max_batch", "max_len", "inner_steps", "seed", "prefill_chunk", "sliding_kv")
-
     def __post_init__(self):
-        for f in dataclasses.fields(self):
-            if f.name not in self._PORTED and getattr(self, f.name) != f.default:
-                raise NotImplementedError(f"EngineConfig.{f.name} is not yet ported (greedy core only)")
         if self.max_batch < 1 or self.max_len < 2 or self.inner_steps < 1:
             raise ValueError(f"need max_batch >= 1, max_len >= 2, inner_steps >= 1, got {self}")
+        if not (0.0 < self.top_p <= 1.0):
+            raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
+        if self.temperature < 0.0 or self.top_k < 0:
+            raise ValueError("temperature/top_k must be >= 0")
+        if not (0.0 <= self.min_p < 1.0):
+            raise ValueError(f"min_p must be in [0, 1), got {self.min_p}")
         if self.prefill_chunk < 0 or self.prefill_chunk % 32:
             raise ValueError(f"prefill_chunk must be a multiple of 32, got {self.prefill_chunk}")
+        if self.admit_budget < 0 or self.spec_tokens < 0 or self.prefix_store < 0:
+            raise ValueError("admit_budget, spec_tokens and prefix_store must be >= 0")
+        if self.spec_tokens:
+            if self.spec_ngram < 1:
+                raise ValueError(f"spec_ngram must be >= 1, got {self.spec_ngram}")
+            if self.max_len <= self.spec_ngram:
+                raise ValueError("max_len must exceed spec_ngram")
+        if self.prefix_store and not self.prefix_cache:
+            raise ValueError("prefix_store requires prefix_cache=True")
+        dt = getattr(torch, self.kv_dtype, None)
+        if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+            raise ValueError(f"kv_dtype must name a torch float dtype, got {self.kv_dtype!r}")
+
+
+# -- sampling, logprobs, drafts and verification: plain torch on tensors -------
+
+
+def _per_row(v, logits: torch.Tensor) -> torch.Tensor:
+    """A scalar or per-row value shaped to broadcast against ``logits``
+    (..., V): trailing singleton dims up to the vocab axis, as JAX's
+    ``_filtered_logits`` reshapes ``temp`` and ``top_p``."""
+    v = torch.as_tensor(v, dtype=torch.float32, device=logits.device)
+    return v.reshape(v.shape + (1,) * (logits.ndim - v.ndim - 1))[..., None]
+
+
+def filtered_logits(ecfg: EngineConfig, logits: torch.Tensor, temp=None, top_p=None) -> torch.Tensor:
+    """Temperature/top-k/top-p/min-p filtered logits over (..., V), in f32:
+    the distribution :func:`select` samples from and :func:`spec_verify`
+    accepts against (JAX's ``Engine._filtered_logits``).  The masks are
+    value-based, as JAX's: top-k keeps values >= the k-th (ties kept), top-p
+    drops probabilities below the smallest one whose exclusive cumulative
+    mass (sorted descending) is < top_p, min-p drops those below min_p times
+    the max; filtered tokens are -inf.  ``temp``/``top_p`` broadcast
+    against the leading dims (None: the engine's)."""
+    scaled = logits.float() / torch.clamp(_per_row(ecfg.temperature if temp is None else temp, logits), min=1e-6)
+    if ecfg.top_k > 0:
+        kth = torch.topk(scaled, ecfg.top_k, dim=-1).values[..., -1:]
+        scaled = torch.where(scaled < kth, -torch.inf, scaled)
+    if ecfg.top_p < 1.0:
+        tp = _per_row(ecfg.top_p if top_p is None else top_p, logits)
+        probs = torch.softmax(scaled, dim=-1)
+        sp = torch.sort(probs, dim=-1, descending=True).values
+        keep = torch.cumsum(sp, dim=-1) - sp < tp
+        pmin = torch.where(keep, sp, torch.inf).amin(dim=-1, keepdim=True)
+        scaled = torch.where(probs < pmin, -torch.inf, scaled)
+    if ecfg.min_p > 0.0:
+        probs = torch.softmax(scaled, dim=-1)
+        floor = ecfg.min_p * probs.amax(dim=-1, keepdim=True)
+        scaled = torch.where(probs < floor, -torch.inf, scaled)
+    return scaled
+
+
+def categorical(logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """One draw per row of softmax(``logits``) over the last axis, by
+    Gumbel-max as ``jax.random.categorical`` draws (uniforms from ``gen``,
+    clamped away from 0 as JAX's are); int32.  No host sync."""
+    u = torch.rand(logits.shape, generator=gen, device=logits.device, dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
+    return torch.argmax(logits.float() + gumbel, dim=-1).to(torch.int32)
+
+
+def select(ecfg: EngineConfig, logits: torch.Tensor, gen: torch.Generator | None, temp=None,
+           top_p=None) -> torch.Tensor:
+    """Next tokens (B,) int32 from (B, V) logits (JAX's ``Engine._select``):
+    argmax on a greedy engine (temperature 0: ``gen`` is not used); else a
+    draw from :func:`filtered_logits`, with rows whose own temperature is 0
+    taking the argmax."""
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    if ecfg.temperature <= 0.0:
+        return greedy
+    t = torch.full((logits.shape[0],), ecfg.temperature, device=logits.device) if temp is None else temp
+    sampled = categorical(filtered_logits(ecfg, logits, t, top_p), gen)
+    return torch.where(t > 0.0, sampled, greedy)
+
+
+def logprob_of(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """log_softmax of the raw (..., V) logits (f32) at ``tok`` (...,)."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    return torch.gather(lp, -1, tok.long()[..., None])[..., 0]
+
+
+def prompt_lookup_draft(hist: torch.Tensor, hlen: torch.Tensor, *, k: int, n: int) -> torch.Tensor:
+    """``k`` draft tokens per row of ``hist`` (B, H) int32 with lengths
+    ``hlen`` (B,), by prompt lookup (JAX's ``prompt_lookup_draft``, batched):
+    the EARLIEST earlier occurrence of each row's trailing ``n``-gram, and the
+    tokens that followed it, read cyclically with the period between the two
+    occurrences.  No match (or hlen < n): arbitrary ids from the row.  Fixed
+    shapes, no host sync."""
+    b, h = hist.shape
+    dev = hist.device
+    start = torch.clamp(hlen - n, min=0, max=h - n)  # dynamic_slice clamps its start
+    pat = torch.gather(hist, 1, start[:, None].long() + torch.arange(n, device=dev)[None, :])
+    j_hi = h - n  # candidate starts j in [0, j_hi)
+    match = torch.ones((b, j_hi), dtype=torch.bool, device=dev)
+    for t in range(n):
+        match &= hist[:, t : t + j_hi] == pat[:, t : t + 1]
+    jidx = torch.arange(j_hi, dtype=torch.int32, device=dev)[None, :]
+    match &= jidx < (hlen - n)[:, None]  # strictly before the trailing gram itself
+    j = torch.where(match, jidx, j_hi).amin(dim=1)
+    j = torch.where(j < j_hi, j, 0)
+    p = torch.clamp(hlen - n - j, min=1)
+    idx = j[:, None] + n + torch.remainder(torch.arange(k, dtype=torch.int32, device=dev)[None, :], p[:, None])
+    return torch.gather(hist, 1, torch.clamp(idx, 0, h - 1).long())
+
+
+def spec_verify(ecfg: EngineConfig, logits: torch.Tensor, draft: torch.Tensor, gen: torch.Generator | None,
+                temp=None, top_p=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Verify drafts (B, k) against (B, k+1, V) logits; returns (emitted
+    (B, k+1) int32, emit counts (B,) int32), JAX's ``Engine._spec_verify``:
+    greedy rows accept the longest prefix matching the argmax, then emit the
+    argmax correction; sampling rows accept draft x_j with probability
+    p_j(x_j) under :func:`filtered_logits`, correct the first rejection by a
+    draw from p_m without x_m, and earn a bonus draw from p_k when all are
+    accepted, so each emitted token is distributed as plain sampling's."""
+    b, k1, _ = logits.shape
+    k = k1 - 1
+    dev = logits.device
+    draft = draft.long()
+    choice = torch.argmax(logits, dim=-1)  # (B, k+1)
+    if ecfg.temperature <= 0.0:
+        m = torch.cumprod((choice[:, :-1] == draft).long(), dim=1).sum(dim=1)
+    else:
+        t = torch.full((b,), ecfg.temperature, device=dev) if temp is None else temp
+        f = filtered_logits(ecfg, logits, t[:, None], None if top_p is None else top_p[:, None])
+        probs = torch.softmax(f, dim=-1)
+        p_draft = torch.gather(probs[:, :-1], 2, draft[:, :, None])[..., 0]  # (B, k)
+        u = torch.rand((b, k), generator=gen, device=dev, dtype=torch.float32)
+        ok = torch.where(t[:, None] > 0.0, u < p_draft, choice[:, :-1] == draft)
+        m = torch.cumprod(ok.long(), dim=1).sum(dim=1)
+        f_res = f.clone()
+        f_res[:, :k].scatter_(2, draft[:, :, None], -torch.inf)  # the bonus row k stays whole
+        choice = torch.where(t[:, None] > 0.0, categorical(f_res, gen).long(), choice)
+    t_idx = torch.arange(k + 1, device=dev)[None, :]
+    corr = torch.gather(choice, 1, m[:, None])
+    dpad = torch.cat([draft, torch.zeros((b, 1), dtype=torch.long, device=dev)], dim=1)
+    emitted = torch.where(t_idx < m[:, None], dpad, corr)
+    return emitted.to(torch.int32), (m + 1).to(torch.int32)
+
+
+class _Graph:
+    """A captured device program and the launches its capture counted: each
+    replay adds them to ``ops.kernels``' counts, so ``launch_counts()``
+    reports what the card ran."""
+
+    def __init__(self, graph, launches: dict[str, int]):
+        self.graph, self.launches = graph, launches
+
+    def replay(self) -> None:
+        self.graph.replay()
+        K.add_launch_counts(self.launches)
 
 
 class Engine:
-    """Single-device greedy continuous-batching engine over ``params``.
+    """Single-device continuous-batching engine over ``params``.
 
     ``on_token``: optional callback ``(uid, token_id)`` for every emitted
-    token (the streaming hook)."""
+    token (the streaming hook).
+
+    ``step_logits``: None, or a caller's f32 (inner_steps, max_batch, vocab)
+    buffer, set before the first decode tick, into which every decode step
+    writes its last-position logits (row j of a tick = its step j;
+    ``last_decode_steps`` says how many rows the last tick wrote): a
+    diagnostic that works under graph replay, where a wrapper around the
+    forward runs only at capture."""
 
     def __init__(self, params: T.ModelParams, cfg: T.ModelConfig, ecfg: EngineConfig, on_token=None):
         self.params, self.cfg, self.ecfg, self.on_token = params, cfg, ecfg, on_token
-        self.device = params.embed.device
-        b = ecfg.max_batch
-        # rings only when every multi-row cache write is chunk-aligned
-        self._ring_chunk = (ecfg.prefill_chunk if ecfg.sliding_kv and ecfg.prefill_chunk
+        self.device = dev = params.embed.device
+        b, ml = ecfg.max_batch, ecfg.max_len
+        self._kv_dtype = getattr(torch, ecfg.kv_dtype)
+        # rings only when every multi-row cache write is chunk-aligned: chunked
+        # prefill without speculation (spec writes k+1 rows anywhere)
+        self._ring_chunk = (ecfg.prefill_chunk if ecfg.sliding_kv and ecfg.prefill_chunk and not ecfg.spec_tokens
                             and any(cfg.layer_sliding_window(i) is not None for i in range(cfg.n_layers)) else 0)
-        self.cache = T.KVCache.zeros(cfg, b, ecfg.max_len, write_chunk=self._ring_chunk, device=self.device)
+        # retired-prefix store rows live past the decode slots in the same cache tensors
+        self.cache = T.KVCache.zeros(cfg, b + ecfg.prefix_store, ml, dtype=self._kv_dtype,
+                                     write_chunk=self._ring_chunk, device=dev)
+        self._ring_min = self.cache.min_rows if self._ring_chunk else None
+        self._store: list[dict] = []  # LRU of stored prefixes: dicts(row, tokens); index 0 = LRU
+        # host-side slot state
         self.slot_req: list[Request | None] = [None] * b
         self.slot_tokens: list[list[int]] = [[] for _ in range(b)]
+        self.slot_lps: list[list[float]] = [[] for _ in range(b)]
         self.slot_t0: list[float] = [0.0] * b  # first-token wall time per slot
         self.slot_cur = np.zeros(b, np.int64)  # current token per slot
+        self.slot_temp = np.full(b, ecfg.temperature, np.float32)
+        self.slot_tp = np.full(b, ecfg.top_p, np.float32)
         self._submit_t: dict[int, float] = {}
         self.pending: deque[Request] = deque()
         self.completions: list[Completion] = []
@@ -136,47 +318,192 @@ class Engine:
         # per-decoded-token tick latency (whole step() wall time incl. any
         # admission prefills, over the inner depth), trailing window
         self.step_times: deque[float] = deque(maxlen=4096)
-        self._mask_dev: torch.Tensor | None = None  # active-slot mask, rebuilt on admit/retire
-        # in-flight chunked admission: req, slot, small cache, tokens done, bucket
-        self._pf: dict | None = None
+        # traces[kind] += 1 for each program's first run (on the card: each
+        # graph captured, each eager prefill shape run); flat after warmup()
+        self.traces = {"decode": 0, "prefill": 0, "fork": 0}
+        self._programs: set = set()
+        self._spec_emitted = 0
+        self._spec_slot_forwards = 0
+        self._prefix_hits = 0
+        self._prefix_tokens = 0
+        self._last_decode_batch = b
+        self.last_decode_steps = 0
+        self._pf: dict | None = None  # in-flight chunked admission
+        self._slots_dirty = True  # active mask / temp / top_p changed: re-upload before the next tick
+        self._hist_dirty = True  # slot set changed: rebuild the speculation history
+        self.step_logits: torch.Tensor | None = None
+        # static device buffers of the decode programs (updated in place, never rebound)
+        self._tok = torch.zeros(b, dtype=torch.int32, device=dev)
+        self._active = torch.zeros(b, dtype=torch.bool, device=dev)
+        self._temp = torch.full((b,), ecfg.temperature, dtype=torch.float32, device=dev)
+        self._top_p = torch.full((b,), ecfg.top_p, dtype=torch.float32, device=dev)
+        steps = ecfg.inner_steps
+        self._out_tok = torch.zeros((steps, b), dtype=torch.int32, device=dev)
+        self._out_lp = torch.zeros((steps, b), dtype=torch.float32, device=dev)
+        k1 = ecfg.spec_tokens + 1
+        if ecfg.spec_tokens:
+            # token history per slot, plus one sink column that takes the writes of rejected positions
+            self._hist = torch.zeros((b, ml + 2), dtype=torch.int32, device=dev)
+            self._hlen = torch.zeros(b, dtype=torch.int32, device=dev)
+            self._spec_tok = torch.zeros((steps, b, k1), dtype=torch.int32, device=dev)
+            self._spec_cnt = torch.zeros((steps, b), dtype=torch.int32, device=dev)
+            self._spec_lp = torch.zeros((steps, b, k1), dtype=torch.float32, device=dev)
+        self._gen = torch.Generator(device=dev)
+        self._gen.manual_seed(ecfg.seed)
+        self._graphs: dict[tuple, _Graph] = {}
+        self._pool = self._side = None  # the graphs' shared memory pool and capture stream (card only)
 
-    # -- device work -------------------------------------------------------
+    # -- device programs ---------------------------------------------------
+
+    def _sub_cache(self, bp: int) -> T.KVCache:
+        """The first ``bp`` slots of the cache (views: writes land in place);
+        idle slots get length 0 so their write offset never creeps toward
+        max_len (their tokens are garbage the host ignores)."""
+        c = self.cache
+        return T.KVCache(k=[a[:bp] for a in c.k], v=[a[:bp] for a in c.v],
+                         length=torch.where(self._active[:bp], c.length[:bp], torch.zeros_like(c.length[:bp])))
 
     @torch.no_grad()
-    def _decode_fn(self, tokens: torch.Tensor, active: torch.Tensor, n: int) -> torch.Tensor:
-        """``n`` batched greedy decode steps; idle slots first get length 0 so
-        their write offset never creeps toward max_len (their tokens are
-        garbage the host ignores).  Returns (B, n) int32 on the device."""
-        cache = T.KVCache(k=self.cache.k, v=self.cache.v,
-                          length=torch.where(active, self.cache.length, torch.zeros_like(self.cache.length)))
-        tok, toks = tokens, []
-        for _ in range(n):
-            logits, cache = T.forward(self.params, self.cfg, tok[:, None], cache)
-            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-            toks.append(tok)
-        self.cache = cache
-        return torch.stack(toks, dim=1)
+    def _decode_fn(self, bp: int, n: int) -> None:
+        """``n`` batched decode steps over slots [0, bp) (JAX's ``_decode_fn``):
+        reads the static tokens, mask, temp, top_p and cache; writes the
+        tokens (and logprobs) of step j to row j of the output buffers and the
+        new lengths into the cache in place."""
+        sub = self._sub_cache(bp)
+        tok, temp, top_p = self._tok[:bp], self._temp[:bp], self._top_p[:bp]
+        for j in range(n):
+            logits, sub = T.forward(self.params, self.cfg, tok[:, None], sub)
+            lg = logits[:, -1]
+            tok = select(self.ecfg, lg, self._gen, temp, top_p)
+            self._out_tok[j, :bp].copy_(tok)
+            if self.ecfg.logprobs:
+                self._out_lp[j, :bp].copy_(logprob_of(lg, tok))
+            if self.step_logits is not None:
+                self.step_logits[j, :bp].copy_(lg)
+        self.cache.length[:bp].copy_(sub.length)
 
     @torch.no_grad()
-    def _prefill_fn(self, tokens: torch.Tensor, slot: int, true_len: int) -> torch.Tensor:
+    def _spec_fn(self, bp: int, s: int) -> None:
+        """``s`` speculative steps over slots [0, bp) (JAX's ``_spec_fn``): per
+        step, draft k tokens by prompt lookup in the device-resident history,
+        run current + draft as one (bp, k+1) forward, verify, emit the
+        accepted drafts and one correction; rejected rows roll back by length
+        alone.  Writes step si's tokens, counts (and logprobs) to row si of
+        the output buffers, and advances the history, lengths and cache in
+        place."""
+        k, n = self.ecfg.spec_tokens, self.ecfg.spec_ngram
+        sub = self._sub_cache(bp)
+        hist, hlen = self._hist[:bp], self._hlen[:bp]
+        h = hist.shape[1] - 1  # the last column is the sink
+        cur, temp, top_p = self._tok[:bp], self._temp[:bp], self._top_p[:bp]
+        t_idx = torch.arange(k + 1, dtype=torch.int32, device=self.device)[None, :]
+        for si in range(s):
+            draft = prompt_lookup_draft(hist[:, :h], hlen, k=k, n=n)
+            logits, sub = T.forward(self.params, self.cfg, torch.cat([cur[:, None], draft], dim=1), sub)
+            emitted, emit = spec_verify(self.ecfg, logits, draft, self._gen, temp, top_p)
+            sub = T.KVCache(k=sub.k, v=sub.v, length=sub.length - (k + 1) + emit)
+            pos = torch.where(t_idx < emit[:, None], torch.clamp(hlen[:, None] + t_idx, max=h), h)
+            hist.scatter_(1, pos.long(), emitted)
+            hlen.add_(emit)
+            cur = torch.gather(emitted, 1, (emit - 1)[:, None].long())[:, 0]
+            self._spec_tok[si, :bp].copy_(emitted)
+            self._spec_cnt[si, :bp].copy_(emit)
+            if self.ecfg.logprobs:
+                self._spec_lp[si, :bp].copy_(logprob_of(logits, emitted))
+        self.cache.length[:bp].copy_(sub.length)
+
+    def _program(self, kind: str, key: tuple) -> None:
+        """Count ``key``'s first run in ``traces[kind]``."""
+        if key not in self._programs:
+            self._programs.add(key)
+            self.traces[kind] += 1
+
+    def _run(self, key: tuple, fn) -> None:
+        """Run device program ``fn`` (it reads and writes the static buffers
+        only): on the card by replaying its CUDA graph, captured at first use;
+        on the CPU eagerly."""
+        self._program("decode", key)
+        if self.device.type != "cuda":
+            fn()
+            return
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = self._capture(fn)
+        g.replay()
+
+    def _capture(self, fn) -> _Graph:
+        """Capture ``fn`` into a CUDA graph, after one eager run on the capture
+        stream (kernel builds, allocator growth, per-stream scratch) whose
+        state changes are undone: the lengths (and speculation history) are
+        restored, and its writes past the lengths are overwritten by the
+        replay before any query sees them.  All graphs share one memory pool.
+        A capture that fails raises; the engine never decodes eagerly on the
+        card."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._side = torch.cuda.Stream(self.device)
+        saved = [self.cache.length.clone()]
+        if self.ecfg.spec_tokens:
+            saved += [self._hist.clone(), self._hlen.clone()]
+        self._side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._side):
+            fn()
+        torch.cuda.current_stream(self.device).wait_stream(self._side)
+        for dst, src in zip([self.cache.length, self._hist, self._hlen] if self.ecfg.spec_tokens
+                            else [self.cache.length], saved):
+            dst.copy_(src)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._gen)
+        before = K.launch_counts()
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._side):
+            fn()
+        launched = {name: n - before[name] for name, n in K.launch_counts().items() if n != before[name]}
+        K.add_launch_counts(launched, times=-1)  # a capture runs nothing; each replay adds them
+        return _Graph(graph, launched)
+
+    def _row_tensors(self, req: Request, slot: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Record a request's sampling overrides on its slot; returns the (1,)
+        temperature and top_p of its prefill draw (JAX's ``_resolve_sampling``)."""
+        t = self.ecfg.temperature if req.temperature is None else req.temperature
+        p = self.ecfg.top_p if req.top_p is None else req.top_p
+        self.slot_temp[slot] = t
+        self.slot_tp[slot] = p
+        self._slots_dirty = True
+        self._hist_dirty = True
+        return (torch.tensor([t], dtype=torch.float32, device=self.device),
+                torch.tensor([p], dtype=torch.float32, device=self.device))
+
+    @torch.no_grad()
+    def _first_token(self, logits, temp, top_p) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The prompt's first token (and its logprob) from its last-position
+        logits (1, 1, V): the draw of JAX's ``_prefill_fn`` / ``_chunk_fn``."""
+        lg = logits[:, -1]
+        first = select(self.ecfg, lg, self._gen, temp, top_p)
+        return first[0], (logprob_of(lg, first)[0] if self.ecfg.logprobs else None)
+
+    @torch.no_grad()
+    def _prefill_fn(self, tokens: torch.Tensor, slot: int, true_len: int, temp, top_p):
         """Batch-1 prefill of a bucket-padded prompt (1, Lp_pad) on a small
         cache, spliced into ``slot``; rows past ``true_len`` are garbage that
         kv_valid masks.  The lm_head runs on the true last position only.
-        Returns the first token (device scalar)."""
+        Returns (first token, its logprob or None), on the device."""
         lp_pad = tokens.shape[1]
-        small = T.KVCache.zeros(self.cfg, 1, lp_pad, device=self.device)
+        self._program("prefill", ("prefill", lp_pad))
+        small = T.KVCache.zeros(self.cfg, 1, lp_pad, dtype=self._kv_dtype, device=self.device)
         logits, small = T.forward(self.params, self.cfg, tokens, small, last_index=true_len - 1)
         self._splice_fn(small, slot, true_len)
-        return torch.argmax(logits[0, -1], dim=-1)
+        return self._first_token(logits, temp, top_p)
 
     @torch.no_grad()
-    def _chunk_fn(self, tokens: torch.Tensor, small: T.KVCache, last_index: int) -> tuple[torch.Tensor, T.KVCache]:
-        """One prefill chunk on the private batch-1 cache: its KV lands at
-        small.length, which advances; ``last_index`` is the chunk-local
-        position of the prompt's true last token (only the final chunk's token
-        is used).  Returns (token as a device scalar, cache)."""
+    def _chunk_fn(self, tokens: torch.Tensor, small: T.KVCache, last_index: int, lp_pad: int, temp, top_p):
+        """One prefill chunk on the private batch-1 cache (of the prompt's
+        bucket ``lp_pad``): its KV lands at small.length, which advances;
+        ``last_index`` is the chunk-local position of the prompt's true last
+        token (only the final chunk's draw is used).  Returns (token, logprob
+        or None, cache)."""
+        self._program("prefill", ("chunk", tokens.shape[1], lp_pad))
         logits, small = T.forward(self.params, self.cfg, tokens, small, last_index=last_index)
-        return torch.argmax(logits[0, -1], dim=-1), small
+        return (*self._first_token(logits, temp, top_p), small)
 
     def _splice_fn(self, small: T.KVCache, slot: int, true_len: int) -> None:
         """Copy a completed prefill's KV rows into ``slot``, layer by layer:
@@ -187,6 +514,140 @@ class Engine:
         for big, sm in zip(self.cache.k + self.cache.v, small.k + small.v):
             big[slot, : sm.shape[1]].copy_(sm[0])
         self.cache.length[slot] = true_len
+
+    def _move_fn(self, src: int, dst: int) -> None:
+        """Relocate one cache row's KV and length ``src`` -> ``dst`` (batch
+        compaction, the prefix store): one row copy per layer; the src rows
+        are left stale."""
+        for a in self.cache.k + self.cache.v:
+            a[dst].copy_(a[src])
+        self.cache.length[dst] = self.cache.length[src]
+
+    def _fork_fn(self, src: int, length: int, lp_pad: int) -> T.KVCache:
+        """A private batch-1 cache for a prompt of bucket ``lp_pad`` holding
+        row ``src``'s leading KV rows, write offset ``length`` (prefix
+        caching): rows [0, length) are the donor's shared-prefix KV, rows
+        beyond are garbage the suffix chunks overwrite or kv_valid masks.
+        Per layer the copy is the small cache's row count for this bucket."""
+        self._program("fork", ("fork", lp_pad))
+        ks, vs = [], []
+        for i in range(self.cfg.n_layers):
+            r = T.ring_rows(lp_pad, self.cfg.layer_sliding_window(i), self._ring_chunk)
+            ks.append(self.cache.k[i][src : src + 1, :r].clone())
+            vs.append(self.cache.v[i][src : src + 1, :r].clone())
+        return T.KVCache(k=ks, v=vs, length=torch.tensor([length], dtype=torch.int32, device=self.device))
+
+    # -- prefix cache --------------------------------------------------------
+
+    @staticmethod
+    def _lcp(a: list[int], b: list[int]) -> int:
+        n = 0
+        for x, y in zip(a, b):
+            if x != y:
+                break
+            n += 1
+        return n
+
+    def _slot_cached_seq(self, i: int) -> list[int]:
+        """Tokens whose KV rows slot ``i`` holds: prompt plus every emitted
+        token but the newest (not fed back yet)."""
+        return self.slot_req[i].prompt + self.slot_tokens[i][:-1]
+
+    def _find_prefix_donor(self, prompt: list[int], grain: int) -> tuple[int, int] | None:
+        """Longest-shared-prefix donor among active slots and the store:
+        (cache row, reuse) with reuse a multiple of ``grain``, capped at
+        len(prompt) - 1; None under one grain.  Ring caches: the donor must
+        not have wrapped and the reuse must fit the smallest ring.  A store
+        hit moves to the MRU end."""
+        best: tuple[int, int] | None = None
+        hit_store = -1
+        cands = [(i, self._slot_cached_seq(i)) for i, r in enumerate(self.slot_req) if r is not None]
+        cands += [(e["row"], e["tokens"]) for e in self._store]
+        for row, seq in cands:
+            if self._ring_min is not None and len(seq) > self._ring_min:
+                continue  # donor rows may have wrapped: early KV evicted
+            reuse = min(self._lcp(prompt, seq), len(prompt) - 1) // grain * grain
+            if self._ring_min is not None:
+                reuse = min(reuse, self._ring_min // grain * grain)
+            if reuse >= grain and (best is None or reuse > best[1]):
+                best = (row, reuse)
+                hit_store = (next((j for j, e in enumerate(self._store) if e["row"] == row), -1)
+                             if row >= self.ecfg.max_batch else -1)
+        if best is not None and hit_store >= 0:
+            self._store.append(self._store.pop(hit_store))
+        return best
+
+    def _store_prefix(self, slot: int) -> None:
+        """Move a retiring slot's KV rows into a store row (LRU-evicting), so
+        later admissions fork them after the donor is gone.  Unlike the JAX
+        engine, a sequence an entry already covers touches that entry (moves
+        it to MRU; ROADMAP R4)."""
+        grain = self.ecfg.prefill_chunk or 32
+        seq = self._slot_cached_seq(slot)
+        if len(seq) < grain:
+            return
+        if self._ring_min is not None and len(seq) > self._ring_min:
+            return  # wrapped ring: early rows evicted, useless as a donor
+        replace_idx = None
+        for j, e in enumerate(self._store):
+            n = self._lcp(seq, e["tokens"])
+            if n == len(seq):
+                self._store.append(self._store.pop(j))  # covered: touch it (R4)
+                return
+            if n == len(e["tokens"]):
+                replace_idx = j  # this sequence extends an existing entry
+        if replace_idx is not None:
+            row = self._store.pop(replace_idx)["row"]
+        elif len(self._store) < self.ecfg.prefix_store:
+            row = self.ecfg.max_batch + len(self._store)
+        else:
+            row = self._store.pop(0)["row"]  # LRU eviction
+        self._move_fn(slot, row)
+        self._store.append(dict(row=row, tokens=seq))
+        log.debug("prefix store: slot %d -> row %d (%d tokens)", slot, row, len(seq))
+
+    # -- batch buckets -------------------------------------------------------
+
+    def _batch_bucket(self, need: int) -> int:
+        """Smallest power of two >= ``need``, at most max_batch."""
+        b = 1
+        while b < need:
+            b *= 2
+        return min(b, self.ecfg.max_batch)
+
+    def _batch_buckets(self) -> list[int]:
+        if not self.ecfg.batch_buckets:
+            return [self.ecfg.max_batch]
+        out, b = [], 1
+        while b < self.ecfg.max_batch:
+            out.append(b)
+            b *= 2
+        return out + [self.ecfg.max_batch]
+
+    def _compact(self) -> None:
+        """Move the highest active slot down into a free low slot whenever that
+        shrinks the decode bucket (one KV row move)."""
+        while True:
+            act = [i for i, r in enumerate(self.slot_req) if r is not None]
+            if not act:
+                return
+            hi = max(act)
+            reserved = {self._pf["slot"]} if self._pf is not None else set()
+            free = [i for i in range(hi) if self.slot_req[i] is None and i not in reserved]
+            if not free or self._batch_bucket(hi + 1) <= self._batch_bucket(len(act) + len(reserved)):
+                return
+            dst = free[0]
+            self._move_fn(hi, dst)
+            for attr in ("slot_req", "slot_tokens", "slot_t0", "slot_lps"):
+                getattr(self, attr)[dst] = getattr(self, attr)[hi]
+            self.slot_req[hi] = None
+            self.slot_tokens[hi] = []
+            self.slot_lps[hi] = []
+            for arr in (self.slot_cur, self.slot_temp, self.slot_tp):
+                arr[dst] = arr[hi]
+            self._slots_dirty = True
+            self._hist_dirty = True
+            log.debug("compact slot %d -> %d", hi, dst)
 
     # -- host API ----------------------------------------------------------
 
@@ -202,16 +663,16 @@ class Engine:
         if t is not None:
             if not isinstance(t, (int, float)) or isinstance(t, bool) or not math.isfinite(t) or t < 0:
                 raise ValueError(f"temperature must be a finite number >= 0, got {t!r}")
-            if t > 0:
-                raise ValueError("the engine is greedy (sampling is not yet ported); a per-request temperature "
-                                 "cannot enable sampling")
+            if t > 0 and self.ecfg.temperature <= 0:
+                raise ValueError("engine is compiled greedy (EngineConfig.temperature == 0); a per-request "
+                                 "temperature cannot enable sampling — start the engine/server with temperature > 0")
         tp = req.top_p
         if tp is not None:
             if not isinstance(tp, (int, float)) or isinstance(tp, bool) or not (0.0 < tp <= 1.0):
                 raise ValueError(f"top_p must be in (0, 1], got {tp!r}")
-            if tp < 1.0:
-                raise ValueError("the engine has no nucleus path (sampling is not yet ported); a per-request "
-                                 "top_p cannot enable it")
+            if tp < 1.0 and self.ecfg.top_p >= 1.0:
+                raise ValueError("engine compiled without a nucleus path (EngineConfig.top_p == 1.0); a "
+                                 "per-request top_p cannot enable it — start the engine/server with top_p < 1")
         if req.adapter is not None:
             raise ValueError(f"unknown adapter {req.adapter!r} (engine has []; LoRA adapters are not yet ported)")
         self._submit_t[req.uid] = time.perf_counter()
@@ -252,26 +713,54 @@ class Engine:
         """Prefill length bucket: 32-row steps, clamped to the cache."""
         return min((lp + 31) // 32 * 32, self.ecfg.max_len)
 
-    def _bind(self, slot: int, req: Request, first: int) -> None:
-        """Start decoding ``req`` in ``slot`` from its first token."""
+    def _bind(self, slot: int, req: Request, first, lp0) -> None:
+        """Start decoding ``req`` in ``slot`` from its first token (the tick's
+        host fetch of the prefill's draw)."""
+        first = int(first)
         self.slot_req[slot] = req
         self.slot_tokens[slot] = [first]
+        self.slot_lps[slot] = [float(lp0)] if self.ecfg.logprobs else []
         self.slot_cur[slot] = first
         self.slot_t0[slot] = time.perf_counter()
-        self._mask_dev = None
+        self._slots_dirty = True
+        self._hist_dirty = True
         if self.on_token is not None:
             self.on_token(req.uid, first)
 
+    def _chunk_tokens(self, prompt: list[int], lo: int, hi: int) -> torch.Tensor:
+        toks = np.zeros((1, hi - lo), np.int32)
+        real = prompt[lo:hi]
+        toks[0, : len(real)] = real
+        return torch.from_numpy(toks).to(self.device)
+
     def _admit(self) -> None:
+        admitted = 0
         for slot in self._free_slots():
-            if not self.pending:
+            if not self.pending or (self.ecfg.admit_budget and admitted >= self.ecfg.admit_budget):
                 break
             req = self.pending.popleft()
             lp = len(req.prompt)
-            padded = np.zeros((1, self._bucket(lp)), np.int32)
-            padded[0, :lp] = req.prompt
-            first = int(self._prefill_fn(torch.from_numpy(padded).to(self.device), slot, lp))
-            self._bind(slot, req, first)
+            lp_pad = self._bucket(lp)
+            temp, top_p = self._row_tensors(req, slot)
+            donor = self._find_prefix_donor(req.prompt, 32) if self.ecfg.prefix_cache else None
+            if donor is not None:
+                # fork the donor's shared-prefix KV, prefill only the suffix in 32-token chunks
+                dslot, reuse = donor
+                small = self._fork_fn(dslot, reuse, lp_pad)
+                lo = reuse
+                while lo < lp:
+                    hi = min(lo + 32, lp_pad)
+                    first, lp0, small = self._chunk_fn(self._chunk_tokens(req.prompt, lo, hi), small,
+                                                       min(lp, hi) - 1 - lo, lp_pad, temp, top_p)
+                    lo = hi
+                self._splice_fn(small, slot, lp)
+                self._prefix_hits += 1
+                self._prefix_tokens += reuse
+                log.debug("admit(prefix) uid=%d slot=%d donor=%d reused=%d/%d", req.uid, slot, dslot, reuse, lp)
+            else:
+                first, lp0 = self._prefill_fn(self._chunk_tokens(req.prompt, 0, lp_pad), slot, lp, temp, top_p)
+            self._bind(slot, req, first, lp0)
+            admitted += 1
             log.debug("admit uid=%d slot=%d prompt_len=%d", req.uid, slot, lp)
 
     def _admit_chunked(self) -> None:
@@ -284,41 +773,85 @@ class Engine:
                 return
             req = self.pending.popleft()
             lp_pad = self._bucket(len(req.prompt))
-            # the small cache covers the whole bucket (ring layers keep fewer rows)
-            small = T.KVCache.zeros(self.cfg, 1, lp_pad, write_chunk=self._ring_chunk, device=self.device)
-            self._pf = dict(req=req, slot=slots[0], small=small, done=0, lp_pad=lp_pad)
+            done = 0
+            donor = self._find_prefix_donor(req.prompt, c) if self.ecfg.prefix_cache else None
+            if donor is not None:
+                # start at the donated prefix (a chunk multiple, so chunk widths stay the same)
+                dslot, done = donor
+                small = self._fork_fn(dslot, done, lp_pad)
+                self._prefix_hits += 1
+                self._prefix_tokens += done
+                log.debug("admit(prefix) uid=%d donor=%d reused=%d/%d", req.uid, dslot, done, len(req.prompt))
+            else:
+                # the small cache covers the whole bucket (ring layers keep fewer rows)
+                small = T.KVCache.zeros(self.cfg, 1, lp_pad, dtype=self._kv_dtype, write_chunk=self._ring_chunk,
+                                        device=self.device)
+            self._pf = dict(req=req, slot=slots[0], small=small, done=done, lp_pad=lp_pad,
+                            rows=self._row_tensors(req, slots[0]))
         pf = self._pf
         req, lp = pf["req"], len(pf["req"].prompt)
         lo = pf["done"]
         hi = min(lo + c, pf["lp_pad"])
-        toks = np.zeros((1, hi - lo), np.int32)
-        real = req.prompt[lo:hi]
-        toks[0, : len(real)] = real
-        first, pf["small"] = self._chunk_fn(torch.from_numpy(toks).to(self.device), pf["small"], min(lp, hi) - 1 - lo)
+        first, lp0, pf["small"] = self._chunk_fn(self._chunk_tokens(req.prompt, lo, hi), pf["small"],
+                                                 min(lp, hi) - 1 - lo, pf["lp_pad"], *pf["rows"])
         pf["done"] = hi
         if hi < lp:
             return  # more chunks to go; decode proceeds this tick
         self._splice_fn(pf["small"], pf["slot"], lp)
-        self._bind(pf["slot"], req, int(first))
+        self._bind(pf["slot"], req, first, lp0)
         log.debug("admit(chunked) uid=%d slot=%d prompt_len=%d chunks=%d", req.uid, pf["slot"], lp, -(-lp // c))
         self._pf = None
 
     def _retire(self, slot: int, reason: str) -> None:
         req = self.slot_req[slot]
+        if self.ecfg.prefix_store:
+            self._store_prefix(slot)
         now = time.perf_counter()
         t_sub = self._submit_t.pop(req.uid, now)
         self._completed += 1
         self.completions.append(Completion(
             uid=req.uid, tokens=self.slot_tokens[slot], prompt_len=len(req.prompt), finish_reason=reason,
-            ttft_s=self.slot_t0[slot] - t_sub, total_s=now - t_sub))
+            ttft_s=self.slot_t0[slot] - t_sub, total_s=now - t_sub,
+            logprobs=self.slot_lps[slot] if self.ecfg.logprobs else None))
         self.slot_req[slot] = None
         self.slot_tokens[slot] = []
-        self._mask_dev = None
+        self.slot_lps[slot] = []
+        self._slots_dirty = True
+        self._hist_dirty = True
+
+    def _upload_slots(self, active: list[int]) -> None:
+        """The active mask, temperatures and top_p into their static buffers
+        (only when the slot set or a slot's sampling values changed)."""
+        if not self._slots_dirty:
+            return
+        mask = np.zeros(self.ecfg.max_batch, bool)
+        mask[active] = True
+        self._active.copy_(torch.from_numpy(mask))
+        self._temp.copy_(torch.from_numpy(self.slot_temp))
+        self._top_p.copy_(torch.from_numpy(self.slot_tp))
+        self._slots_dirty = False
+
+    def _upload_hist(self, active: list[int]) -> None:
+        """Rebuild the device-resident speculation history from host state
+        (only when the slot set changed)."""
+        if not self._hist_dirty:
+            return
+        hist = np.zeros(tuple(self._hist.shape), np.int32)
+        hlen = np.zeros(self.ecfg.max_batch, np.int32)
+        for i in active:
+            seq = self.slot_req[i].prompt + self.slot_tokens[i]
+            hist[i, : len(seq)] = seq
+            hlen[i] = len(seq)
+        self._hist.copy_(torch.from_numpy(hist))
+        self._hlen.copy_(torch.from_numpy(hlen))
+        self._hist_dirty = False
 
     def step(self) -> int:
         """One tick: admit pending requests, retire finished slots, run up to
-        ``inner_steps`` batched decode steps.  Returns the active slot count."""
+        ``inner_steps`` batched decode steps (or speculative steps).  Returns
+        the active slot count."""
         t_tick = time.perf_counter()
+        self.last_decode_steps = 0
         if self.ecfg.prefill_chunk:
             self._admit_chunked()
         else:
@@ -333,9 +866,11 @@ class Engine:
                 self._retire(i, "stop")
             elif len(toks) >= req.max_new_tokens or len(req.prompt) + len(toks) >= self.ecfg.max_len:
                 self._retire(i, "length")
-        active = [i for i, r in enumerate(self.slot_req) if r is not None]
-        if not active:
+        if not any(r is not None for r in self.slot_req):
             return 0
+        if self.ecfg.batch_buckets:
+            self._compact()
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
         # inner depth: bounded by the tightest remaining cache capacity only
         # (a slot's own budget does not shrink it: tokens past it are dropped
         # below), bucketed to a power of two
@@ -344,19 +879,47 @@ class Engine:
         n = 1
         while 2 * n <= budget:
             n *= 2
-        if self._mask_dev is None:
-            mask = np.zeros(self.ecfg.max_batch, bool)
-            mask[active] = True
-            self._mask_dev = torch.from_numpy(mask).to(self.device)
-        tokens = torch.from_numpy(self.slot_cur.astype(np.int32)).to(self.device)
-        toks = self._decode_fn(tokens, self._mask_dev, n).cpu().numpy()  # the tick's one host fetch
-        self.step_times.append((time.perf_counter() - t_tick) / n)
-        self._steps += n
+        bp = self._batch_bucket(max(active) + 1) if self.ecfg.batch_buckets else self.ecfg.max_batch
+        self._last_decode_batch = bp
+        self._upload_slots(active)
+        self._tok[:bp].copy_(torch.from_numpy(self.slot_cur[:bp].astype(np.int32)))
+        k = self.ecfg.spec_tokens
+        lps = None
+        if k and cap >= k + 1:
+            # speculative path: s verify forwards per tick, each emitting
+            # 1..k+1 tokens per slot; worst-case growth s*(k+1) fits capacity
+            s = 1
+            while 2 * s <= self.ecfg.inner_steps and 2 * s * (k + 1) <= cap:
+                s *= 2
+            self._upload_hist(active)
+            self._run(("spec", bp, s, self.step_logits is not None), lambda: self._spec_fn(bp, s))
+            toks3 = self._spec_tok[:s, :bp].cpu().numpy()  # the tick's host fetch
+            cnts = self._spec_cnt[:s, :bp].cpu().numpy()
+            per_slot = {i: [int(t) for si in range(s) for t in toks3[si, i, : cnts[si, i]]] for i in active}
+            if self.ecfg.logprobs:
+                lps3 = self._spec_lp[:s, :bp].cpu().numpy()
+                lps = {i: [float(x) for si in range(s) for x in lps3[si, i, : cnts[si, i]]] for i in active}
+            emitted = sum(len(v) for v in per_slot.values())
+            self._spec_emitted += emitted
+            self._spec_slot_forwards += s * len(active)
+            self.step_times.append((time.perf_counter() - t_tick) / max(emitted / len(active), 1.0))
+            self._steps += s
+        else:
+            self._run(("decode", bp, n, self.step_logits is not None), lambda: self._decode_fn(bp, n))
+            toks = self._out_tok[:n, :bp].cpu().numpy()  # the tick's host fetch
+            per_slot = {i: [int(t) for t in toks[:, i]] for i in active}
+            if self.ecfg.logprobs:
+                lpn = self._out_lp[:n, :bp].cpu().numpy()
+                lps = {i: [float(x) for x in lpn[:, i]] for i in active}
+            self.step_times.append((time.perf_counter() - t_tick) / n)
+            self._steps += n
+            self.last_decode_steps = n
         for i in active:
             req = self.slot_req[i]
-            for t in toks[i]:
-                t = int(t)
+            for j, t in enumerate(per_slot[i]):
                 self.slot_tokens[i].append(t)
+                if lps is not None:
+                    self.slot_lps[i].append(lps[i][j])
                 self._tokens_out += 1
                 if self.on_token is not None:
                     self.on_token(req.uid, t)
@@ -367,8 +930,70 @@ class Engine:
             self.slot_cur[i] = self.slot_tokens[i][-1]
         return len(active)
 
+    @torch.no_grad()
+    def warmup(self, max_prompt_len: int | None = None, prompt_lens=None) -> dict:
+        """Run every serving program once before serving, so that no request
+        pays a capture, a kernel build or allocator growth: the prefill of
+        every 32-row bucket covering ``prompt_lens`` (or all up to
+        ``max_prompt_len``; in chunked mode every chunk of each bucket), the
+        forks and suffix chunks of the prefix cache, and the decode programs
+        of every power-of-two depth <= inner_steps (and every speculation
+        depth s) for every batch bucket, captured as CUDA graphs on the card.
+        The engine must be idle: the runs scribble on slot 0 and idle slots.
+        Returns the trace counters (JAX's ``Engine.warmup``)."""
+        if any(r is not None for r in self.slot_req) or self._pf is not None:
+            raise RuntimeError("warmup() must run before serving (cache is scribbled)")
+        if prompt_lens is None:
+            if max_prompt_len is None:
+                raise ValueError("warmup needs max_prompt_len or prompt_lens")
+            prompt_lens = range(1, max_prompt_len + 1, 32)
+        buckets = sorted({self._bucket(lp) for lp in prompt_lens})
+        dev = self.device
+        t1 = torch.full((1,), self.ecfg.temperature, dtype=torch.float32, device=dev)
+        p1 = torch.full((1,), self.ecfg.top_p, dtype=torch.float32, device=dev)
+        c = self.ecfg.prefill_chunk
+        for lp_pad in buckets:
+            if c:
+                small = T.KVCache.zeros(self.cfg, 1, lp_pad, dtype=self._kv_dtype, write_chunk=self._ring_chunk,
+                                        device=dev)
+                for lo in range(0, lp_pad, c):
+                    hi = min(lo + c, lp_pad)
+                    _, _, small = self._chunk_fn(torch.zeros((1, hi - lo), dtype=torch.int32, device=dev), small, 0,
+                                                 lp_pad, t1, p1)
+                self._splice_fn(small, 0, 1)
+            else:
+                self._prefill_fn(torch.zeros((1, lp_pad), dtype=torch.int32, device=dev), 0, 1, t1, p1)
+        if self.ecfg.prefix_cache:
+            for lp_pad in buckets:
+                small = self._fork_fn(0, 0, lp_pad)
+                if not c:  # suffix widths are 32 except a max_len-clamped bucket's tail
+                    for w in sorted({min(32, lp_pad)} | ({lp_pad % 32} if lp_pad % 32 else set())):
+                        _, _, small = self._chunk_fn(torch.zeros((1, w), dtype=torch.int32, device=dev), small, 0,
+                                                     lp_pad, t1, p1)
+        self._upload_slots([])
+        logits_flag = self.step_logits is not None
+        for bp in self._batch_buckets():
+            n = 1
+            while n <= self.ecfg.inner_steps:
+                self._run(("decode", bp, n, logits_flag), lambda: self._decode_fn(bp, n))
+                n *= 2
+            if self.ecfg.spec_tokens:
+                s, k1 = 1, self.ecfg.spec_tokens + 1
+                while s <= self.ecfg.inner_steps and s * k1 <= self.ecfg.max_len:
+                    self._run(("spec", bp, s, logits_flag), lambda: self._spec_fn(bp, s))
+                    s *= 2
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        log.info("warmup: %d prefill buckets, %d decode programs", len(buckets), self.traces["decode"])
+        # throughput metrics start when serving starts
+        self.step_times.clear()
+        self._t0 = time.perf_counter()
+        return dict(self.traces)
+
     def stats(self) -> dict:
-        """Serving metrics: tok/s, occupancy, per-token tick latency, TTFT."""
+        """Serving metrics, with the JAX engine's keys: tok/s, occupancy,
+        per-token tick latency, TTFT, speculation and prefix-cache counters,
+        KV bytes."""
         dt = time.perf_counter() - self._t0
         done = self.completions
         st = np.asarray(self.step_times) if self.step_times else np.zeros(1)
@@ -380,9 +1005,14 @@ class Engine:
             tokens_out=self._tokens_out,
             tok_per_s=self._tokens_out / dt if dt > 0 else 0.0,
             avg_batch_occupancy=self._tokens_out / max(self._steps, 1),
-            decode_batch=self.ecfg.max_batch,
+            decode_batch=self._last_decode_batch,
             active_slots=sum(r is not None for r in self.slot_req),
             pending=len(self.pending),
+            spec_tokens_per_forward=(self._spec_emitted / self._spec_slot_forwards
+                                     if self._spec_slot_forwards else 0.0),
+            prefix_hits=self._prefix_hits,
+            prefix_tokens_reused=self._prefix_tokens,
+            prefix_store_entries=len(self._store),
             kv_cache_bytes=sum(a.numel() * a.element_size() for a in self.cache.k + self.cache.v),
             mean_ttft_s=sum(c.ttft_s for c in done) / len(done) if done else 0.0,
             mean_tpot_s=(sum((c.total_s - c.ttft_s) / max(len(c.tokens) - 1, 1) for c in done) / len(done)

@@ -16,9 +16,11 @@ Endpoints
                           "temperature"?: f, "top_p"?: f, "eos_id"?: id,
                           "stop_ids"?: [ids], "stream"?: bool,
                           "adapter"?: name}
-      Sampling overrides and adapters the greedy engine cannot honour are
-      rejected with 400 and the server keeps serving.
+      Sampling overrides the engine cannot honour (a temperature on a greedy
+      engine, a top_p without its nucleus path) and adapters are rejected
+      with 400 and the server keeps serving.
       -> {"uid", "tokens", "finish_reason", "prompt_len", "ttft_s", "total_s"}
+      (plus "logprobs" when the engine emits them)
       or, with "stream": true, chunked server-sent-event lines: first
       ``data: {"uid": N}``, then ``data: {"token": t}`` per generated token
       and a final ``data: {"done": {...completion...}}``.

@@ -88,10 +88,12 @@ def visible_pairs(q_positions, kv_valid, kv_positions, sliding_window=None, chun
 
 def attention_bound_s(q, k, pairs: int) -> tuple[float, str]:
     """Bound of one attention call, q (B, Lq, Hq, D), k (B, Lk, Hk, D): q, o,
-    k and v each read or written once; 4 * D * Hq bf16 tensor-core operations
-    (the QK and PV products) per visible pair (:func:`visible_pairs`)."""
+    k and v each read or written once, at their own element sizes (an e4m3
+    K/V cache moves one byte per element); 4 * D * Hq bf16 tensor-core
+    operations (the QK and PV products) per visible pair
+    (:func:`visible_pairs`)."""
     d, hq = q.shape[3], q.shape[2]
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
     return bound_s(nbytes, 4 * d * hq * pairs, H100_BF16_FLOPS)
 
 
