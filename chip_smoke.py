@@ -143,7 +143,36 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      --temperature --top-p --prefix-cache --prefix-store --kv-dtype
      float8_e4m3fn --logprobs: a sampled and a temperature-0 request over
      HTTP, the latter equal to the in-process greedy engine, SIGINT -> 0.
-Every engine (phases 5-10) decodes by CUDA-graph replay; its launch counts
+  11. HF checkpoints to served tokens (sources written under build/ with the
+     port's own safetensors writer, from seeded weights with torch's own
+     initialization of each module, and removed at the end): (a) a 32-layer
+     Mistral-7B HF source (config.json and bf16 shards, 14.5 GB) converted by
+     ``python -m torch_bnb_fp4_tpu_torch.convert --quantize-embed`` in a
+     child process (seconds, GB/s of source, peak pending bytes, the packer,
+     which must be the native C one), loaded with load_checkpoint(fuse=True):
+     layers 0-1, the table, the final norm and the lm_head byte-equal to
+     quantize_params on the same weights; the embedding table's bytes packed
+     and in bf16; prompts of 100, 200 and 300 tokens through the graphed
+     engine (K2, K3 and K4 must launch), its tokens against eager generate
+     with phase 10a's near-tie rule; (b) the 2-layer cut of (a) on the card
+     against the CPU's plain versions at phase 4's tolerances, and against
+     reference_forward on the card, correlation > 0.98; (c) a 4-layer
+     bitsandbytes-serialized NF4 source (nested absmax, quant_map, the JSON
+     blob) converted twice, imported exactly (lut) and with --requantize
+     (ramp), each served by the engine (tokens against eager generate) with
+     the mean |dequant error| of layer 0's q_proj against the source
+     weights; (d) compat at the Mistral-7B widths 4096->14336 and
+     14336->4096: TorchFP4Linear.from_linear(nn.Linear) at M = 1, 64, 256
+     (K2, K2, K4) against its plain version and the layer's own output (mean
+     |y - exact| in the reference's band 0.045-0.065), QuantData from a
+     double-quantized state at M = 1 (K2) with dequantize (K6) against
+     dequantize_fp4_codebook_invoke, gemm_4bit_inference card against CPU,
+     the module's forward against apply_linear and gemm_4bit_inference timed
+     by graph replay; recursively_replace_with_fp4_linear on a 2-layer
+     full-width stand-in built from nn.Linear: every linear's bytes and the
+     greedy tokens equal those of the CLI-converted checkpoint of the same
+     weights.
+Every engine (phases 5-11) decodes by CUDA-graph replay; its launch counts
 include the replays.  Prints the kernel table as one JSON line, then the
 final status line.
 Kernel times are CUDA-graph replays timed with CUDA events (the card's own
@@ -215,6 +244,13 @@ SPLITK_INSTANCES = ((1, "splitk_b1"), (4, "splitk"), (64, "splitk"), (128, "spli
 SPLITK_PROMPTS = (100, 300, 1000)  # phase 9a
 SPLITK_SERVED_PROMPTS = (100, 300)  # phase 9d, sent together; then an aborted 300 and a short one
 # phase 3b: (case, what, B, Lq, Lk, Hq, Hk, D, lens, q_offset, window, softcap, scale)
+HF_LAYERS = 32  # phase 11a: Mistral-7B's own depth (a 14.5 GB bf16 source)
+HF_LAYERS_PER_SHARD = 8
+HF_PROMPTS = (100, 200, 300)  # buckets 128, 224, 320: K2, K3 and K4 prefill, K2 decode
+BNB_LAYERS = 4  # phase 11c
+BNB_PROMPTS = (100, 300)
+COMPAT_SHAPES = ((4096, 14336), (14336, 4096))  # (in, out) of Mistral-7B's gate/up and down
+COMPAT_MS = (1, 64, 256)  # K2, K2, K4
 FLASH_CASES = (
     ("a", "Mistral chunk: 256 queries, 4352-row ring of 6000 positions, window 4096",
      1, 256, 4352, 32, 8, 128, 6000, None, 4096, None, None),
@@ -459,6 +495,458 @@ def serve_over_http(root, ckpt, prompts, aborted_prompt, short_prompt, log_path)
                 proc.kill()
                 proc.wait()
     return [out[i]["tokens"] for i in range(len(prompts))], short["tokens"], stats, startup_s
+
+
+def hf_config(cfg, n_layers: int) -> dict:
+    """The MistralConfig fields of ``cfg`` at ``n_layers``, as config.json holds them."""
+    return {"architectures": ["MistralForCausalLM"], "model_type": "mistral", "vocab_size": cfg.vocab_size,
+            "hidden_size": cfg.dim, "intermediate_size": cfg.ffn_dim, "num_hidden_layers": n_layers,
+            "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+            "hidden_act": "silu", "max_position_embeddings": 32768, "rms_norm_eps": cfg.rms_eps,
+            "rope_theta": cfg.rope_theta, "sliding_window": cfg.sliding_window, "tie_word_embeddings": False,
+            "torch_dtype": "bfloat16", "bos_token_id": 1, "eos_token_id": 2}
+
+
+def hf_layer_shapes(cfg, i: int) -> dict:
+    """HF names and shapes of decoder layer ``i``."""
+    p, kv = f"model.layers.{i}.", cfg.n_kv_heads * cfg.head_dim
+    return {p + "input_layernorm.weight": (cfg.dim,), p + "post_attention_layernorm.weight": (cfg.dim,),
+            p + "self_attn.q_proj.weight": (cfg.q_dim, cfg.dim), p + "self_attn.k_proj.weight": (kv, cfg.dim),
+            p + "self_attn.v_proj.weight": (kv, cfg.dim), p + "self_attn.o_proj.weight": (cfg.dim, cfg.q_dim),
+            p + "mlp.gate_proj.weight": (cfg.ffn_dim, cfg.dim), p + "mlp.up_proj.weight": (cfg.ffn_dim, cfg.dim),
+            p + "mlp.down_proj.weight": (cfg.dim, cfg.ffn_dim)}
+
+
+def hf_shards(cfg, n_layers: int) -> list:
+    """[{name: shape}] of each source shard: up to HF_LAYERS_PER_SHARD layers
+    each and at least two shards, the embedding and final norm in the first,
+    the lm_head in the last."""
+    per = min(HF_LAYERS_PER_SHARD, max(1, n_layers // 2))
+    shards = [{} for _ in range(-(-n_layers // per))]
+    shards[0].update({"model.embed_tokens.weight": (cfg.vocab_size, cfg.dim), "model.norm.weight": (cfg.dim,)})
+    for i in range(n_layers):
+        shards[i // per].update(hf_layer_shapes(cfg, i))
+    shards[-1]["lm_head.weight"] = (cfg.vocab_size, cfg.dim)
+    return shards
+
+
+def source_tensor(name: str, shape, dev, seed: int = 11):
+    """One source weight as a bf16 CPU tensor, made on the card from a
+    generator seeded by its name (every source of phase 11 holds the same
+    values under the same name), with torch's own initialization of the
+    module that holds it: a norm ones, nn.Embedding N(0, 1), nn.Linear
+    U(-1/sqrt(in), 1/sqrt(in))."""
+    import zlib
+
+    import torch
+
+    if name.endswith("norm.weight"):
+        return torch.ones(shape, dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(seed * 1_000_003 + zlib.crc32(name.encode()))
+    if "embed_tokens" in name:
+        t = torch.randn(shape, generator=g, device=dev)
+    else:
+        bound = 1.0 / math.sqrt(shape[1])
+        t = torch.empty(shape, device=dev).uniform_(-bound, bound, generator=g)
+    return t.to(torch.bfloat16).cpu()
+
+
+def write_hf_source(path: Path, cfg, n_layers: int, dev, transform=None) -> int:
+    """A seeded HF Mistral directory (config.json and bf16 safetensors shards,
+    written with the port's own writer); ``transform(name, tensor, out)``
+    may store a tensor in another form.  Returns the bytes written."""
+    from torch_bnb_fp4_tpu_torch.convert import safetensors_io as st
+
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps(hf_config(cfg, n_layers)))
+    shards, total = hf_shards(cfg, n_layers), 0
+    for s, names in enumerate(shards):
+        out = {}
+        for name, shape in names.items():
+            t = source_tensor(name, shape, dev)
+            if transform is None:
+                out[name] = t
+            else:
+                transform(name, t, out)
+        f = path / f"model-{s + 1:05d}-of-{len(shards):05d}.safetensors"
+        st.save_file(out, str(f))
+        total += f.stat().st_size
+    return total
+
+
+def source_weights(cfg, n_layers: int, dev) -> dict:
+    """The f32 numpy weights of a source's first ``n_layers`` layers (its bf16 values, exactly)."""
+    names = {"model.embed_tokens.weight": (cfg.vocab_size, cfg.dim), "model.norm.weight": (cfg.dim,),
+             "lm_head.weight": (cfg.vocab_size, cfg.dim)}
+    for i in range(n_layers):
+        names.update(hf_layer_shapes(cfg, i))
+    return {n: source_tensor(n, s, dev).float().numpy() for n, s in names.items()}
+
+
+def run_convert(root: Path, src: Path, out: Path, flags, log: Path):
+    """The converter CLI as a child process: (seconds, peak pending MiB,
+    total MiB, the packer it names)."""
+    import re
+
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch_bnb_fp4_tpu_torch.convert", str(src), str(out), *flags]
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        rc = subprocess.run(cmd, cwd=root, stdout=f, stderr=subprocess.STDOUT, timeout=900).returncode
+    secs = time.perf_counter() - t0
+    text = log.read_text()
+    if rc != 0:
+        print(f"[11] convert log (tail):\n{text[-4000:]}", file=sys.stderr)
+    check(rc == 0, f"the converter CLI exited with {rc}")
+    m = re.search(r"peak pending ([\d.]+) MiB of ([\d.]+) MiB total; packer ([^)]+)\)", text)
+    check(m is not None, "the converter CLI printed no summary line")
+    return secs, float(m.group(1)), float(m.group(2)), m.group(3)
+
+
+def engine_tokens_vs_eager(T, params, cfg, prompt, tokens, dev, tag):
+    """Engine tokens against eager greedy decoding (``generate``): equal, or
+    at the first difference a near-tie of the eager logits fed the eager
+    tokens (phase 10a's rule: the two winners within 2^-7 * max|logit|)."""
+    import torch
+
+    ref = T.generate(params, cfg, torch.tensor([prompt], dtype=torch.int32, device=dev), len(tokens))[0].tolist()
+    j = next((t for t, (a, b) in enumerate(zip(ref, tokens)) if a != b), None)
+    if j is None:
+        check(len(ref) == len(tokens), f"{tag}: token counts differ")
+        return f"{len(tokens)}/{len(tokens)} tokens equal to eager generate"
+    cache = T.KVCache.zeros(cfg, 1, len(prompt) + j + 1, device=dev)
+    toks = torch.tensor([prompt + ref[:j]], dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        g = T.forward(params, cfg, toks, cache, last_only=True)[0][0, -1].float().cpu()
+    tie = 2.0**-7 * g.abs().max().item()
+    margin = (g[ref[j]] - g[tokens[j]]).item()
+    check(abs(margin) <= tie, f"{tag}: engine differs from eager generate at token {j}, margin {margin} > {tie}")
+    return f"first difference from eager generate at token {j}, a near-tie (margin {margin:.4g} <= {tie:.4g})"
+
+
+def nested_absmax_state(absmax, nested_blocksize: int = 256):
+    """bnb's double quantization of an f32 absmax: (uint8 indices into a
+    256-entry uniform map around the mean, one nested scale (1.0) per
+    ``nested_blocksize`` indices, the map, the offset)."""
+    import numpy as np
+
+    offset = float(absmax.mean())
+    centered = absmax - np.float32(offset)
+    lo, hi = float(centered.min()) - 1e-6, float(centered.max()) + 1e-6
+    qmap = np.linspace(lo, hi, 256).astype(np.float32)
+    u8 = np.clip(np.rint((centered - lo) / ((hi - lo) / 255)), 0, 255).astype(np.uint8)
+    return u8, np.ones(-(-absmax.size // nested_blocksize), np.float32), qmap, offset
+
+
+def bnb_serialize(name: str, w, quant_type: str, out: dict) -> None:
+    """HF-serialized bitsandbytes state of one linear (what transformers
+    writes for a load_in_4bit model), double-quantized as HF's default: the
+    port's flat packing of the codes, the nested absmax, the quant_map and
+    the JSON blob."""
+    import numpy as np
+
+    from torch_bnb_fp4_tpu_torch.ops import format as fmt
+
+    code = fmt.NF4_CODE if quant_type == "nf4" else fmt.FP4_CODE
+    packed, absmax = fmt.quantize_fp4(w, code=code)
+    u8, absmax2, qmap, offset = nested_absmax_state(absmax)
+    stem = name[: -len(".weight")]
+    out[f"{stem}.weight"] = packed.reshape(-1, 1)
+    out[f"{stem}.weight.absmax"] = u8
+    out[f"{stem}.weight.nested_absmax"] = absmax2
+    out[f"{stem}.weight.nested_quant_map"] = qmap
+    out[f"{stem}.weight.quant_map"] = code
+    blob = {"quant_type": quant_type, "blocksize": 64, "dtype": "bfloat16", "shape": list(w.shape),
+            "nested_blocksize": 256, "nested_offset": offset, "nested_dtype": "float32"}
+    out[f"{stem}.weight.quant_state.bitsandbytes__{quant_type}"] = np.frombuffer(json.dumps(blob).encode(),
+                                                                                 np.uint8).copy()
+
+
+def phase11(root: Path, dev, smi: str) -> None:
+    """Phase 11: HF checkpoints to served tokens (the module docstring lists
+    its parts).  Every source is written under build/ and removed at the end."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from torch_bnb_fp4_tpu_torch import compat as C
+    from torch_bnb_fp4_tpu_torch.convert import dequantize_nested_absmax, load_checkpoint, native
+    from torch_bnb_fp4_tpu_torch.models import linear as L
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+    from torch_bnb_fp4_tpu_torch.ops import format as fmt
+    from torch_bnb_fp4_tpu_torch.ops import kernels as K
+    from torch_bnb_fp4_tpu_torch.serve import Engine, EngineConfig, Request
+    from torch_bnb_fp4_tpu_torch.utils import profiling as P
+
+    t_phase = time.perf_counter()
+    build = root / "build"
+    base = T.ModelConfig.mistral_7b()
+    g11 = torch.Generator().manual_seed(11)
+    check(native.available(), "[11] the native packer (csrc/host/qpack.c) did not build: no C compiler?")
+    print(f"[11] native packer: {Path(native._build_lib()).relative_to(root)}")
+    dirs = [build / n for n in ("chip_smoke_hf_src", "chip_smoke_hf_ckpt", "chip_smoke_bnb_src",
+                                "chip_smoke_bnb_ckpt", "chip_smoke_hf2_src", "chip_smoke_hf2_ckpt")]
+    src_a, out_a, src_c, out_c, src_d, out_d = dirs
+    ecfg = EngineConfig(max_batch=4, max_len=512, inner_steps=8)
+
+    def close(y, y_ref, what):
+        """Card against CPU: |dy| <= 2^-7 * max|y_ref| (bf16 output rounding, f32 summation order)."""
+        y, y_ref = y.float().cpu(), y_ref.float().cpu()
+        d = (y - y_ref).abs().max().item()
+        check(bool(torch.isfinite(y).all()) and d <= 2.0**-7 * y_ref.abs().max().item(),
+              f"{what}: max|d| {d} > 2^-7 max|y|")
+        return d
+
+    try:
+        # (a) a 32-layer HF source -> the converter CLI -> load_checkpoint -> the graphed engine
+        t0 = time.perf_counter()
+        src_bytes = write_hf_source(src_a, base, HF_LAYERS, dev)
+        write_s = time.perf_counter() - t0
+        conv_s, peak_mib, total_mib, packer = run_convert(root, src_a, out_a, ["--quantize-embed"],
+                                                          build / "chip_smoke_convert.log")
+        shutil.rmtree(src_a)
+        check(packer == "native C", f"[11a] the converter packed with {packer}")
+        print(f"[11a] wrote a {HF_LAYERS}-layer Mistral-7B HF source ({len(hf_shards(base, HF_LAYERS))} bf16 shards, "
+              f"{src_bytes / 1e9:.2f} GB) in {write_s:.1f} s; `python -m torch_bnb_fp4_tpu_torch.convert "
+              f"--quantize-embed`: {conv_s:.1f} s, {src_bytes / conv_s / 1e9:.3f} GB/s of source, peak pending "
+              f"{peak_mib:.1f} MiB of {total_mib:.1f} MiB read, packer {packer} ({smi})")
+        t0 = time.perf_counter()
+        cfg, params = load_checkpoint(str(out_a), fuse=True, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(cfg == dataclasses.replace(base, n_layers=HF_LAYERS, quantize_embed=True), f"[11a] config {cfg}")
+        check(isinstance(params.embed, T.QuantEmbedding), "[11a] the embedding table is not quantized")
+        emb_q, emb_bf16 = tensor_bytes(params.embed), cfg.vocab_size * cfg.dim * 2
+        print(f"[11a] load_checkpoint(fuse=True) in {load_s:.1f} s: {tensor_bytes(params) / 1e9:.2f} GB on the card; "
+              f"embedding table {emb_q / 1e6:.1f} MB packed against {emb_bf16 / 1e6:.1f} MB in bf16")
+        t0 = time.perf_counter()
+        weights2 = source_weights(base, 2, dev)
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        ref2 = T.quantize_params(cfg2, weights2, fuse=True, device=dev)
+        for i in range(2):
+            for f in ("wqkv", "wo", "w_gateup", "w_down"):
+                a, b = getattr(params.layers[i], f), getattr(ref2.layers[i], f)
+                check(torch.equal(a.packed, b.packed) and a.scale.dtype == b.scale.dtype
+                      and torch.equal(a.scale, b.scale), f"[11a] layer {i} {f}: the converted bytes differ")
+            for f in ("attn_norm", "mlp_norm"):
+                check(torch.equal(getattr(params.layers[i], f), getattr(ref2.layers[i], f)), f"[11a] layer {i} {f}")
+        for f in ("packed", "scale", "code"):
+            check(torch.equal(getattr(params.embed, f), getattr(ref2.embed, f)), f"[11a] the table's {f} differs")
+        check(torch.equal(params.lm_head.w, ref2.lm_head.w) and torch.equal(params.final_norm, ref2.final_norm),
+              "[11a] the lm_head or the final norm differs")
+        del ref2
+        print(f"[11a] layers 0-1 (packed bytes and scales), the table, the final norm and the lm_head equal "
+              f"quantize_params on the same weights in this process ({time.perf_counter() - t0:.1f} s)")
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g11).tolist() for n in HF_PROMPTS]
+        eng = Engine(params, cfg, ecfg)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = eng.run([Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        for name in ("matmul_pk", "matmul_pk_minner", "matmul_pk_w4a8"):
+            check(launches[name] > 0, f"[11a] the converted model's engine never launched {name}")
+        st = eng.stats()
+        print(f"[11a] the graphed engine served prompts of {HF_PROMPTS} tokens ({NEW_TOKENS} new each) in {wall:.2f} s, "
+              f"decode {st['step_p50_s'] * 1e3:.2f} ms/step p50 ({smi}); launches "
+              f"{json.dumps({k: v for k, v in launches.items() if v})}")
+        for i, p in enumerate(prompts):
+            print(f"[11a] {len(p)}-token prompt: "
+                  + engine_tokens_vs_eager(T, params, cfg, p, res[i].tokens, dev, f"[11a] {len(p)}-token prompt"))
+        cut = T.ModelParams(embed=params.embed, layers=params.layers[:2], final_norm=params.final_norm,
+                            lm_head=params.lm_head)
+        del eng, params
+        torch.cuda.empty_cache()
+        shutil.rmtree(out_a)
+        print(f"[11a] took {time.perf_counter() - t_phase:.1f} s")
+
+        # (b) the 2-layer cut of (a): card against the CPU's plain versions, and against reference_forward
+        t0 = time.perf_counter()
+        cut_cpu = T.params_to(cut, "cpu")
+        prompt = torch.randint(0, cfg.vocab_size, (1, 100), generator=g11, dtype=torch.int32)
+        c_gpu = T.KVCache.zeros(cfg2, 1, 104, device=dev)
+        c_cpu = T.KVCache.zeros(cfg2, 1, 104, device="cpu")
+        toks, worst = prompt, (0.0, 0.0)
+        for step in range(5):  # prefill, then 4 decode steps fed the CPU run's greedy token
+            with torch.no_grad():
+                lg_gpu, c_gpu = T.forward(cut, cfg2, toks.to(dev), c_gpu, last_only=True)
+                lg_cpu, c_cpu = T.forward(cut_cpu, cfg2, toks, c_cpu, last_only=True)
+            lg_gpu = lg_gpu.cpu()
+            d = (lg_gpu - lg_cpu).abs().max().item()
+            rel = ((lg_gpu - lg_cpu).norm() / lg_cpu.norm()).item()
+            check(bool(torch.isfinite(lg_gpu).all()) and d <= 6e-2 * lg_cpu.abs().max().item() and rel <= 3e-2,
+                  f"[11b] step {step}: max|d| {d}, rel L2 {rel}")
+            worst = (max(worst[0], d / lg_cpu.abs().max().item()), max(worst[1], rel))
+            toks = lg_cpu[:, -1].argmax(-1).to(torch.int32)[:, None]
+        with torch.no_grad():
+            q_lg = T.forward(cut, cfg2, prompt.to(dev), T.KVCache.zeros(cfg2, 1, 100, device=dev))[0]
+        r_lg = T.reference_forward(cfg2, weights2, prompt, device=dev)
+        corr = float(np.corrcoef(q_lg.float().cpu().numpy().ravel(), r_lg.cpu().numpy().ravel())[0, 1])
+        check(corr > 0.98, f"[11b] the quantized cut's logits correlate {corr} with reference_forward's")
+        print(f"[11b] 2-layer cut of the converted model (quantized table), card against the CPU's plain versions: "
+              f"100-token prompt and 4 decode steps, worst max|dlogit| {worst[0]:.3g} of max|logit|, worst rel L2 "
+              f"{worst[1]:.3g}; against reference_forward on the card (bf16, unquantized) over all 100 positions: "
+              f"correlation {corr:.5f} ({time.perf_counter() - t0:.1f} s)")
+        del cut, cut_cpu, c_gpu, c_cpu
+        torch.cuda.empty_cache()
+
+        # (c) a bitsandbytes-serialized NF4 source, imported exactly and requantized
+        t0 = time.perf_counter()
+
+        def to_bnb(name, t, out):
+            if name.endswith("_proj.weight"):
+                bnb_serialize(name, t.float().numpy(), "nf4", out)
+            else:
+                out[name] = t
+
+        bnb_bytes = write_hf_source(src_c, base, BNB_LAYERS, dev, transform=to_bnb)
+        print(f"[11c] wrote a {BNB_LAYERS}-layer bitsandbytes NF4 source (double-quantized absmax, "
+              f"{bnb_bytes / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s")
+        w0 = torch.from_numpy(weights2["model.layers.0.self_attn.q_proj.weight"]).to(dev)
+        bnb_prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g11).tolist() for n in BNB_PROMPTS]
+        errs = {}
+        for mode, flags, variant in (("exact", [], "lut"), ("requantize", ["--requantize"], "ramp")):
+            secs, *_ = run_convert(root, src_c, out_c, flags, build / f"chip_smoke_convert_bnb_{mode}.log")
+            cfg_m, p_m = load_checkpoint(str(out_c), device=dev)
+            q0 = p_m.layers[0].wq
+            check(q0.variant == variant, f"[11c] {mode}: layer 0 wq has variant {q0.variant}")
+            errs[mode] = (L.dequantize_weight(q0, out_dtype=torch.float32) - w0).abs().mean().item()
+            p_m = T.fuse_params(p_m)
+            eng = Engine(p_m, cfg_m, ecfg)
+            K.reset_launch_counts()
+            res = eng.run([Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(bnb_prompts)])
+            launches = K.launch_counts()
+            check(launches["matmul_pk"] > 0 and launches["matmul_pk_w4a8" if mode == "requantize" else
+                                                             "matmul_pk"] > 0, f"[11c] {mode}: launches {launches}")
+            print(f"[11c] {mode} ({' '.join(flags) or 'no flags'}): converted in {secs:.1f} s, {cfg_m.quant_type} "
+                  f"{variant}; layer 0 q_proj mean |dequant - source| {errs[mode]:.5g}; launches "
+                  f"{json.dumps({k: v for k, v in launches.items() if v})}")
+            for i, p in enumerate(bnb_prompts):
+                note = engine_tokens_vs_eager(T, p_m, cfg_m, p, res[i].tokens, dev, f"[11c] {mode} {len(p)}")
+                print(f"[11c] {mode}, {len(p)}-token prompt: tokens {res[i].tokens[:8]}...; {note}")
+            del eng, p_m
+            torch.cuda.empty_cache()
+            shutil.rmtree(out_c)
+        check(errs["exact"] < errs["requantize"] < 2 * errs["exact"],
+              f"[11c] weight errors exact {errs['exact']}, requantized {errs['requantize']}")
+        shutil.rmtree(src_c)
+        print(f"[11c] requantized / exact weight error {errs['requantize'] / errs['exact']:.3f}")
+
+        # (d) compat at Mistral-7B widths, and a stand-in model through recursively_replace_with_fp4_linear
+        t0 = time.perf_counter()
+        for k, n in COMPAT_SHAPES:
+            torch.manual_seed(k)
+            lin = torch.nn.Linear(k, n)  # torch's default init, on the CPU
+            q = C.TorchFP4Linear.from_linear(lin, device=dev)
+            q_cpu = q.quant_linear.to("cpu")
+            for m in COMPAT_MS:
+                x = torch.randn((m, k), generator=g11).to(torch.bfloat16)
+                K.reset_launch_counts()
+                y = q(x.to(dev))
+                wrapper = "matmul_pk_w4a8" if m >= 256 else "matmul_pk"
+                check(y.device.type == "cuda" and K.launch_counts()[wrapper] == 1,
+                      f"[11d] TorchFP4Linear {k}->{n} M={m}: launches {K.launch_counts()}")
+                d = close(y, L.apply_linear(q_cpu, x), f"[11d] TorchFP4Linear {k}->{n} M={m}")
+                with torch.no_grad():
+                    err = (y.float().cpu() - lin(x.float())).abs().mean().item()
+                check(0.045 <= err <= 0.065, f"[11d] TorchFP4Linear {k}->{n} M={m}: mean |y - exact| {err}")
+                print(f"[11d] TorchFP4Linear.from_linear(nn.Linear({k}, {n})) at M={m} ({wrapper}): max|d| {d:.3g} "
+                      f"against its plain version; mean |y - nn.Linear(x)| {err:.4f} (the reference's band "
+                      f"0.045-0.065)")
+            x1 = torch.randn((1, k), generator=g11).to(torch.bfloat16).to(dev)
+            mod_ms = P.time_graph(lambda: q(x1)) * 1e3
+            app_ms = P.time_graph(lambda: L.apply_linear(q.quant_linear, x1)) * 1e3
+            w = lin.weight.detach().numpy()
+            packed, absmax = fmt.quantize_fp4(w)
+            pk_d, am_d = torch.from_numpy(packed).to(dev), torch.from_numpy(absmax).to(dev)
+            code_d = torch.from_numpy(fmt.FP4_CODE).to(dev)  # on the card: no host copy inside the graph
+
+            def gemm():
+                return C.gemm_4bit_inference(x1, pk_d, am_d, code_d, 64, dtype="bfloat16", Bshape=w.shape)
+
+            dg = close(gemm(), C.gemm_4bit_inference(x1.cpu(), packed, absmax, fmt.FP4_CODE, 64, dtype="bfloat16",
+                                                     Bshape=w.shape), f"[11d] gemm_4bit_inference {k}->{n}")
+            gemm_ms = P.time_graph(gemm, rep=10) * 1e3
+            u8, absmax2, qmap, offset = nested_absmax_state(absmax)
+            state = SimpleNamespace(absmax=u8, blocksize=64, code=fmt.FP4_CODE, shape=w.shape, quant_type="fp4",
+                                    state2=SimpleNamespace(absmax=absmax2, code=qmap, blocksize=256), offset=offset)
+            qd = C.QuantData(packed, state, w.shape, device=dev)
+            K.reset_launch_counts()
+            yq = qd(x1)
+            check(K.launch_counts()["matmul_pk"] == 1, f"[11d] QuantData {k}->{n}: launches {K.launch_counts()}")
+            dq = close(yq, L.apply_linear(qd.quant_linear.to("cpu"), x1.cpu()), f"[11d] QuantData {k}->{n} M=1")
+            K.reset_launch_counts()
+            wq = qd.dequantize("float32")
+            check(K.launch_counts()["dequant_pk"] == 1, f"[11d] QuantData.dequantize: launches {K.launch_counts()}")
+            dec = torch.from_numpy(dequantize_nested_absmax(u8, absmax2, qmap, offset, 256)).to(dev)
+            wref = C.dequantize_fp4_codebook_invoke(pk_d, dec, code_d, 64, n, k, n * k, "float32")
+            dw = (wq - wref).abs().max().item()
+            check(dw <= 1e-6 * wref.abs().max().item(), f"[11d] QuantData.dequantize (K6) {k}->{n}: max|d| {dw}")
+            print(f"[11d] {k}->{n} at M=1, graph-replayed ({smi}): TorchFP4Linear.forward {mod_ms:.4f} ms, "
+                  f"apply_linear on its QuantLinear {app_ms:.4f} ms (module overhead {mod_ms - app_ms:+.4f} ms); "
+                  f"gemm_4bit_inference {gemm_ms:.4f} ms (max|d| {dg:.3g} card against CPU); QuantData from a "
+                  f"double-quantized state: forward max|d| {dq:.3g} against its plain version, dequantize (K6) "
+                  f"max|d| {dw:.3g} against dequantize_fp4_codebook_invoke")
+            del lin, q, q_cpu, qd, pk_d, am_d, code_d, wq, wref, dec
+        write_hf_source(src_d, base, 2, dev)
+        conv2_s, *_ = run_convert(root, src_d, out_d, [], build / "chip_smoke_convert2.log")
+        cfg_d, p_d = load_checkpoint(str(out_d), fuse=True, device=dev)
+
+        class Config:
+            def to_dict(self):
+                return hf_config(base, 2)
+
+        def linear(name):
+            w = weights2[name]
+            m = torch.nn.utils.skip_init(torch.nn.Linear, w.shape[1], w.shape[0], bias=False)
+            m.weight.data = torch.from_numpy(w)
+            return m
+
+        def norm(name):
+            m = torch.nn.Module()
+            m.weight = torch.nn.Parameter(torch.from_numpy(weights2[name]))
+            return m
+
+        standin = torch.nn.Module()  # a transformers-like causal LM built from nn.Linear modules
+        standin.config = Config()
+        standin.model = torch.nn.Module()
+        standin.model.embed_tokens = norm("model.embed_tokens.weight")
+        standin.model.layers = torch.nn.ModuleList()
+        for i in range(2):
+            p, lay = f"model.layers.{i}.", torch.nn.Module()
+            lay.self_attn, lay.mlp = torch.nn.Module(), torch.nn.Module()
+            for s in ("q", "k", "v", "o"):
+                setattr(lay.self_attn, f"{s}_proj", linear(f"{p}self_attn.{s}_proj.weight"))
+            for s in ("gate", "up", "down"):
+                setattr(lay.mlp, f"{s}_proj", linear(f"{p}mlp.{s}_proj.weight"))
+            lay.input_layernorm, lay.post_attention_layernorm = (norm(p + "input_layernorm.weight"),
+                                                                 norm(p + "post_attention_layernorm.weight"))
+            standin.model.layers.append(lay)
+        standin.model.norm = norm("model.norm.weight")
+        standin.lm_head = linear("lm_head.weight")
+        cfg_s, p_s = C.recursively_replace_with_fp4_linear(standin, device=dev)
+        check(cfg_s == cfg_d, f"[11d] the stand-in's config {cfg_s} is not the checkpoint's {cfg_d}")
+        p_s = T.fuse_params(p_s)
+        for i in range(2):
+            for f in ("wqkv", "wo", "w_gateup", "w_down"):
+                a, b = getattr(p_s.layers[i], f), getattr(p_d.layers[i], f)
+                check(torch.equal(a.packed, b.packed) and torch.equal(a.scale, b.scale), f"[11d] layer {i} {f}")
+        check(torch.equal(p_s.embed, p_d.embed) and torch.equal(p_s.lm_head.w, p_d.lm_head.w), "[11d] embed/lm_head")
+        pr = torch.tensor([prompts[0]], dtype=torch.int32, device=dev)
+        t_s, t_d = (T.generate(p, cfg_d, pr, NEW_TOKENS)[0].tolist() for p in (p_s, p_d))
+        check(t_s == t_d, "[11d] the stand-in's greedy tokens differ from the CLI-converted checkpoint's")
+        print(f"[11d] recursively_replace_with_fp4_linear on a 2-layer full-width stand-in built from nn.Linear: every "
+              f"linear's bytes and {NEW_TOKENS} greedy tokens equal those of the CLI-converted checkpoint of the "
+              f"same weights (convert {conv2_s:.1f} s); phase 11d took {time.perf_counter() - t0:.1f} s")
+        del p_s, p_d, standin
+        torch.cuda.empty_cache()
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    print(f"[11] phase 11 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2019,6 +2507,9 @@ def main() -> int:
     finally:
         shutil.rmtree(ckpt10, ignore_errors=True)
     torch.cuda.empty_cache()
+
+    # -- phase 11: HF checkpoints to served tokens -----------------------------------------------
+    phase11(root, dev, smi)
 
     # -- kernel table ------------------------------------------------------------------
     k_launch = launches["matmul_pk"] + launches["matmul_pk_minner"] + launches["matmul_pk_w4a8"]

@@ -6,7 +6,8 @@
   Gemma-2 post-norms, Qwen3 q/k norms, attention biases).
 * Port save -> JAX load: the same bytes come back.
 * A checkpoint loaded by both packages gives the same greedy tokens.
-* What the port has not ported raises NotImplementedError; an unknown format
+* A quantized embedding table loads (tests/test_torch_embed.py holds its
+  bytes both ways); tp > 1 raises NotImplementedError; an unknown format
   version raises ValueError in both packages.  Split-K checkpoints are
   tests/test_torch_splitk.py's.
 """
@@ -167,10 +168,16 @@ def _save_variant(path, what):
 
 
 @pytest.mark.parametrize("what,match", [("quant_embed", "QuantEmbedding")])
-def test_unported_checkpoint_contents_raise(tmp_path, what, match):
+def test_unported_checkpoint_contents_raise(tmp_path, monkeypatch, what, match):
+    """A quantized embedding table, once refused here, now loads (as a
+    ``match``); like every load it goes to the card by default and raises on
+    a host without one."""
     _save_variant(str(tmp_path), what)
-    with pytest.raises(NotImplementedError, match=match):
-        load_checkpoint(str(tmp_path), device="cpu")
+    _, p = load_checkpoint(str(tmp_path), device="cpu")
+    assert type(p.embed).__name__ == match
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_checkpoint(str(tmp_path))
 
 
 def test_unknown_version_and_tp_raise(tmp_path):

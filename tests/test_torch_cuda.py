@@ -855,3 +855,69 @@ def test_graphed_engine_equals_eager_generate(dev, mode):
         assert all(a.dtype == torch.float8_e4m3fn for a in eng.cache.k + eng.cache.v)
     if mode == "spec":
         assert eng.stats()["spec_tokens_per_forward"] >= 1.0
+
+
+@pytest.mark.parametrize("m", [1, 64, 256])
+def test_torchfp4linear_cuda_matches_cpu(dev, m):
+    """compat.TorchFP4Linear on the card (K2 at M <= 128, K4 at 256) against
+    the same layer's plain version on the CPU; QuantData.dequantize (K6)
+    bit-exact, gemm_4bit_inference card against CPU."""
+    from torch_bnb_fp4_tpu_torch import compat as C
+    from torch_bnb_fp4_tpu_torch.ops import format as fmt
+
+    torch.manual_seed(0)
+    lin = torch.nn.Linear(1024, 768)
+    q_dev, q_cpu = C.TorchFP4Linear.from_linear(lin, device=dev), C.TorchFP4Linear.from_linear(lin, device="cpu")
+    x = torch.randn(m, 1024).to(torch.bfloat16)
+    K.reset_launch_counts()
+    y = q_dev(x.to(dev))
+    assert y.device.type == "cuda" and y.dtype == torch.bfloat16
+    assert K.launch_counts()["matmul_pk_w4a8" if m >= 256 else "matmul_pk"] == 1
+    _close(y.cpu(), q_cpu(x), 2.0**-7)
+    w = lin.weight.detach().numpy()
+    packed, absmax = fmt.quantize_fp4(w)
+
+    class State:
+        blocksize, quant_type, shape, code = 64, "fp4", tuple(w.shape), fmt.FP4_CODE
+
+    State.absmax = absmax
+    qd = C.QuantData(packed, State(), w.shape, device=dev)
+    K.reset_launch_counts()
+    d = qd.dequantize("float32")
+    assert K.launch_counts()["dequant_pk"] == 1
+    assert torch.equal(d.cpu(), C.QuantData(packed, State(), w.shape, device="cpu").dequantize("float32"))
+    a = torch.randn(1, 1024)
+    g = C.gemm_4bit_inference(a.to(dev), packed, absmax, fmt.FP4_CODE, 64, dtype="float32", Bshape=w.shape)
+    _close(g.cpu(), C.gemm_4bit_inference(a, packed, absmax, fmt.FP4_CODE, 64, dtype="float32", Bshape=w.shape), 1e-5)
+
+
+def test_quant_embed_lookup_cuda_matches_cpu_and_graphs(dev):
+    """QuantEmbedding.lookup on the card bit-equal to the CPU, and inside a
+    CUDA graph that indexes it with a static token buffer (no host sync)."""
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+    from torch_bnb_fp4_tpu_torch.ops import format as fmt
+
+    w = (np.random.default_rng(3).standard_normal((512, 256)) * 0.05).astype(np.float32)
+    for code in (fmt.FP4_CODE, fmt.NF4_CODE):
+        e_cpu = T.quantize_embedding(w, code=code, device="cpu")
+        e_dev = e_cpu.to(dev)
+        tokens = torch.randint(0, 512, (4, 9), dtype=torch.int32)
+        assert torch.equal(T.embed_lookup(e_dev, tokens.to(dev)).cpu(), T.embed_lookup(e_cpu, tokens))
+    static = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        T.embed_lookup(e_dev, static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.graph(graph):
+            out = T.embed_lookup(e_dev, static)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    new = torch.tensor([[5], [511], [0], [77]], dtype=torch.int32)
+    static.copy_(new.to(dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), T.embed_lookup(e_cpu, new))

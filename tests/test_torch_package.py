@@ -2,7 +2,9 @@
 
 * No file of the port (nor chip_smoke.py or benchmarks_torch/) imports jax,
   ml_dtypes or the JAX package: the port must run on a machine that has none
-  of them.
+  of them.  Nor does one import safetensors or transformers at module level
+  (the card's machine has neither; the server's --tokenizer imports
+  transformers when asked).
 * Entry points default to CUDA and raise on a host without it, unless the
   caller asks for the CPU.
 """
@@ -41,6 +43,28 @@ def test_port_imports_no_jax(path):
         assert mod.split(".")[0] not in FORBIDDEN, f"{path.name} imports {mod}"
 
 
+def _module_level_imports(path: Path):
+    """Modules imported by statements outside any function or class body."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+
+    def walk(nodes):
+        for node in nodes:
+            if isinstance(node, ast.Import):
+                yield from (a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                yield node.module
+            elif isinstance(node, (ast.If, ast.Try, ast.With)):
+                yield from walk(ast.iter_child_nodes(node))
+
+    yield from walk(tree.body)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_safetensors_or_transformers_at_module_level(path):
+    for mod in _module_level_imports(path):
+        assert mod.split(".")[0] not in ("safetensors", "transformers"), f"{path.name} imports {mod}"
+
+
 def test_cuda_sources_present():
     csrc = ROOT / "torch_bnb_fp4_tpu_torch" / "csrc"
     from torch_bnb_fp4_tpu_torch.ops import _build
@@ -68,3 +92,39 @@ def test_entry_points_default_to_cuda(monkeypatch):
     # an explicit CPU request runs the plain versions
     p = synth.synth_params(cfg, device="cpu", fuse=True)
     assert p.layers[0].wqkv.packed.device.type == "cpu"
+
+
+def test_slice_entry_points_default_to_cuda(monkeypatch):
+    """The converter's in-memory path, the quantized table, the bf16 twin,
+    the oracle and the reference API go to the card unless asked for the
+    CPU."""
+    from torch_bnb_fp4_tpu_torch import compat as C
+    from torch_bnb_fp4_tpu_torch.convert import hf as H
+    from torch_bnb_fp4_tpu_torch.ops import format as fmt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = T.ModelConfig.tiny_test(n_layers=1)
+    weights = T.random_weights(cfg, seed=1)
+    packed, absmax = fmt.quantize_fp4(np.ones((128, 128), np.float32))
+
+    class State:
+        blocksize, quant_type, shape, code = 64, "fp4", (128, 128), fmt.FP4_CODE
+
+    State.absmax = absmax
+    calls = {
+        "quantize_embedding": lambda: T.quantize_embedding(np.zeros((4, 64), np.float32)),
+        "dense_params": lambda: T.dense_params(cfg, weights),
+        "reference_forward": lambda: T.reference_forward(cfg, weights, np.zeros((1, 2), np.int32)),
+        "quantize_hf_weights": lambda: H.quantize_hf_weights(cfg, dict(weights)),
+        "TorchFP4Linear": lambda: C.TorchFP4Linear.from_linear(torch.nn.Linear(128, 128)),
+        "QuantData": lambda: C.QuantData(packed, State(), (128, 128)),
+        "dequantize_fp4": lambda: C.dequantize_fp4(packed, absmax, 64, 128, 128),
+        "gemm_4bit_inference": lambda: C.gemm_4bit_inference(np.ones((1, 128), np.float32), packed, absmax, None,
+                                                             64, Bshape=(128, 128)),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    # a torch tensor's own device decides for the functional wrappers
+    assert C.dequantize_fp4(torch.from_numpy(packed), torch.from_numpy(absmax), 64, 128, 128).device.type == "cpu"
+    assert T.quantize_embedding(np.zeros((4, 64), np.float32), device="cpu").device.type == "cpu"

@@ -19,6 +19,7 @@ import torch
 from torch_bnb_fp4_tpu.models import linear as JL
 from torch_bnb_fp4_tpu.models import transformer as JT
 from torch_bnb_fp4_tpu_torch.convert.from_numpy import params_from_numpy
+from torch_bnb_fp4_tpu_torch.models import linear as L
 from torch_bnb_fp4_tpu_torch.models import transformer as T
 
 LIN_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "wqkv", "w_gateup")
@@ -57,7 +58,14 @@ def flatten_jax_params(params):
                 arrays[prefix + ".bias"] = _f32(lin.bias)
             linears[prefix] = dict(kind="dense", n_out=lin.n_out, k_in=lin.k_in)
 
-    arrays["embed"] = _f32(params.embed)
+    meta = {"linears": linears}
+    if isinstance(params.embed, JT.QuantEmbedding):  # a quantized table: its bytes and static fields
+        e = params.embed
+        arrays.update({"embed.packed": np.asarray(e.packed), "embed.scale": np.asarray(e.scale),
+                       "embed.code": np.asarray(e.code)})
+        meta["embed"] = dict(kind="quant_embed", vocab_size=e.vocab_size, dim=e.dim, blocksize=e.blocksize)
+    else:
+        arrays["embed"] = _f32(params.embed)
     arrays["final_norm"] = _f32(params.final_norm)
     put("lm_head", params.lm_head)
     for i, lp in enumerate(params.layers):
@@ -70,7 +78,7 @@ def flatten_jax_params(params):
         if lp.moe is not None:  # stacked experts: every array keeps its leading expert axis
             for n in ("router", "gate", "up", "down", "gateup"):
                 put(p + "moe." + n, getattr(lp.moe, n))
-    return arrays, {"linears": linears}
+    return arrays, meta
 
 
 def _models(cfg, seed, fuse=True):
@@ -159,6 +167,10 @@ def test_prefill_and_decode_step_api():
 
 
 def test_not_yet_ported_features_raise():
+    """Tensor parallelism is still refused; the quantized embedding table,
+    once refused here, is built (tests/test_torch_embed.py holds it)."""
     cfg = T.ModelConfig.tiny_test(n_layers=1, quantize_embed=True)
-    with pytest.raises(NotImplementedError):
-        T.quantize_params(cfg, T.random_weights(cfg), device="cpu")
+    p = T.quantize_params(cfg, T.random_weights(cfg), device="cpu")
+    assert isinstance(p.embed, T.QuantEmbedding)
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        L.attach_prefill_shadow(p, tp=2)

@@ -7,7 +7,12 @@ the int8 prefill shadow and attention (csrc/, bound in ops/), the decoder
 (models/), a continuous-batching engine (sampling, speculation, prefix cache,
 fp8 KV cache; decode as CUDA graphs) with its HTTP server and CLI
 (serve/: ``python -m torch_bnb_fp4_tpu_torch.serve``), packed checkpoints in
-the JAX package's format (convert/checkpoint.py) and a weight carrier from
-the JAX package's layout (convert/from_numpy.py).  Entry points default to
+the JAX package's format (convert/checkpoint.py), quantized embedding tables
+(models/transformer.py), the streaming HF safetensors converter
+(convert/hf.py: ``python -m torch_bnb_fp4_tpu_torch.convert``, with its own
+safetensors reader and the native C packer), the reference library's API
+(compat.py: ``TorchFP4Linear``, ``QuantData``, the functional wrappers and
+``recursively_replace_with_fp4_linear``) and a weight carrier from the JAX
+package's layout (convert/from_numpy.py).  Entry points default to
 ``device="cuda"`` and raise without a card unless given ``device="cpu"``.
 """

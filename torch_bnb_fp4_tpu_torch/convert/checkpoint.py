@@ -25,11 +25,17 @@ with ``k_shards`` other than the load's ``tp`` (1) is repacked to one shard
 where it was loaded (``convert/quantize.repack_k_shards``, exact).  bf16
 arrays are stored as uint16 views and listed in ``bf16_keys`` (npz cannot
 hold bf16).  Linears are stored unfused and int8 prefill shadows are never
-stored (they are rebuilt at load time by ``attach_prefill_shadow``).  Format
+stored (they are rebuilt at load time by ``attach_prefill_shadow``).  A
+quantized embedding table (``models.transformer.QuantEmbedding``) is the
+``quant_embed`` kind: ``embed.packed``, ``embed.scale`` and ``embed.code``,
+with ``blocksize``, ``vocab_size`` and ``dim`` in the manifest.  Format
 versions 1-3 are read, 3 is written.
 
-Not yet ported (``NotImplementedError``): quantized embedding tables and
-``tp > 1``.
+:class:`CheckpointWriter` writes one group at a time (``put``) and the
+manifest at ``finish``: the streaming converter (``convert/hf.py``) frees
+each group's floats before it reads the next.
+
+Not yet ported (``NotImplementedError``): ``tp > 1``.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ import numpy as np
 import torch
 
 from ..models.linear import DenseLinear, QuantLinear
-from ..models.transformer import LayerParams, ModelConfig, ModelParams, MoEParams, fuse_params
+from ..models.transformer import LayerParams, ModelConfig, ModelParams, MoEParams, QuantEmbedding, fuse_params
 from ..utils.device import resolve_device
 from .quantize import repack_k_shards
 
@@ -87,22 +93,60 @@ def _linear_to_arrays(prefix: str, q, store: dict) -> dict:
                 codebook=None if q.codebook is None else q.codebook.float().cpu().tolist())
 
 
-def save_checkpoint(path: str, cfg: ModelConfig, params: ModelParams) -> None:
-    """Write ``params`` (unfused) as a format-3 packed checkpoint."""
-    os.makedirs(path, exist_ok=True)
-    manifest = {"format_version": FORMAT_VERSION, "config": dataclasses.asdict(cfg), "tensors": {}}
+def _moe_to_arrays(prefix: str, moe: MoEParams, store: dict) -> dict:
+    """A stacked-expert MoE block's arrays (router, then gate, up and down,
+    each with a leading n_experts axis) into ``store``; returns its manifest
+    entry."""
+    router = moe.router
+    store[f"{prefix}.router.w"] = router.w
+    if router.bias is not None:
+        store[f"{prefix}.router.bias"] = router.bias
+    meta = {"kind": "moe", "router": dict(n_out=router.n_out, k_in=router.k_in), "experts": {}}
+    for f in _EXPERTS:
+        m = _linear_to_arrays(f"{prefix}.{f}", getattr(moe, f), store)
+        m["row_parallel"] = f == "down"
+        meta["experts"][f] = m
+    return meta
 
-    def put(name: str, tensors: dict, meta: dict) -> None:
+
+def _embed_to_arrays(embed) -> tuple[dict, dict]:
+    """(arrays, manifest entry) of the embed group, dense or quantized."""
+    if isinstance(embed, QuantEmbedding):
+        return ({"embed.packed": embed.packed, "embed.scale": embed.scale, "embed.code": embed.code},
+                {"kind": "quant_embed", "blocksize": embed.blocksize, "vocab_size": embed.vocab_size,
+                 "dim": embed.dim})
+    return {"embed.w": embed}, {"kind": "dense_embed"}
+
+
+class CheckpointWriter:
+    """Incremental checkpoint writer: one ``put`` per weight group (its npz
+    written at once), the manifest at ``finish``.  bf16 tensors are stored
+    as uint16 views."""
+
+    def __init__(self, path: str, cfg: ModelConfig):
+        os.makedirs(path, exist_ok=True)
+        self._path = path
+        self._manifest = {"format_version": FORMAT_VERSION, "config": dataclasses.asdict(cfg), "tensors": {}}
+
+    def put(self, name: str, tensors: dict, meta: dict) -> None:
         arrays, bf16_keys = {}, []
         for k, t in tensors.items():
             arrays[k], is_bf16 = _to_numpy(t)
             if is_bf16:
                 bf16_keys.append(k)
-        np.savez(os.path.join(path, name + ".npz"), **arrays)
-        manifest["tensors"][name] = dict(meta, bf16_keys=bf16_keys)
+        np.savez(os.path.join(self._path, name + ".npz"), **arrays)
+        self._manifest["tensors"][name] = dict(meta, bf16_keys=bf16_keys)
 
-    put("embed", {"embed.w": params.embed}, {"kind": "dense_embed"})
-    put("final_norm", {"final_norm.w": params.final_norm}, {"kind": "norm"})
+    def finish(self) -> None:
+        with open(os.path.join(self._path, "manifest.json"), "w") as f:
+            json.dump(self._manifest, f, indent=1)
+
+
+def save_checkpoint(path: str, cfg: ModelConfig, params: ModelParams) -> None:
+    """Write ``params`` (unfused) as a format-3 packed checkpoint."""
+    writer = CheckpointWriter(path, cfg)
+    writer.put("embed", *_embed_to_arrays(params.embed))
+    writer.put("final_norm", {"final_norm.w": params.final_norm}, {"kind": "norm"})
     for i, lp in enumerate(params.layers):
         if lp.wqkv is not None or lp.w_gateup is not None or (lp.moe is not None and lp.moe.gateup is not None):
             raise ValueError("checkpoints store unfused linears: save the params before fuse_params")
@@ -117,25 +161,16 @@ def save_checkpoint(path: str, cfg: ModelConfig, params: ModelParams) -> None:
             m["row_parallel"] = f in ("wo", "w_down")
             meta["linears"][f] = m
         if lp.moe is not None:
-            router = lp.moe.router
-            arrays[f"{p}.moe.router.w"] = router.w
-            if router.bias is not None:
-                arrays[f"{p}.moe.router.bias"] = router.bias
-            meta["moe"] = {"kind": "moe", "router": dict(n_out=router.n_out, k_in=router.k_in), "experts": {}}
-            for f in _EXPERTS:
-                m = _linear_to_arrays(f"{p}.moe.{f}", getattr(lp.moe, f), arrays)
-                m["row_parallel"] = f == "down"
-                meta["moe"]["experts"][f] = m
-        put(p, arrays, meta)
+            meta["moe"] = _moe_to_arrays(f"{p}.moe", lp.moe, arrays)
+        writer.put(p, arrays, meta)
     arrays = {}
     meta = _linear_to_arrays("lm_head", params.lm_head, arrays)
     if meta["kind"] == "quant":
         meta["row_parallel"] = False
     else:
         meta = {"kind": "dense"}
-    put("lm_head", arrays, meta)
-    with open(os.path.join(path, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=1)
+    writer.put("lm_head", arrays, meta)
+    writer.finish()
 
 
 def _linear_from_arrays(prefix: str, meta: dict, arrays: dict, device):
@@ -158,8 +193,9 @@ def _linear_from_arrays(prefix: str, meta: dict, arrays: dict, device):
 
 
 def load_checkpoint(path: str, tp: int = 1, fuse: bool = False, device=None) -> tuple[ModelConfig, ModelParams]:
-    """Load a packed checkpoint onto ``device`` (default CUDA);
-    ``fuse=True`` fuses QKV and gate|up (checkpoints always store unfused)."""
+    """Load a packed checkpoint onto ``device`` (default CUDA), a quantized
+    embedding table included; ``fuse=True`` fuses QKV and gate|up
+    (checkpoints always store unfused)."""
     device = resolve_device(device)
     if tp != 1:
         raise NotImplementedError("tensor parallelism is not yet ported (tp must be 1)")
@@ -177,9 +213,12 @@ def load_checkpoint(path: str, tp: int = 1, fuse: bool = False, device=None) -> 
         with np.load(os.path.join(path, name + ".npz")) as z:
             return {k: _to_tensor(z[k], k in bf16, device) for k in z.files}
 
-    if tensors["embed"]["kind"] == "quant_embed":
-        raise NotImplementedError("quantized embedding tables (QuantEmbedding) are not yet ported")
-    embed = arrs("embed")["embed.w"]
+    emeta, ea = tensors["embed"], arrs("embed")
+    if emeta["kind"] == "quant_embed":
+        embed = QuantEmbedding(packed=ea["embed.packed"], scale=ea["embed.scale"], code=ea["embed.code"],
+                               vocab_size=emeta["vocab_size"], dim=emeta["dim"], blocksize=emeta["blocksize"])
+    else:
+        embed = ea["embed.w"]
     final_norm = arrs("final_norm")["final_norm.w"]
     layers = []
     for i in range(cfg.n_layers):

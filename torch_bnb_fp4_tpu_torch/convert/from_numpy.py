@@ -4,7 +4,10 @@ arrays plus static metadata -> the port's ``ModelParams`` on a device.
 Keys of ``arrays`` (layer ``i``, linear name ``L`` one of wq wk wv wo w_gate
 w_up w_down wqkv w_gateup; absent linears are simply missing):
 
-  embed                      (vocab, dim)        bf16 leaf
+  embed                      (vocab, dim)        bf16 leaf; or a quantized table (QuantEmbedding):
+  embed.packed               (vocab, dim/2)      uint8      flat codes, high nibble first
+  embed.scale                (vocab, dim/bs)     f32        absmax per block of a row
+  embed.code                 (16,)               f32        the codebook
   final_norm                 (dim,)              bf16 leaf
   layers.i.attn_norm         (dim,)              bf16 leaf
   layers.i.mlp_norm          (dim,)              bf16 leaf
@@ -32,7 +35,9 @@ cast back to bf16 here.  ``meta["linears"]`` maps each linear's prefix
 ``{"kind": "quant", "n_out", "k_in", "blocksize", "variant", "scale_dtype":
 "float32" | "bfloat16", "w8_block_k", "layout", "k_shards"}`` (``w8_block_k``,
 the shadow's K-tile depth, only with ``.w8``; ``layout`` "pairk" when absent,
-``k_shards`` 1) or ``{"kind": "dense", "n_out", "k_in"}``.
+``k_shards`` 1) or ``{"kind": "dense", "n_out", "k_in"}``.  A quantized table's static fields
+are ``meta["embed"] = {"kind": "quant_embed", "vocab_size", "dim",
+"blocksize"}``.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ import numpy as np
 import torch
 
 from ..models.linear import DenseLinear, QuantLinear
-from ..models.transformer import LayerParams, ModelConfig, MoEParams, ModelParams
+from ..models.transformer import LayerParams, ModelConfig, ModelParams, MoEParams, QuantEmbedding
 from ..utils.device import resolve_device
 
 LINEAR_NAMES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "wqkv", "w_gateup")
@@ -101,4 +106,11 @@ def params_from_numpy(arrays: dict[str, np.ndarray], meta: dict, cfg: ModelConfi
         if p + "moe.router" in meta["linears"]:
             lins["moe"] = MoEParams(**{n: linear(p + "moe." + n) for n in MOE_NAMES})
         layers.append(LayerParams(attn_norm=bf16(p + "attn_norm"), mlp_norm=bf16(p + "mlp_norm"), **lins, **extra))
-    return ModelParams(embed=bf16("embed"), layers=layers, final_norm=bf16("final_norm"), lm_head=linear("lm_head"))
+    em = meta.get("embed", {"kind": "dense_embed"})
+    if em["kind"] == "quant_embed":
+        embed = QuantEmbedding(packed=t("embed.packed"), scale=t("embed.scale", torch.float32),
+                               code=t("embed.code", torch.float32), vocab_size=em["vocab_size"], dim=em["dim"],
+                               blocksize=em["blocksize"])
+    else:
+        embed = bf16("embed")
+    return ModelParams(embed=embed, layers=layers, final_norm=bf16("final_norm"), lm_head=linear("lm_head"))

@@ -18,8 +18,12 @@ expert through the K8 forms of K2-K4 (``models.linear.apply_expert_linear``)
 or, for a split-K stack, K9b on the expert's :func:`expert_view`, so no
 routing decision is read on the host.
 
-Not yet ported (raise ``NotImplementedError``): LoRA adapters, the quantized
-embedding table and tensor parallelism.
+The token embedding is a bf16 table or, with ``cfg.quantize_embed``, a
+:class:`QuantEmbedding` (FP4/NF4 codes decoded per looked-up row).
+:func:`dense_params` builds the bf16 twin of a model from HF-named weights and
+:func:`reference_forward` is the cache-free unquantized oracle.
+
+Not yet ported: LoRA adapters and tensor parallelism.
 """
 
 from __future__ import annotations
@@ -200,6 +204,76 @@ def expert_view(stacked: Any, e) -> Any:
 
 
 @dataclasses.dataclass
+class QuantEmbedding:
+    """Blockwise FP4/NF4 token-embedding table (``cfg.quantize_embed``; the
+    JAX package's ``QuantEmbedding``, models/transformer.py:298).  Mistral-7B's
+    32000 x 4096 table: 262 MB in bf16, 74 MB packed (65.5 MB of codes and
+    8.2 MB of f32 absmax at blocksize 64).
+
+    The layout is made for a row gather, not the matmul pair-K layout: bnb's
+    flat row-major codes, two per byte, HIGH nibble first along the feature
+    dim, one f32 absmax per ``blocksize`` features, so each token's row stands
+    alone.  :meth:`lookup` decodes the looked-up rows with a 16-entry table
+    gather in plain torch (as the JAX package does in jnp: a step touches B
+    rows, no kernel is warranted), with the EXACT codebook (FP4 or NF4), and
+    runs without a host sync, so a decode step that looks tokens up from a
+    static buffer stays capturable in a CUDA graph."""
+
+    packed: torch.Tensor  # (vocab, dim // 2) uint8, high nibble first
+    scale: torch.Tensor  # (vocab, dim // blocksize) f32 absmax
+    code: torch.Tensor  # (16,) f32 codebook values (FP4_CODE or NF4_CODE)
+    vocab_size: int
+    dim: int
+    blocksize: int = 64
+
+    @property
+    def device(self) -> torch.device:
+        return self.packed.device
+
+    def to(self, device) -> "QuantEmbedding":
+        return dataclasses.replace(self, packed=self.packed.to(device), scale=self.scale.to(device),
+                                   code=self.code.to(device))
+
+    def lookup(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens (...,) int -> embeddings (..., dim) bf16: code[nibble] *
+        absmax in f32, rounded once to bf16."""
+        t = tokens.long()
+        p, s = self.packed[t], self.scale[t]  # (..., dim/2) u8, (..., dim/bs) f32
+        idx = torch.stack([p >> 4, p & 0xF], dim=-1).reshape(*p.shape[:-1], self.dim).long()
+        vals = self.code[idx].reshape(*s.shape, self.blocksize) * s[..., None]
+        return vals.reshape(*p.shape[:-1], self.dim).to(torch.bfloat16)
+
+
+def quantize_embedding(w: np.ndarray, blocksize: int = 64, code: np.ndarray | None = None,
+                       device=None) -> QuantEmbedding:
+    """Quantize a (vocab, dim) table into a :class:`QuantEmbedding` on
+    ``device`` (default CUDA) with the numpy golden (``ops/format``).  Blocks
+    must not straddle rows (each row looked up alone), so ``dim`` must divide
+    by ``blocksize``."""
+    from ..ops import format as fmt
+
+    device = resolve_device(device)
+    code = fmt.FP4_CODE if code is None else np.asarray(code, np.float32)
+    w = np.asarray(w, np.float32)
+    if w.ndim != 2:
+        raise ValueError(f"embedding table must be 2-D, got {w.shape}")
+    v, d = w.shape
+    if d % blocksize:
+        raise ValueError(f"dim {d} not divisible by blocksize {blocksize}")
+    codes, absmax = fmt.quantize_codes(w, blocksize, code)
+    return QuantEmbedding(packed=torch.from_numpy(fmt.pack_flat(codes).reshape(v, d // 2)).to(device),
+                          scale=torch.from_numpy(absmax.reshape(v, d // blocksize)).to(device),
+                          code=torch.from_numpy(code.copy()).to(device), vocab_size=v, dim=d, blocksize=blocksize)
+
+
+def embed_lookup(embed, tokens: torch.Tensor) -> torch.Tensor:
+    """Token lookup for either embedding representation -> (..., dim) bf16."""
+    if isinstance(embed, QuantEmbedding):
+        return embed.lookup(tokens)
+    return embed[tokens.long()].to(torch.bfloat16)
+
+
+@dataclasses.dataclass
 class LayerParams:
     attn_norm: torch.Tensor  # (dim,) bf16
     wq: Any  # QuantLinear/DenseLinear, or None when wqkv is fused
@@ -221,7 +295,7 @@ class LayerParams:
 
 @dataclasses.dataclass
 class ModelParams:
-    embed: torch.Tensor  # (vocab, dim) bf16
+    embed: Any  # (vocab, dim) bf16, or QuantEmbedding with cfg.quantize_embed
     layers: list[LayerParams]
     final_norm: torch.Tensor  # (dim,) bf16
     lm_head: Any  # DenseLinear (dim -> vocab) or QuantLinear
@@ -566,7 +640,7 @@ def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor, cache: 
     b, l = tokens.shape
     if positions is None:
         positions = cache.length[:, None] + torch.arange(l, dtype=torch.int32, device=tokens.device)[None, :]
-    x = params.embed[tokens.long()].to(torch.bfloat16)
+    x = embed_lookup(params.embed, tokens)
     if cfg.embed_scale:
         # made on the device (no host copy, so a decode step can be captured in a CUDA graph)
         x = x * torch.full((), cfg.dim**0.5, dtype=torch.bfloat16, device=x.device)
@@ -674,11 +748,10 @@ def quantize_params(cfg: ModelConfig, weights: dict[str, np.ndarray], fuse: bool
     """ModelParams on ``device`` from fp weights in HF llama naming (Mixtral's
     for ``cfg.n_experts``: ``block_sparse_moe.gate`` is the dense router,
     ``experts.{m}.w1/w3/w2`` are gate/up/down): every linear quantized,
-    norms, embeddings and router bf16, a dense bf16 lm_head unless
-    ``cfg.quantize_lm_head``."""
+    norms and router bf16, the embedding bf16 unless ``cfg.quantize_embed``
+    (a :class:`QuantEmbedding` with the quant type's exact codebook), a dense
+    bf16 lm_head unless ``cfg.quantize_lm_head``."""
     device = resolve_device(device)
-    if cfg.quantize_embed:
-        raise NotImplementedError("the quantized embedding table is not yet ported")
 
     def bf16(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(device=device, dtype=torch.bfloat16)
@@ -721,9 +794,131 @@ def quantize_params(cfg: ModelConfig, weights: dict[str, np.ndarray], fuse: bool
     if lm_w is None:  # tied embeddings
         lm_w = weights["model.embed_tokens.weight"]
     lm_head = ql(np.asarray(lm_w)) if cfg.quantize_lm_head else dense_linear(lm_w, device=device)
-    params = ModelParams(embed=bf16(weights["model.embed_tokens.weight"]), layers=layers,
-                         final_norm=bf16(weights["model.norm.weight"]), lm_head=lm_head)
+    if cfg.quantize_embed:
+        from ..ops import format as fmt
+
+        embed = quantize_embedding(weights["model.embed_tokens.weight"], cfg.blocksize,
+                                   code=fmt.NF4_CODE if cfg.quant_type == "nf4" else fmt.FP4_CODE, device=device)
+    else:
+        embed = bf16(weights["model.embed_tokens.weight"])
+    params = ModelParams(embed=embed, layers=layers, final_norm=bf16(weights["model.norm.weight"]), lm_head=lm_head)
     return fuse_params(params) if fuse else params
+
+
+def dense_params(cfg: ModelConfig, weights: dict[str, np.ndarray], dtype=torch.bfloat16, device=None) -> ModelParams:
+    """Unquantized ModelParams on ``device`` (default CUDA), DenseLinear
+    everywhere (the JAX package's ``dense_params``): the bf16 twin that runs
+    through the same forward and decode code as the quantized model, the
+    speed baseline and correctness oracle."""
+    device = resolve_device(device)
+
+    def t(name):
+        return torch.from_numpy(np.asarray(weights[name], np.float32)).to(device=device, dtype=dtype)
+
+    def dl(name):
+        return dense_linear(weights[name + ".weight"], weights.get(name + ".bias"), dtype=dtype, device=device)
+
+    layers = []
+    an, mn, pan, pmn = norm_names(cfg)
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        extra = {}
+        if cfg.n_experts:
+            ep = p + "block_sparse_moe.experts."
+            extra.update(moe=MoEParams(router=dl(p + "block_sparse_moe.gate"),
+                                       gate=stack_linears([dl(f"{ep}{m}.w1") for m in range(cfg.n_experts)]),
+                                       up=stack_linears([dl(f"{ep}{m}.w3") for m in range(cfg.n_experts)]),
+                                       down=stack_linears([dl(f"{ep}{m}.w2") for m in range(cfg.n_experts)])))
+        else:
+            extra.update(w_gate=dl(p + "mlp.gate_proj"), w_up=dl(p + "mlp.up_proj"), w_down=dl(p + "mlp.down_proj"))
+        if pan is not None:
+            extra.update(post_attn_norm=t(p + pan + ".weight"), post_mlp_norm=t(p + pmn + ".weight"))
+        if cfg.qk_norm:
+            extra.update(q_norm=t(p + "self_attn.q_norm.weight"), k_norm=t(p + "self_attn.k_norm.weight"))
+        layers.append(LayerParams(
+            attn_norm=t(p + an + ".weight"), wq=dl(p + "self_attn.q_proj"), wk=dl(p + "self_attn.k_proj"),
+            wv=dl(p + "self_attn.v_proj"), wo=dl(p + "self_attn.o_proj"), mlp_norm=t(p + mn + ".weight"), **extra,
+        ))
+    lm_w = weights.get("lm_head.weight")
+    if lm_w is None:  # tied embeddings
+        lm_w = weights["model.embed_tokens.weight"]
+    return ModelParams(embed=t("model.embed_tokens.weight"), layers=layers, final_norm=t("model.norm.weight"),
+                       lm_head=dense_linear(lm_w, dtype=dtype, device=device))
+
+
+@torch.no_grad()
+def reference_forward(cfg: ModelConfig, weights: dict[str, np.ndarray], tokens, device=None) -> torch.Tensor:
+    """Unquantized bf16 forward of HF-named fp ``weights`` with no cache, on
+    ``device`` (default CUDA): the twin-model correctness oracle (the JAX
+    package's ``reference_forward``).  Each product is f32-accumulated and
+    rounded to bf16, as a bf16 matmul.  tokens (B, L) -> logits (B, L,
+    vocab) f32."""
+    device = resolve_device(device)
+    tokens = torch.as_tensor(tokens).to(device)
+    b, l = tokens.shape
+
+    def f32(name):
+        return torch.from_numpy(np.asarray(weights[name], np.float32)).to(device)
+
+    def bf16(name):
+        return f32(name).to(torch.bfloat16)
+
+    def lin(name, x):
+        y = (x.float() @ bf16(name).T.float()).to(torch.bfloat16)
+        bias = weights.get(name.replace(".weight", ".bias"))
+        return y if bias is None else y + bf16(name.replace(".weight", ".bias"))
+
+    x = bf16("model.embed_tokens.weight")[tokens.long()]
+    if cfg.embed_scale:
+        x = x * torch.full((), cfg.dim**0.5, dtype=torch.bfloat16, device=device)
+    positions = torch.arange(l, dtype=torch.int32, device=device)[None, :].expand(b, l)
+    kv_valid = torch.ones((b, l), dtype=torch.bool, device=device)
+    an, mn, pan, pmn = norm_names(cfg)
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+
+        def nrm(y, name):
+            return rms_norm(y, bf16(p + name + ".weight"), cfg.rms_eps, cfg.norm_offset)
+
+        h = nrm(x, an)
+        q = lin(p + "self_attn.q_proj.weight", h).reshape(b, l, cfg.n_heads, cfg.head_dim)
+        k = lin(p + "self_attn.k_proj.weight", h).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
+        v = lin(p + "self_attn.v_proj.weight", h).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:  # Qwen3 per-head q/k norms, before RoPE
+            q = rms_norm(q, bf16(p + "self_attn.q_norm.weight"), cfg.rms_eps, cfg.norm_offset)
+            k = rms_norm(k, bf16(p + "self_attn.k_norm.weight"), cfg.rms_eps, cfg.norm_offset)
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+        attend = _attention_route(positions, positions, kv_valid, cfg.layer_sliding_window(i))
+        attn = attend(q, k, v, _attn_scale(cfg), cfg.attn_logit_softcap)
+        y = lin(p + "self_attn.o_proj.weight", attn.reshape(b, l, cfg.q_dim))
+        if pan is not None:
+            y = nrm(y, pan)
+        x = x + y
+        h = nrm(x, mn)
+        if cfg.n_experts:
+            hf = h.reshape(b * l, cfg.dim)
+            probs = torch.softmax(hf.float() @ f32(p + "block_sparse_moe.gate.weight").T, dim=-1)
+            top_w, top_i = torch.topk(probs, cfg.experts_per_tok, dim=-1)
+            top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+            acc = torch.zeros((b * l, cfg.dim), dtype=torch.float32, device=device)
+            for m in range(cfg.n_experts):
+                ep = p + f"block_sparse_moe.experts.{m}."
+                g, u = lin(ep + "w1.weight", hf), lin(ep + "w3.weight", hf)
+                y = lin(ep + "w2.weight", _act(cfg, g).to(u.dtype) * u)
+                acc = acc + (top_w * (top_i == m)).sum(dim=-1)[:, None] * y.float()
+            x = x + acc.reshape(b, l, cfg.dim).to(x.dtype)
+        else:
+            gate, up = lin(p + "mlp.gate_proj.weight", h), lin(p + "mlp.up_proj.weight", h)
+            y = lin(p + "mlp.down_proj.weight", _act(cfg, gate).to(up.dtype) * up)
+            if pmn is not None:
+                y = nrm(y, pmn)
+            x = x + y
+    x = rms_norm(x, bf16("model.norm.weight"), cfg.rms_eps, cfg.norm_offset)
+    logits = x.float() @ f32("lm_head.weight").T
+    if cfg.final_logit_softcap is not None:
+        logits = cfg.final_logit_softcap * torch.tanh(logits / cfg.final_logit_softcap)
+    return logits
 
 
 def random_weights(cfg: ModelConfig, seed: int = 0, scale: float = 0.02) -> dict[str, np.ndarray]:

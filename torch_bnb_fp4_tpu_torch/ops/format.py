@@ -11,9 +11,10 @@ byte (i, n) holds the RANK-CODED code of Wt[2i, n] in the LOW nibble and of
 Wt[2i+1, n] in the HIGH nibble.  ``scale`` (K/blocksize, N) = absmax/192, so
 kernels contract x with the integer code values 192*code.
 
-bnb flat layout (``pack_flat``, ``quantize_flat``): 4-bit codes two per byte,
-HIGH nibble first, over the row-major flat weight; one absmax per
-``blocksize`` flat elements.
+bnb flat layout (``pack_flat``, ``quantize_flat`` alias ``quantize_fp4``,
+``dequantize_fp4``, ``tpu_layout_from_bnb``): 4-bit codes two per byte, HIGH
+nibble first, over the row-major flat weight; one absmax per ``blocksize``
+flat elements.
 
 Split-K layout (``pack_tpu``, ``pack_tpu_sharded``, numpy arrays as in the
 JAX package): ``packed`` uint8 (K/2, N), byte (i, n) = code(Wt[i, n]) << 4 |
@@ -133,6 +134,35 @@ def quantize_flat(w: np.ndarray, blocksize: int = DEFAULT_BLOCKSIZE, code: np.nd
     absmax f32 (numel/blocksize,))."""
     codes, absmax = quantize_codes(w, blocksize, code)
     return pack_flat(codes), absmax
+
+
+# the JAX package's name for the same function
+quantize_fp4 = quantize_flat
+
+
+def dequantize_codes(codes: np.ndarray, absmax: np.ndarray, blocksize: int = DEFAULT_BLOCKSIZE,
+                     code: np.ndarray = FP4_CODE) -> np.ndarray:
+    """Inverse of :func:`quantize_codes`: flat float32 ``code[codes] *
+    absmax`` of each block."""
+    vals = np.asarray(code, np.float32)[codes.astype(np.int64)].reshape(-1, blocksize)
+    return (vals * np.asarray(absmax, np.float32)[:, None]).reshape(-1)
+
+
+def dequantize_fp4(packed: np.ndarray, absmax: np.ndarray, shape, blocksize: int = DEFAULT_BLOCKSIZE,
+                   code: np.ndarray = FP4_CODE) -> np.ndarray:
+    """Golden dequantize of the bnb flat layout -> float32 ``shape``."""
+    return dequantize_codes(unpack_flat(packed), absmax, blocksize, code).reshape(shape)
+
+
+def tpu_layout_from_bnb(packed_flat: np.ndarray, absmax_flat: np.ndarray, shape, blocksize: int = DEFAULT_BLOCKSIZE):
+    """bnb flat state of a (N_out, K_in) weight -> the split-K layout
+    (packed (K/2, N), absmax (K/blocksize, N)), exact: no requantization."""
+    n_out, k_in = shape
+    codes_t = unpack_flat(packed_flat).reshape(n_out, k_in).T
+    absmax_t = np.asarray(absmax_flat).reshape(n_out, k_in // blocksize).T
+    half = k_in // 2
+    packed = ((codes_t[:half].astype(np.uint8) << 4) | (codes_t[half:] & 0xF)).astype(np.uint8)
+    return np.ascontiguousarray(packed), np.ascontiguousarray(absmax_t.astype(np.float32))
 
 
 def pack_tpu(w: np.ndarray, blocksize: int = DEFAULT_BLOCKSIZE, code: np.ndarray = FP4_CODE):

@@ -19,6 +19,9 @@ version on the card.
   K9a dequantize_tpu    csrc/dequant_splitk.cu     split-K dequantize (Wt = code * absmax)
   K9b matmul_fp4        csrc/matmul_splitk.cu      split-K fused dequant-matmul, bf16 wgmma (gemv_fp4: one row)
 
+``dequantize_fp4_flat`` (bnb flat packing -> weight) is plain torch: the JAX
+package has no kernel for it either.
+
 K8 is the expert form of K2, K3 and K4 (``expert=`` on their wrappers and on
 ``matmul_fp4_pk``): the kernel reads the expert index from device memory and
 offsets the packed, scale and bias pointers itself, so the MoE dispatch never
@@ -1223,3 +1226,20 @@ def gemv_fp4(x, packed, absmax, bias=None, codebook=None, *, blocksize=64, out_d
         raise ValueError(f"gemv_fp4 is the batch-1 fast path; got x.shape={tuple(x.shape)} (use matmul_fp4)")
     return matmul_fp4(x, packed, absmax, bias, codebook, blocksize=blocksize, out_dtype=out_dtype,
                       decode_impl=decode_impl, k_shards=k_shards)
+
+
+def dequantize_fp4_flat(packed, absmax, shape, blocksize=64, out_dtype=torch.bfloat16, codebook=None):
+    """bnb's flat packing (two codes per byte, HIGH nibble first, one absmax
+    per ``blocksize`` flat elements) -> a ``shape`` tensor on packed's device:
+    ``code[nibble] * absmax`` in f32, cast to ``out_dtype`` (the JAX package's
+    ``dequantize_fp4_flat``, ops/kernels.py:1375).  Plain torch on either
+    device: the JAX package computes it with jnp, no Pallas kernel, as a
+    tooling path off the serving hot path (which decodes the pair-K and
+    split-K layouts in K1-K9), so there is no CUDA kernel to port and no
+    launch count.  ``codebook`` None means FP4."""
+    code = torch.as_tensor(fmt.FP4_CODE if codebook is None else codebook, dtype=torch.float32,
+                           device=packed.device)
+    p = packed.reshape(-1).to(torch.int64)
+    codes = torch.stack([p >> 4, p & 0xF], dim=1).reshape(-1)
+    vals = code[codes].reshape(-1, blocksize) * absmax.reshape(-1, 1).to(device=packed.device, dtype=torch.float32)
+    return vals.reshape(shape).to(out_dtype)

@@ -10,7 +10,9 @@ from __future__ import annotations
 import torch
 
 from ..models.linear import DenseLinear, QuantLinear
-from ..models.transformer import LayerParams, ModelConfig, ModelParams, MoEParams, fuse_layer, kv_slot_positions
+from ..models.transformer import (LayerParams, ModelConfig, ModelParams, MoEParams, QuantEmbedding, fuse_layer,
+                                  kv_slot_positions)
+from ..ops import format as fmt
 from ..utils.device import resolve_device
 
 
@@ -57,13 +59,14 @@ def synth_params(cfg: ModelConfig, *, quantized: bool = True, seed: int = 0, tp:
     true absmax; wo, w_down and the experts' down packed with ``k_shards =
     tp``, the row-parallel layout; ``tp`` sets nothing else, the port has no
     tensor parallelism).  A mixture-of-experts config gets stacked experts
-    and a dense router of scale 1 (as the JAX package's ``synth_params``);
-    the lm_head is dense.  ``fuse`` fuses each pair-K layer as it is built,
-    so the unfused and fused copies of only one layer coexist; split-K
-    layers are never fused."""
+    and a dense router of scale 1 (as the JAX package's ``synth_params``).
+    Quantized, ``cfg.quantize_embed`` gives a :class:`QuantEmbedding` of
+    uniform bytes, absmax in [0.5, 1.5) * 0.01 and the FP4 codebook, and
+    ``cfg.quantize_lm_head`` (pair-K only) a quantized lm_head, as there;
+    otherwise both are dense.  ``fuse`` fuses each pair-K layer as it is
+    built, so the unfused and fused copies of only one layer coexist;
+    split-K layers are never fused."""
     device = resolve_device(device)
-    if quantized and (cfg.quantize_embed or cfg.quantize_lm_head):
-        raise NotImplementedError("quantized embedding / lm_head synthesis is not yet ported")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     kv_dim = cfg.n_kv_heads * cfg.head_dim
@@ -97,10 +100,23 @@ def synth_params(cfg: ModelConfig, *, quantized: bool = True, seed: int = 0, tp:
             lp.w_gate, lp.w_up = lin(cfg.ffn_dim, cfg.dim), lin(cfg.ffn_dim, cfg.dim)
             lp.w_down = lin(cfg.dim, cfg.ffn_dim, k_shards=tp)
         layers.append(fuse_layer(lp) if fuse and quantized else lp)
-    embed = (torch.randn((cfg.vocab_size, cfg.dim), generator=gen, dtype=torch.float32, device=device)
-             * 0.01).to(torch.bfloat16)
-    return ModelParams(embed=embed, layers=layers, final_norm=ones(cfg.dim),
-                       lm_head=synth_dense_linear(gen, cfg.vocab_size, cfg.dim, device=device))
+    if quantized and cfg.quantize_embed:
+        embed = QuantEmbedding(
+            packed=torch.randint(0, 256, (cfg.vocab_size, cfg.dim // 2), generator=gen, dtype=torch.uint8,
+                                 device=device),
+            scale=(torch.rand((cfg.vocab_size, cfg.dim // cfg.blocksize), generator=gen, dtype=torch.float32,
+                              device=device) + 0.5) * 0.01,
+            code=torch.from_numpy(fmt.FP4_CODE.copy()).to(device), vocab_size=cfg.vocab_size, dim=cfg.dim,
+            blocksize=cfg.blocksize)
+    else:
+        embed = (torch.randn((cfg.vocab_size, cfg.dim), generator=gen, dtype=torch.float32, device=device)
+                 * 0.01).to(torch.bfloat16)
+    if quantized and cfg.quantize_lm_head and layout == "pairk":
+        lm_head = synth_quant_linear(gen, cfg.vocab_size, cfg.dim, blocksize=cfg.blocksize, variant=cfg.variant,
+                                     device=device)
+    else:
+        lm_head = synth_dense_linear(gen, cfg.vocab_size, cfg.dim, device=device)
+    return ModelParams(embed=embed, layers=layers, final_norm=ones(cfg.dim), lm_head=lm_head)
 
 
 def synth_attention(b: int, lq: int, lk: int, hq: int, hk: int, d: int, *, lens, q_offset=None, seed: int = 0,
