@@ -172,7 +172,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      full-width stand-in built from nn.Linear: every linear's bytes and the
      greedy tokens equal those of the CLI-converted checkpoint of the same
      weights.
-Every engine (phases 5-11) decodes by CUDA-graph replay; its launch counts
+  12. LoRA adapters at Mistral-7B width (two seeded PEFT directories written
+     under build/ with the port's safetensors writer and read back: a, r 16,
+     alpha 32, on q/k/v/o/gate/up/down of all 32 layers; b, r 8, alpha 16,
+     on q and v; phase 5's geometry unfused from seed 5): (a) an engine on
+     attach_multi_lora's params (max_batch 8, max_len 1024, inner_steps 8,
+     batch buckets) after warmup() serves 8 requests of 100-300 tokens mixed
+     over a, b and no adapter in one batch with no new graph, K2, K3 and K4
+     launching, each request's tokens against eager generate on its
+     single-attach params (or the base) with phase 10a's near-tie rule; the
+     batch-8 decode step with and without adapters, host p50 and the depth-8
+     graph replayed on the card alone; (b) a 2-layer cut on the card against
+     the CPU at phase 4's tolerances, attach_lora(a) and attach_multi_lora
+     with rows a / none / b; (c) merge_lora(a) on the cut: the card's merged
+     bytes (K6) equal to the CPU's, merged against attached logits; (e) R7: a
+     512-token prompt under a and b together with the prefix cache on gives
+     no hit and the tokens of an engine without the cache, a third request
+     under a hits its own store entry; (d) a 4-layer checkpoint served by the
+     CLI with --lora a=DIR --lora b=DIR --prefill-shadow --prefill-chunk 256
+     --prefix-cache --warmup-prompt-len 512: requests under a, b and none
+     over HTTP equal the in-process engine's tokens, K5 launches under the
+     adapters' bases, an unknown adapter is a 400, SIGINT -> 0; then --lora
+     DIR --lora-merge serves; (f) examples_torch/sanity_check.py in a child
+     process on the card, inside the band.  Each sub-phase prints its
+     seconds.
+Every engine (phases 5-12) decodes by CUDA-graph replay; its launch counts
 include the replays.  Prints the kernel table as one JSON line, then the
 final status line.
 Kernel times are CUDA-graph replays timed with CUDA events (the card's own
@@ -947,6 +971,394 @@ def phase11(root: Path, dev, smi: str) -> None:
         for d in dirs:
             shutil.rmtree(d, ignore_errors=True)
     print(f"[11] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+
+LORA_PROMPTS = (100, 130, 160, 190, 220, 250, 280, 300)  # phase 12a: prefill buckets 128 (K2), 160-224 (K3), 256+ (K4)
+LORA_ADAPTERS = (None, "a", "b", "a", "b", None, "a", "b")
+LORA_CLI_LAYERS = 4  # phase 12d's checkpoint
+PEFT_TARGETS = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.o_proj", "mlp.gate_proj",
+                "mlp.up_proj", "mlp.down_proj")
+
+
+def peft_weights(cfg, n_layers: int, r: int, targets, gen, dev) -> dict:
+    """Seeded PEFT factors {module stem: (lora_A (r, k_in), lora_B (n_out, r))}
+    as f32 numpy, drawn on the device (N(0, 0.01^2) entries)."""
+    import torch
+
+    kv = cfg.n_kv_heads * cfg.head_dim
+    shapes = {"self_attn.q_proj": (cfg.q_dim, cfg.dim), "self_attn.k_proj": (kv, cfg.dim),
+              "self_attn.v_proj": (kv, cfg.dim), "self_attn.o_proj": (cfg.dim, cfg.q_dim),
+              "mlp.gate_proj": (cfg.ffn_dim, cfg.dim), "mlp.up_proj": (cfg.ffn_dim, cfg.dim),
+              "mlp.down_proj": (cfg.dim, cfg.ffn_dim)}
+    out = {}
+    for i in range(n_layers):
+        for t in targets:
+            n, k = shapes[t]
+            out[f"model.layers.{i}.{t}"] = tuple((torch.randn(s, generator=gen, device=dev) * 0.01).cpu().numpy()
+                                                 for s in ((r, k), (n, r)))
+    return out
+
+
+def write_peft(path: Path, weights: dict, r: int, alpha: float) -> None:
+    """A HF PEFT adapter directory written with the port's own safetensors writer."""
+    from torch_bnb_fp4_tpu_torch.convert.safetensors_io import save_file
+
+    path.mkdir(parents=True, exist_ok=True)
+    tensors = {}
+    for stem, (a, b) in weights.items():
+        tensors[f"base_model.model.{stem}.lora_A.weight"] = a
+        tensors[f"base_model.model.{stem}.lora_B.weight"] = b
+    save_file(tensors, str(path / "adapter_model.safetensors"))
+    targets = sorted({s.rsplit(".", 1)[1] for s in weights})
+    (path / "adapter_config.json").write_text(json.dumps({"peft_type": "LORA", "r": r, "lora_alpha": alpha,
+                                                          "target_modules": targets}))
+
+
+def start_cli(root: Path, args, log_path: Path, tag: str):
+    """Start the CLI as a child process and wait for its serving line:
+    (process, url, seconds to the line)."""
+    cmd = [sys.executable, "-m", "torch_bnb_fp4_tpu_torch.serve", "--port", "0", *args]
+    err = open(log_path, "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    try:
+        line = lines.get(timeout=600)
+    except queue.Empty:
+        line = ""
+    if not line.startswith("serving on http://"):
+        proc.kill()
+        proc.wait()
+        print(f"{tag} server log (tail):\n" + log_path.read_text()[-4000:], file=sys.stderr)
+        check(False, f"{tag} the server printed {line!r}")
+    return proc, line.split()[-1], time.perf_counter() - t0
+
+
+def stop_cli(proc, log_path: Path, tag: str) -> None:
+    proc.send_signal(signal.SIGINT)
+    try:
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        print(f"{tag} server log (tail):\n" + log_path.read_text()[-4000:], file=sys.stderr)
+    check(rc == 0, f"{tag} the server exited with {rc} on SIGINT")
+
+
+def graph_step_ms(e, aidx) -> float:
+    """Device ms of one batch-8 decode step of engine ``e`` (served, idle):
+    its captured depth-8 graph replayed 5 times with all 8 slots active at
+    ~300-row contexts and adapter indices ``aidx`` written to its buffer."""
+    import torch
+
+    graph = e._graphs[("decode", 8, 8, False)].graph
+    e._active.fill_(True)
+    e.cache.length[:8].fill_(300)
+    e._aidx.copy_(torch.tensor(aidx, dtype=torch.int32))
+    graph.replay()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(5):
+        graph.replay()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / 5 / 8
+
+
+def phase12(root: Path, dev, smi: str) -> None:
+    """Phase 12: LoRA adapters at Mistral-7B width (the module docstring lists
+    its parts).  The adapter directories and the checkpoint are written under
+    build/ and removed at the end."""
+    import re
+    import urllib.error
+
+    import numpy as np
+    import torch
+
+    from torch_bnb_fp4_tpu_torch.convert import load_checkpoint, save_checkpoint
+    from torch_bnb_fp4_tpu_torch.models import linear as L
+    from torch_bnb_fp4_tpu_torch.models import lora as LoRA
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+    from torch_bnb_fp4_tpu_torch.ops import kernels as K
+    from torch_bnb_fp4_tpu_torch.serve import Engine, EngineConfig, Request
+    from torch_bnb_fp4_tpu_torch.utils.synth import synth_params
+
+    t_phase = time.perf_counter()
+    build = root / "build"
+    dirs = [build / n for n in ("chip_smoke_lora_a", "chip_smoke_lora_b", "chip_smoke_lora_a4", "chip_smoke_lora_b4",
+                                "chip_smoke_lora_ckpt")]
+    dir_a, dir_b, dir_a4, dir_b4, ckpt = dirs
+    logs = [build / "chip_smoke_lora_server.log", build / "chip_smoke_lora_merge_server.log"]
+    cfg = T.ModelConfig.mistral_7b()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    g12 = torch.Generator().manual_seed(12)
+
+    def sub_adapter(ad, n_layers):
+        return LoRA.PEFTAdapter(r=ad.r, alpha=ad.alpha, weights={s: v for s, v in ad.weights.items()
+                                                                 if int(s.split(".")[2]) < n_layers})
+
+    try:
+        # setup: two PEFT directories and the base params
+        t0 = time.perf_counter()
+        wa = peft_weights(cfg, cfg.n_layers, 16, PEFT_TARGETS, gen, dev)
+        wb = peft_weights(cfg, cfg.n_layers, 8, ("self_attn.q_proj", "self_attn.v_proj"), gen, dev)
+        write_peft(dir_a, wa, 16, 32.0)
+        write_peft(dir_b, wb, 8, 16.0)
+        A, B = LoRA.load_peft_adapter(str(dir_a)), LoRA.load_peft_adapter(str(dir_b))
+        check((A.r, A.alpha, B.r, B.alpha) == (16, 32.0, 8, 16.0) and sorted(A.weights) == sorted(wa)
+              and all(np.array_equal(A.weights[s][j], wa[s][j]) for s in wa for j in (0, 1)),
+              "[12] the PEFT directory read back other factors")
+        mb = (dir_a / "adapter_model.safetensors").stat().st_size / 1e6
+        params = synth_params(cfg, seed=5, fuse=False, device=dev)
+        mp, ids = LoRA.attach_multi_lora(params, cfg, {"a": A, "b": B})
+        singles = {None: params, "a": LoRA.attach_lora(params, cfg, A), "b": LoRA.attach_lora(params, cfg, B)}
+        stack_mb = sum(tensor_bytes((q.a, q.b)) for lp in mp.layers for q in vars(lp).values()
+                       if isinstance(q, L.MultiLoRALinear)) / 1e6
+        torch.cuda.synchronize()
+        print(f"[12] adapters a (r 16, alpha 32, q/k/v/o/gate/up/down x {cfg.n_layers} layers; {mb:.1f} MB of f32 "
+              f"PEFT file) and b (r 8, alpha 16, q/v) written and read back with the port's safetensors code; "
+              f"attach_multi_lora: {ids}, stacks {stack_mb:.1f} MB bf16 on the card; setup "
+              f"{time.perf_counter() - t0:.1f} s ({smi})")
+
+        # (a) the multi-LoRA engine: warmup, then 8 mixed requests in one batch, against eager generate
+        t_sub = time.perf_counter()
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g12).tolist() for n in LORA_PROMPTS]
+        ecfg = EngineConfig(max_batch=8, max_len=1024, inner_steps=8, batch_buckets=True)
+        eng = Engine(mp, cfg, ecfg, adapter_ids=ids)
+        t0 = time.perf_counter()
+        warm = eng.warmup(max_prompt_len=max(LORA_PROMPTS))
+        warm_s, n_graphs = time.perf_counter() - t0, len(eng._graphs)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS, adapter=a)
+                for i, (p, a) in enumerate(zip(prompts, LORA_ADAPTERS))]
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        st = eng.stats()
+        check(eng.traces == warm and len(eng._graphs) == n_graphs,
+              f"[12a] serving after warmup() added programs: {warm} -> {eng.traces}, graphs {n_graphs} -> "
+              f"{len(eng._graphs)}")
+        for name in ("matmul_pk", "matmul_pk_minner", "matmul_pk_w4a8"):
+            check(launches[name] > 0, f"[12a] the multi-LoRA engine never launched {name}")
+        check(st["decode_batch"] == 8 and all(len(res[i].tokens) == NEW_TOKENS for i in range(len(reqs))),
+              f"[12a] stats {st}")
+        lora_card_ms = graph_step_ms(eng, [ids[a] if a else 0 for a in LORA_ADAPTERS])
+        del eng
+        e0 = Engine(params, cfg, ecfg)
+        e0.warmup(prompt_lens=LORA_PROMPTS)
+        res0 = e0.run([Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        st0 = e0.stats()
+        base_card_ms = graph_step_ms(e0, [0] * 8)
+        del e0, res0
+        torch.cuda.empty_cache()
+        print(f"[12a] multi-LoRA engine (max_batch 8, max_len 1024, inner_steps 8, batch buckets): warmup("
+              f"max_prompt_len={max(LORA_PROMPTS)}) {warm_s:.1f} s, {n_graphs} decode graphs, traces {warm}; 8 "
+              f"requests (prompts {LORA_PROMPTS}, adapters {list(LORA_ADAPTERS)}) in {wall:.2f} s, no new graph; "
+              f"launches {json.dumps(launches)}")
+        print(f"[12a] decode ms/step at batch 8: with adapters {st['step_p50_s'] * 1e3:.3f} p50 (host clock, the "
+              f"serving ticks), {lora_card_ms:.3f} on the card alone (the depth-8 graph replayed, rows a/b/none); "
+              f"the same engine without adapters {st0['step_p50_s'] * 1e3:.3f} p50, {base_card_ms:.3f} on the card "
+              f"alone; the adapters' cost {lora_card_ms - base_card_ms:.3f} ms/step "
+              f"({100 * (lora_card_ms / base_card_ms - 1):.1f}%) on the card ({smi})")
+        for i, (p, a) in enumerate(zip(prompts, LORA_ADAPTERS)):
+            msg = engine_tokens_vs_eager(T, singles[a], cfg, p, res[i].tokens, dev, f"[12a] request {i}")
+            print(f"[12a] request {i} ({len(p)} tokens, adapter {a}): {msg} on "
+                  f"{'the base' if a is None else f'attach_lora({a})'}")
+        print(f"[12a] took {time.perf_counter() - t_sub:.1f} s")
+
+        # (b) the 2-layer cut: card against the CPU's plain versions, one adapter attached and three stacked
+        t_sub = time.perf_counter()
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        A2, B2 = sub_adapter(A, 2), sub_adapter(B, 2)
+        p_gpu = synth_params(cfg2, seed=1, device=dev)
+        p_cpu = T.params_to(p_gpu, "cpu")
+        mg, _ = LoRA.attach_multi_lora(p_gpu, cfg2, {"a": A2, "b": B2})
+        mc, _ = LoRA.attach_multi_lora(p_cpu, cfg2, {"a": A2, "b": B2})
+        idx = torch.tensor([1, 0, 2], dtype=torch.int32)
+        cuts = {"attach_lora(a)": (LoRA.attach_lora(p_gpu, cfg2, A2), LoRA.attach_lora(p_cpu, cfg2, A2), None),
+                "attach_multi_lora, rows a / none / b": (mg, mc, idx)}
+        t_cpu = 0.0
+        for tag, (pg, pc, ix) in cuts.items():
+            b = 1 if ix is None else len(ix)
+            toks = torch.randint(0, cfg2.vocab_size, (b, 100), generator=g12, dtype=torch.int32)
+            c_gpu, c_cpu = T.KVCache.zeros(cfg2, b, 103, device=dev), T.KVCache.zeros(cfg2, b, 103, device="cpu")
+            kg, kc = ({}, {}) if ix is None else (dict(adapter_idx=ix.to(dev)), dict(adapter_idx=ix))
+            for step in range(3):  # the prompt, then 2 decode steps fed the CPU run's greedy tokens
+                with torch.no_grad():
+                    lg_gpu, c_gpu = T.forward(pg, cfg2, toks.to(dev), c_gpu, last_only=True, **kg)
+                    t = time.perf_counter()
+                    lg_cpu, c_cpu = T.forward(pc, cfg2, toks, c_cpu, last_only=True, **kc)
+                    t_cpu += time.perf_counter() - t
+                lg_gpu = lg_gpu.cpu()
+                d = (lg_gpu - lg_cpu).abs().max().item()
+                rel = ((lg_gpu - lg_cpu).norm() / lg_cpu.norm()).item()
+                check(bool(torch.isfinite(lg_gpu).all()) and d <= 6e-2 * lg_cpu.abs().max().item() and rel <= 3e-2,
+                      f"[12b] {tag} step {step}: max|d| {d}, rel L2 {rel}")
+                print(f"[12b] 2-layer cut, {tag}, batch {b}, {'100-token prompt' if step == 0 else 'decode'} step "
+                      f"{step}: max|dlogit| {d:.4g} of max {lg_cpu.abs().max().item():.4g}, rel L2 {rel:.3g} "
+                      f"(limits 6e-2 of max, 3e-2)")
+                toks = lg_cpu[:, -1].argmax(-1).to(torch.int32)[:, None]
+        print(f"[12b] took {time.perf_counter() - t_sub:.1f} s (CPU side {t_cpu:.1f} s)")
+
+        # (c) merge_lora(a) on the cut: the card's merge (K6) against the CPU's, byte for byte
+        t_sub = time.perf_counter()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        merged = LoRA.merge_lora(p_gpu, cfg2, A2)
+        torch.cuda.synchronize()
+        card_s, k6 = time.perf_counter() - t0, K.launch_counts()["dequant_pk"]
+        t0 = time.perf_counter()
+        merged_cpu = LoRA.merge_lora(p_cpu, cfg2, A2)
+        cpu_s = time.perf_counter() - t0
+        check(k6 == 7 * cfg2.n_layers, f"[12c] {k6} K6 launches in the card's merge")
+        for i in range(cfg2.n_layers):
+            for f in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+                qg, qc = getattr(merged.layers[i], f), getattr(merged_cpu.layers[i], f)
+                check(torch.equal(qg.packed.cpu(), qc.packed) and torch.equal(qg.scale.cpu(), qc.scale)
+                      and not torch.equal(qg.packed, getattr(p_gpu.layers[i], f).packed),
+                      f"[12c] layer {i} {f}: the card's merged bytes differ from the CPU's (or equal the base's)")
+        toks = torch.randint(0, cfg2.vocab_size, (1, 100), generator=g12, dtype=torch.int32).to(dev)
+        with torch.no_grad():
+            lm = T.forward(merged, cfg2, toks, T.KVCache.zeros(cfg2, 1, 100, device=dev))[0].float().cpu()
+            la = T.forward(cuts["attach_lora(a)"][0], cfg2, toks, T.KVCache.zeros(cfg2, 1, 100, device=dev))[0]
+            lb = T.forward(p_gpu, cfg2, toks, T.KVCache.zeros(cfg2, 1, 100, device=dev))[0]
+        la, lb = la.float().cpu(), lb.float().cpu()
+        corr = float(np.corrcoef(lm.ravel().numpy(), la.ravel().numpy())[0, 1])
+        corr_b = float(np.corrcoef(lb.ravel().numpy(), la.ravel().numpy())[0, 1])
+        dm = (lm - la).abs().max().item() / la.abs().max().item()
+        check(bool(torch.isfinite(lm).all()), "[12c] non-finite logits from the merged cut")
+        print(f"[12c] merge_lora(a) on the 2-layer cut: card {card_s:.1f} s (K6 launches {k6}), CPU {cpu_s:.1f} s; "
+              f"every merged packing and scale byte-equal; merged vs attached logits over 100 positions: max|d| / "
+              f"max {dm:.4g}, correlation {corr:.5f} (the base against the attached form: {corr_b:.5f}); took "
+              f"{time.perf_counter() - t_sub:.1f} s")
+        del p_gpu, p_cpu, mg, mc, cuts, merged, merged_cpu
+        torch.cuda.empty_cache()
+
+        # (e) R7: one 512-token prompt under a, then b (together), then a again, with the prefix cache
+        t_sub = time.perf_counter()
+        sysp = torch.randint(0, cfg.vocab_size, (512,), generator=g12).tolist()
+        r7 = [Request(uid=0, prompt=sysp, max_new_tokens=NEW_TOKENS, adapter="a"),
+              Request(uid=1, prompt=sysp, max_new_tokens=NEW_TOKENS, adapter="b")]
+        e_pc = Engine(mp, cfg, EngineConfig(max_batch=4, max_len=1024, inner_steps=8, prefix_cache=True,
+                                            prefix_store=2), adapter_ids=ids)
+        out = e_pc.run([dataclasses.replace(r) for r in r7])
+        hits_ab = e_pc.stats()["prefix_hits"]
+        check(hits_ab == 0, f"[12e] {hits_ab} prefix hits across adapters")
+        e_np = Engine(mp, cfg, EngineConfig(max_batch=4, max_len=1024, inner_steps=8), adapter_ids=ids)
+        ref = e_np.run([dataclasses.replace(r) for r in r7])
+        check(out[1].tokens == ref[1].tokens and out[0].tokens == ref[0].tokens,
+              "[12e] the prefix engine's tokens under a and b differ from the engine without the cache")
+        third = e_pc.run([Request(uid=2, prompt=sysp, max_new_tokens=NEW_TOKENS, adapter="a")])[2]
+        st_pc = e_pc.stats()
+        check(st_pc["prefix_hits"] == 1 and st_pc["prefix_tokens_reused"] == 480,
+              f"[12e] third request: hits {st_pc['prefix_hits']}, reused {st_pc['prefix_tokens_reused']}")
+        msg = engine_tokens_vs_eager(T, singles["a"], cfg, sysp, third.tokens, dev, "[12e] third request")
+        print(f"[12e] R7: a 512-token prompt under a and b together: 0 prefix hits, both requests' tokens equal the "
+              f"engine without the cache; the same prompt under a again: 1 hit (480 tokens reused from a's store "
+              f"entry), {msg}; TTFT {out[0].ttft_s * 1e3:.1f} / {out[1].ttft_s * 1e3:.1f} ms, the hit "
+              f"{third.ttft_s * 1e3:.1f} ms; took {time.perf_counter() - t_sub:.1f} s")
+        del e_pc, e_np, mp, singles, params
+        torch.cuda.empty_cache()
+
+        # (d) the CLI on a 4-layer checkpoint: named adapters over HTTP with shadows; then --lora-merge
+        t_sub = time.perf_counter()
+        cfg4 = dataclasses.replace(cfg, n_layers=LORA_CLI_LAYERS)
+        p4 = synth_params(cfg4, seed=17, device=dev)
+        save_checkpoint(str(ckpt), cfg4, p4)
+        del p4
+        torch.cuda.empty_cache()
+        for d, w, r, alpha in ((dir_a4, wa, 16, 32.0), (dir_b4, wb, 8, 16.0)):
+            write_peft(d, {s: v for s, v in w.items() if int(s.split(".")[2]) < LORA_CLI_LAYERS}, r, alpha)
+        flags = ["--lora", f"a={dir_a4}", "--lora", f"b={dir_b4}", "--prefill-shadow", "--prefill-chunk", "256",
+                 "--prefix-cache", "--warmup-prompt-len", "512"]
+        bodies = {name: {"prompt": torch.randint(0, cfg.vocab_size, (n,), generator=g12).tolist(),
+                         "max_tokens": NEW_TOKENS} | ({"adapter": name} if name != "none" else {})
+                  for name, n in (("a", 300), ("b", 100), ("none", 200))}
+        proc, url, startup_s = start_cli(root, ["--ckpt", str(ckpt), "--max-batch", "4", "--max-len", "2048", *flags],
+                                         logs[0], "[12d]")
+        try:
+            http = {}
+            threads = [threading.Thread(target=lambda k=k: http.__setitem__(k, http_post(url, bodies[k])))
+                       for k in bodies]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            check(sorted(http) == sorted(bodies) and all(len(c["tokens"]) == NEW_TOKENS for c in http.values()),
+                  f"[12d] requests over HTTP: {http}")
+            try:
+                http_post(url, {"prompt": [1, 2, 3], "max_tokens": 4, "adapter": "c"})
+                code, err_msg = 200, ""
+            except urllib.error.HTTPError as e:
+                code, err_msg = e.code, json.loads(e.read())["error"]
+            check(code == 400 and "unknown adapter 'c'" in err_msg, f"[12d] unknown adapter answered {code} {err_msg}")
+            srv_launches = http_get(url, "/v1/stats")["launches"]
+        finally:
+            stop_cli(proc, logs[0], "[12d]")
+        check(srv_launches["matmul_w8"] > 0, f"[12d] the server never launched K5: {srv_launches}")
+        cfg4r, p4r = load_checkpoint(str(ckpt), device=dev)
+        m4, ids4 = LoRA.attach_multi_lora(p4r, cfg4r, {"a": LoRA.load_peft_adapter(str(dir_a4)),
+                                                       "b": LoRA.load_peft_adapter(str(dir_b4))})
+        m4 = L.attach_prefill_shadow(m4)
+        check(all(q.base.w8 is not None for lp in m4.layers for q in vars(lp).values()
+                  if isinstance(q, L.MultiLoRALinear)), "[12d] a base inside a MultiLoRALinear has no shadow")
+        e4 = Engine(m4, cfg4r, EngineConfig(max_batch=4, max_len=2048, prefill_chunk=256, prefix_cache=True),
+                    adapter_ids=ids4)
+        K.reset_launch_counts()
+        local = e4.run([Request(uid=i, prompt=b["prompt"], max_new_tokens=NEW_TOKENS, adapter=b.get("adapter"))
+                        for i, b in enumerate(bodies.values())])
+        launches4 = K.launch_counts()
+        for i, k in enumerate(bodies):
+            check(local[i].tokens == http[k]["tokens"], f"[12d] request {k}: HTTP tokens differ from in-process")
+        check(launches4["matmul_w8"] > 0 and launches4["dequant_pk"] == 0,
+              f"[12d] in-process launches {launches4}")
+        del e4, m4, p4r
+        torch.cuda.empty_cache()
+        proc, url, merge_startup_s = start_cli(root, ["--ckpt", str(ckpt), "--max-batch", "2", "--max-len", "512",
+                                                      "--lora", str(dir_b4), "--lora-merge"], logs[1], "[12d merge]")
+        try:
+            merged_out = http_post(url, {"prompt": bodies["b"]["prompt"], "max_tokens": NEW_TOKENS})
+        finally:
+            stop_cli(proc, logs[1], "[12d merge]")
+        check(len(merged_out["tokens"]) == NEW_TOKENS, f"[12d] --lora-merge served {merged_out}")
+        same_b = sum(x == y for x, y in zip(merged_out["tokens"], http["b"]["tokens"]))
+        print(f"[12d] CLI {' '.join(flags).replace(str(build) + '/', '')} on a {LORA_CLI_LAYERS}-layer checkpoint: "
+              f"serving line after {startup_s:.1f} s; requests under a (300 tokens), b (100) and none (200) at once "
+              f"over HTTP, tokens equal to the in-process engine's (load, attach_multi_lora, attach_prefill_shadow); "
+              f"K5 launches {launches4['matmul_w8']} in process (the 300-token prompt's 256-row chunk under "
+              f"LoRA-wrapped bases), {srv_launches['matmul_w8']} in the server; an unknown adapter -> 400 "
+              f"({err_msg!r}); SIGINT -> 0")
+        print(f"[12d] CLI --lora DIR --lora-merge: serving line after {merge_startup_s:.1f} s, {NEW_TOKENS} tokens "
+              f"served ({same_b}/{NEW_TOKENS} equal to the attached b's), SIGINT -> 0; (d) took "
+              f"{time.perf_counter() - t_sub:.1f} s")
+
+        # (f) the example script on the card
+        t_sub = time.perf_counter()
+        ex = subprocess.run([sys.executable, str(root / "examples_torch" / "sanity_check.py")], cwd=root,
+                            capture_output=True, text=True, timeout=600)
+        errs = [float(x) for x in re.findall(r"mean \|err\| = ([\d.]+)", ex.stdout)]
+        if ex.returncode != 0:
+            print(f"[12f] sanity_check.py stderr (tail):\n{ex.stderr[-3000:]}", file=sys.stderr)
+        check(ex.returncode == 0 and "PASSED" in ex.stdout and len(errs) == 3
+              and all(0.045 <= e <= 0.065 for e in errs), f"[12f] sanity_check.py: rc {ex.returncode}, {ex.stdout}")
+        print("[12f] examples_torch/sanity_check.py on the card: mean |err| " + ", ".join(f"{e:.4f}" for e in errs)
+              + " (band 0.045-0.065); its speed table:")
+        for ln in ex.stdout.splitlines():
+            if ln.strip().startswith(("gemv", "gemm", "mode", "[bfloat16]")):
+                print("[12f]   " + ln.strip())
+        print(f"[12f] took {time.perf_counter() - t_sub:.1f} s")
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    print(f"[12] phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2510,6 +2922,9 @@ def main() -> int:
 
     # -- phase 11: HF checkpoints to served tokens -----------------------------------------------
     phase11(root, dev, smi)
+
+    # -- phase 12: LoRA adapters at Mistral-7B width ----------------------------------------------
+    phase12(root, dev, smi)
 
     # -- kernel table ------------------------------------------------------------------
     k_launch = launches["matmul_pk"] + launches["matmul_pk_minner"] + launches["matmul_pk_w4a8"]

@@ -921,3 +921,66 @@ def test_quant_embed_lookup_cuda_matches_cpu_and_graphs(dev):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out.cpu(), T.embed_lookup(e_cpu, new))
+
+
+@pytest.mark.parametrize("m", [1, 64, 256])
+def test_lora_linears_cuda_match_cpu(dev, m):
+    """LoRALinear and MultiLoRALinear on the card (K2 or K4 under the base,
+    cuBLAS for the deltas, the per-row gather by index_select) against the
+    same layers on the CPU, bf16 and f32 x; stacked rows given a (B,) index
+    on the device."""
+    from torch_bnb_fp4_tpu_torch.models import linear as L
+
+    rng = np.random.default_rng(m)
+    w = (rng.standard_normal((384, 1024)) * 0.02).astype(np.float32)
+    ab = [((rng.standard_normal((r, 1024)) * 0.05).astype(np.float32),
+           (rng.standard_normal((384, r)) * 0.05).astype(np.float32)) for r in (8, 4)]
+    base = L.quantize_linear(w, device="cpu")
+    single = L.lora_linear(base, *ab[0], alpha=16.0)
+    multi = L.multi_lora_linear(base, [(*ab[0], 16.0), None, (*ab[1], 8.0)])
+    idx = torch.tensor([1, 0, 3, 2], dtype=torch.int32)
+    for dtype, tol in ((torch.bfloat16, 2.0**-7), (torch.float32, 1e-5)):
+        x = torch.from_numpy(rng.standard_normal((4, m, 1024)).astype(np.float32)).to(dtype)
+        for lin, kw_cpu, kw_dev in ((single, {}, {}), (multi, dict(adapter_idx=idx), dict(adapter_idx=idx.to(dev)))):
+            want = lin(x, **kw_cpu).float()
+            got = lin.to(dev)(x.to(dev), **kw_dev).float().cpu()
+            assert (got - want).abs().max().item() <= tol * want.abs().max().item(), (type(lin).__name__, dtype)
+
+
+def test_multi_lora_engine_graphs_on_card(dev):
+    """A multi-LoRA engine on the card: warmup captures every graph, serving
+    requests under two adapters and none captures nothing more (the adapter
+    index is a buffer write), and each request's tokens equal eager
+    ``generate`` on its single-attach params (or the base)."""
+    from torch_bnb_fp4_tpu_torch.models import lora as LoRA
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+    from torch_bnb_fp4_tpu_torch.serve import Engine, EngineConfig, Request
+    from torch_bnb_fp4_tpu_torch.utils.synth import synth_params
+
+    cfg = T.ModelConfig.tiny_test(n_layers=2)
+    params = synth_params(cfg, seed=5, device=dev)
+    rng = np.random.default_rng(9)
+    kv = cfg.n_kv_heads * cfg.head_dim
+    shapes = {"self_attn.q_proj": (cfg.dim, cfg.dim), "self_attn.v_proj": (kv, cfg.dim),
+              "mlp.down_proj": (cfg.dim, cfg.ffn_dim)}
+
+    def adapter(r, names):
+        return LoRA.PEFTAdapter(r=r, alpha=2.0 * r, weights={
+            f"model.layers.{i}.{t}": ((rng.standard_normal((r, shapes[t][1])) * 0.05).astype(np.float32),
+                                      (rng.standard_normal((shapes[t][0], r)) * 0.05).astype(np.float32))
+            for i in range(cfg.n_layers) for t in names})
+
+    ads = {"a": adapter(8, shapes), "b": adapter(4, ["self_attn.q_proj", "self_attn.v_proj"])}
+    mp, ids = LoRA.attach_multi_lora(params, cfg, ads)
+    eng = Engine(mp, cfg, EngineConfig(max_batch=4, max_len=128, inner_steps=4, batch_buckets=True),
+                 adapter_ids=ids)
+    warm = eng.warmup(max_prompt_len=64)
+    n_graphs = len(eng._graphs)
+    g = torch.Generator().manual_seed(2)
+    reqs = [(torch.randint(0, cfg.vocab_size, (32,), generator=g).tolist(), a) for a in ("a", "b", None, "a")]
+    res = eng.run([Request(uid=i, prompt=p, max_new_tokens=12, adapter=a) for i, (p, a) in enumerate(reqs)])
+    assert eng.traces == warm and len(eng._graphs) == n_graphs
+    oracle = {None: params, **{n: LoRA.attach_lora(params, cfg, ad) for n, ad in ads.items()}}
+    for i, (p, a) in enumerate(reqs):
+        want = T.generate(oracle[a], cfg, torch.tensor([p], dtype=torch.int32, device=dev), 12)[0].tolist()
+        assert res[i].tokens == want, (i, a)

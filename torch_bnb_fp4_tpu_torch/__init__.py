@@ -12,7 +12,53 @@ the JAX package's format (convert/checkpoint.py), quantized embedding tables
 (convert/hf.py: ``python -m torch_bnb_fp4_tpu_torch.convert``, with its own
 safetensors reader and the native C packer), the reference library's API
 (compat.py: ``TorchFP4Linear``, ``QuantData``, the functional wrappers and
-``recursively_replace_with_fp4_linear``) and a weight carrier from the JAX
-package's layout (convert/from_numpy.py).  Entry points default to
+``recursively_replace_with_fp4_linear``), LoRA adapters attached, merged or
+stacked for per-request serving (models/lora.py) and a weight carrier from
+the JAX package's layout (convert/from_numpy.py).  Entry points default to
 ``device="cuda"`` and raise without a card unless given ``device="cpu"``.
+
+The names below follow the JAX package's ``__init__``; its ``parallel``
+(tensor parallelism and multi-host serving) is not ported yet.
 """
+
+from . import compat, convert, models, ops, serve, utils
+from .models import (
+    DenseLinear,
+    KVCache,
+    ModelConfig,
+    ModelParams,
+    QuantEmbedding,
+    QuantLinear,
+    apply_linear,
+    dequantize_weight,
+    forward,
+    generate,
+    quantize_embedding,
+    quantize_linear,
+    quantize_params,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "compat",
+    "convert",
+    "models",
+    "ops",
+    "serve",
+    "utils",
+    "QuantLinear",
+    "DenseLinear",
+    "ModelConfig",
+    "ModelParams",
+    "KVCache",
+    "quantize_linear",
+    "QuantEmbedding",
+    "quantize_embedding",
+    "apply_linear",
+    "dequantize_weight",
+    "quantize_params",
+    "forward",
+    "generate",
+    "__version__",
+]

@@ -54,10 +54,8 @@ __all__ = [
     "gemm_4bit_inference",
     "gemm_4bit_inference_qtype",
     "QuantData",
-    "QuantDataView",
     "TorchFP4Linear",
     "recursively_replace_with_fp4_linear",
-    "convert_torch_model",
     "check_if_name_contained_in_list",
 ]
 

@@ -17,6 +17,13 @@ Two layouts, as in the JAX package:
     kernel call covers them all, reading x in place.
     Split-K is never fused and never gets an int8 shadow.
 
+Adapters (LoRA, :mod:`models.lora`): :class:`LoRALinear` adds one low-rank
+delta to a base linear, :class:`MultiLoRALinear` a per-row one picked from a
+stack of adapters by ``adapter_idx`` (a (B,) int32 tensor on the device, read
+by ``index_select``: no host sync, so a decode CUDA graph replays it).  The
+deltas are two skinny products outside any kernel of the port, as the JAX
+package computes them with ``jnp.dot``/``einsum`` outside any Pallas kernel.
+
 The int8 prefill shadow (:func:`attach_int8_shadow`) decodes and requantizes
 a pair-K layer's weights once (K6) into ``w8`` / ``w8_scale``; prefill GEMMs
 of 256 rows or more then run as a pure int8 GEMM (K5).  A STACKED pair-K
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import numpy as np
 import torch
@@ -109,18 +117,169 @@ class DenseLinear:
         return dataclasses.replace(self, w=self.w.to(device), bias=None if self.bias is None else self.bias.to(device))
 
     def __call__(self, x: torch.Tensor, out_dtype=None, **_kw) -> torch.Tensor:
-        # f32-accumulated product returned in f32, like the JAX dot with
-        # preferred_element_type=f32.  On the card cuBLAS writes f32 straight
-        # from bf16 operands (mm with out_dtype); the CPU has no such op and
-        # multiplies the exact f32 widenings.
-        x2 = x.reshape(-1, self.k_in)
-        if x.is_cuda and x.dtype == self.w.dtype and x.dtype != torch.float32:
-            y = torch.mm(x2, self.w, out_dtype=torch.float32)
-        else:
-            y = x2.float() @ self.w.float()
+        y = _dot_f32(x.reshape(-1, self.k_in), self.w)
         if self.bias is not None:
             y = y + self.bias.float()
         return y.to(out_dtype if out_dtype is not None else x.dtype).reshape(*x.shape[:-1], self.n_out)
+
+
+def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D, or batched 3-D) accumulated and returned in f32, like
+    the JAX dot with preferred_element_type=f32.  On the card cuBLAS writes
+    f32 straight from 16-bit operands of one dtype (mm / bmm with
+    out_dtype); otherwise the exact f32 widenings are multiplied (the CPU has
+    no such op)."""
+    if a.is_cuda and a.dtype == b.dtype and a.dtype in (torch.bfloat16, torch.float16):
+        return (torch.bmm if a.ndim == 3 else torch.mm)(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _linear_device(lin) -> torch.device:
+    return (lin.packed if isinstance(lin, QuantLinear) else lin.w).device
+
+
+@dataclasses.dataclass
+class LoRALinear:
+    """A low-rank adapter on a (usually quantized) base linear: ``y =
+    base(x) + scale * (x @ a) @ b`` (the JAX package's ``LoRALinear``).  The
+    base's bytes stay as they are; ``a`` is (k_in, r), ``b`` (r, n_out),
+    ``scale`` alpha / r.  The base runs with f32 output; ``x @ a`` is rounded
+    to x's dtype, ``@ b`` accumulated in f32, and the sum cast to the output
+    dtype, as in JAX."""
+
+    base: Any  # QuantLinear | DenseLinear
+    a: torch.Tensor  # (k_in, r)
+    b: torch.Tensor  # (r, n_out)
+    scale: float
+
+    @property
+    def n_out(self) -> int:
+        return self.base.n_out
+
+    @property
+    def k_in(self) -> int:
+        return self.base.k_in
+
+    @property
+    def bias(self):
+        return self.base.bias
+
+    @property
+    def rank(self) -> int:
+        return self.a.shape[-1]
+
+    def to(self, device) -> "LoRALinear":
+        return dataclasses.replace(self, base=self.base.to(device), a=self.a.to(device), b=self.b.to(device))
+
+    def __call__(self, x: torch.Tensor, out_dtype=None, **kw) -> torch.Tensor:
+        y = self.base(x, out_dtype=torch.float32, **kw)
+        h = _dot_f32(x.reshape(-1, self.k_in), self.a.to(x.dtype)).to(x.dtype)
+        d = _dot_f32(h, self.b.to(x.dtype))
+        y = y + self.scale * d.reshape(y.shape)
+        return y.to(out_dtype if out_dtype is not None else x.dtype)
+
+
+@dataclasses.dataclass
+class MultiLoRALinear:
+    """L stacked low-rank adapters on ONE shared base, picked per batch row
+    (the JAX package's ``MultiLoRALinear``): ``y[i] = base(x)[i] +
+    scale[idx[i]] * (x[i] @ a[idx[i]]) @ b[idx[i]]``.  Ranks are zero-padded
+    to the widest and slot 0 is the reserved zero adapter ("no adapter"), so
+    requests without one ride the same program.  Calls need ``adapter_idx``,
+    a (B,) int32 tensor on the device; a (B,) index serves (B, L, k) inputs
+    too (prefill chunks, speculation's verify forwards).  The gathers are
+    ``index_select`` on the device: no host sync, so a decode CUDA graph
+    replays them with whatever indices its static buffer holds."""
+
+    base: Any  # QuantLinear | DenseLinear
+    a: torch.Tensor  # (L, k_in, r_max)
+    b: torch.Tensor  # (L, r_max, n_out)
+    scale: torch.Tensor  # (L,) f32: alpha_l / r_l, 0 for the reserved slot 0
+
+    @property
+    def n_out(self) -> int:
+        return self.base.n_out
+
+    @property
+    def k_in(self) -> int:
+        return self.base.k_in
+
+    @property
+    def bias(self):
+        return self.base.bias
+
+    @property
+    def n_adapters(self) -> int:
+        return self.a.shape[0]
+
+    @property
+    def rank(self) -> int:
+        return self.a.shape[-1]
+
+    def to(self, device) -> "MultiLoRALinear":
+        return dataclasses.replace(self, base=self.base.to(device), a=self.a.to(device), b=self.b.to(device),
+                                   scale=self.scale.to(device))
+
+    def __call__(self, x: torch.Tensor, out_dtype=None, adapter_idx=None, **kw) -> torch.Tensor:
+        if adapter_idx is None:
+            raise ValueError("MultiLoRALinear requires adapter_idx ((B,) i32 per batch row) "
+                             "— thread it through forward(adapter_idx=...)")
+        y = self.base(x, out_dtype=torch.float32, **kw)
+        idx = torch.as_tensor(adapter_idx, device=x.device)
+        a = self.a.index_select(0, idx).to(x.dtype)  # (B, k, r)
+        b = self.b.index_select(0, idx).to(x.dtype)  # (B, r, n)
+        h = _dot_f32(x.reshape(idx.shape[0], -1, self.k_in), a).to(x.dtype)
+        d = _dot_f32(h, b)  # (B, T, n) f32
+        s = self.scale.index_select(0, idx)
+        y = y + (s[:, None, None] * d).reshape(y.shape)
+        return y.to(out_dtype if out_dtype is not None else x.dtype)
+
+
+def multi_lora_linear(base, adapters, *, dtype=torch.bfloat16) -> MultiLoRALinear:
+    """Stack PEFT-convention adapters on ``base``.  ``adapters``: a list of
+    (lora_A (r, k_in), lora_B (n_out, r), alpha); entry i lands in slot i+1
+    (slot 0 is the reserved zero adapter), and a ``None`` entry (that adapter
+    does not target this module) is a zero adapter too.  Ranks may differ;
+    the stacks pad to the widest.  The stacks go to the base's device."""
+    device = _linear_device(base)
+    rs = [0 if ab is None else np.asarray(ab[0], np.float32).shape[0] for ab in adapters]
+    r_max = max(1, max(rs, default=0))
+    n_l = len(adapters) + 1
+    a = np.zeros((n_l, base.k_in, r_max), np.float32)
+    b = np.zeros((n_l, r_max, base.n_out), np.float32)
+    scale = np.zeros((n_l,), np.float32)
+    for i, ab in enumerate(adapters):
+        if ab is None:
+            continue
+        ai, bi, alpha = ab
+        ai = np.asarray(ai, np.float32)
+        bi = np.asarray(bi, np.float32)
+        r = ai.shape[0]
+        if ai.shape != (r, base.k_in) or bi.shape != (base.n_out, r):
+            raise ValueError(f"adapter {i} shapes lora_A {ai.shape} / lora_B {bi.shape} do not match base "
+                             f"{base.n_out}x{base.k_in}")
+        a[i + 1, :, :r] = ai.T
+        b[i + 1, :r, :] = bi.T
+        scale[i + 1] = float(alpha) / r
+    return MultiLoRALinear(base=base, a=torch.from_numpy(a).to(device=device, dtype=dtype),
+                           b=torch.from_numpy(b).to(device=device, dtype=dtype),
+                           scale=torch.from_numpy(scale).to(device))
+
+
+def lora_linear(base, a: np.ndarray, b: np.ndarray, *, alpha: float, dtype=torch.bfloat16) -> LoRALinear:
+    """Wrap ``base`` with a PEFT-convention adapter: ``a`` is lora_A (r, k_in)
+    and ``b`` lora_B (n_out, r) in torch's (out, in) orientation; the scale is
+    alpha / r.  The factors go to the base's device."""
+    device = _linear_device(base)
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    r = a.shape[0]
+    if a.shape != (r, base.k_in) or b.shape != (base.n_out, r):
+        raise ValueError(f"adapter shapes lora_A {a.shape} / lora_B {b.shape} do not match base "
+                         f"{base.n_out}x{base.k_in}")
+    return LoRALinear(base=base, a=torch.from_numpy(np.ascontiguousarray(a.T)).to(device=device, dtype=dtype),
+                      b=torch.from_numpy(np.ascontiguousarray(b.T)).to(device=device, dtype=dtype),
+                      scale=float(alpha) / r)
 
 
 def dense_linear(w: np.ndarray, bias: np.ndarray | None = None, dtype=torch.bfloat16, device=None) -> DenseLinear:
@@ -212,8 +371,10 @@ def _shard_reorder_x(x2: torch.Tensor, k_shards: int) -> torch.Tensor:
     return x2.reshape(m, k_shards, 2, k // (2 * k_shards)).transpose(1, 2).reshape(m, k)
 
 
-def apply_linear(q: QuantLinear, x: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
-    """Forward pass, x (..., k_in) -> (..., n_out).  Pair-K: one row goes
+def apply_linear(q: QuantLinear, x: torch.Tensor, *, out_dtype=None, adapter_idx=None) -> torch.Tensor:
+    """Forward pass, x (..., k_in) -> (..., n_out).  ``adapter_idx`` is
+    accepted and ignored: a model serving per-request adapters passes it to
+    every layer linear, and only :class:`MultiLoRALinear` reads it.  Pair-K: one row goes
     through the batch-1 route; with a shadow attached, M >= ``A8_MIN_M`` rows
     of non-f32 x through K5 (any variant, lut included); other rows through
     ``matmul_fp4_pk``'s M-based choice (the JAX package's
@@ -358,8 +519,10 @@ def attach_int8_shadow(q: QuantLinear, tp: int = 1) -> QuantLinear:
 def attach_prefill_shadow(params, tp: int = 1):
     """A copy of ``params`` (a ``ModelParams``, or any dataclass or list
     holding linears) in which every 2-D pair-K QuantLinear, a quantized
-    lm_head included, carries an int8 prefill shadow.  Dense layers, split-K
-    layers and stacked (expert) packings are left as they are."""
+    lm_head and the base of a :class:`LoRALinear` or :class:`MultiLoRALinear`
+    included, carries an int8 prefill shadow (an adapter's factors stay as
+    they are).  Dense layers, split-K layers and stacked (expert) packings are
+    left as they are."""
     if tp != 1:
         raise NotImplementedError("tensor parallelism is not yet ported (tp must be 1)")
 

@@ -23,7 +23,11 @@ The token embedding is a bf16 table or, with ``cfg.quantize_embed``, a
 :func:`dense_params` builds the bf16 twin of a model from HF-named weights and
 :func:`reference_forward` is the cache-free unquantized oracle.
 
-Not yet ported: LoRA adapters and tensor parallelism.
+Adapters (``models/lora.py``) wrap unfused linears in ``LoRALinear`` or
+``MultiLoRALinear``; the latter needs ``forward(adapter_idx=...)``, a (B,)
+int32 device tensor that every layer linear receives.
+
+Not yet ported: tensor parallelism.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ import torch.nn.functional as F
 from ..ops import kernels as K
 from ..ops.attention import flash_attention
 from ..utils.device import resolve_device
-from .linear import DenseLinear, QuantLinear, apply_expert_linear, dense_linear, fuse_linears, quantize_linear
+from .linear import (DenseLinear, MultiLoRALinear, QuantLinear, apply_expert_linear, dense_linear, fuse_linears,
+                     quantize_linear)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -586,18 +591,21 @@ def moe_forward(moe: MoEParams, cfg: ModelConfig, x: torch.Tensor, force_dense: 
     return out.reshape(*lead, d)
 
 
-def _layer_forward(lp: LayerParams, cfg: ModelConfig, x, k_cache, v_cache, ctx: _StepContext, layer_idx: int = 0):
+def _layer_forward(lp: LayerParams, cfg: ModelConfig, x, k_cache, v_cache, ctx: _StepContext, layer_idx: int = 0,
+                   adapter_idx: torch.Tensor | None = None):
     """One decoder block (tp = 1).  Writes this step's K/V into the layer's
-    cache tensors in place; returns the new hidden state."""
+    cache tensors in place; returns the new hidden state.  ``adapter_idx``
+    goes to every linear; only ``MultiLoRALinear`` targets read it."""
     b, l, _ = x.shape
     n_heads, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    akw = {} if adapter_idx is None else dict(adapter_idx=adapter_idx)
     h = rms_norm(x, lp.attn_norm, cfg.rms_eps, cfg.norm_offset)
     if lp.wqkv is not None:
-        qkv = lp.wqkv(h)
+        qkv = lp.wqkv(h, **akw)
         qc, kc = n_heads * hd, n_kv * hd
         q, k, v = qkv[..., :qc], qkv[..., qc : qc + kc], qkv[..., qc + kc :]
     else:
-        q, k, v = lp.wq(h), lp.wk(h), lp.wv(h)
+        q, k, v = lp.wq(h, **akw), lp.wk(h, **akw), lp.wv(h, **akw)
     q = q.reshape(b, l, n_heads, hd)
     k = k.reshape(b, l, n_kv, hd)
     v = v.reshape(b, l, n_kv, hd)
@@ -610,7 +618,7 @@ def _layer_forward(lp: LayerParams, cfg: ModelConfig, x, k_cache, v_cache, ctx: 
     _write_kv(v_cache, v, ctx)
     rows, window = k_cache.shape[1], cfg.layer_sliding_window(layer_idx)
     attn = ctx.attend[(rows, window)](q, k_cache, v_cache, _attn_scale(cfg), cfg.attn_logit_softcap)
-    y = lp.wo(attn.reshape(b, l, n_heads * hd)).to(x.dtype)
+    y = lp.wo(attn.reshape(b, l, n_heads * hd), **akw).to(x.dtype)
     if lp.post_attn_norm is not None:
         y = rms_norm(y, lp.post_attn_norm, cfg.rms_eps, cfg.norm_offset)
     x = x + y
@@ -619,24 +627,42 @@ def _layer_forward(lp: LayerParams, cfg: ModelConfig, x, k_cache, v_cache, ctx: 
         y = moe_forward(lp.moe, cfg, h).to(x.dtype)
     else:
         if lp.w_gateup is not None:
-            gate, up = torch.chunk(lp.w_gateup(h), 2, dim=-1)
+            gate, up = torch.chunk(lp.w_gateup(h, **akw), 2, dim=-1)
         else:
-            gate, up = lp.w_gate(h), lp.w_up(h)
-        y = lp.w_down(_act(cfg, gate).to(up.dtype) * up).to(x.dtype)
+            gate, up = lp.w_gate(h, **akw), lp.w_up(h, **akw)
+        y = lp.w_down(_act(cfg, gate).to(up.dtype) * up, **akw).to(x.dtype)
     if lp.post_mlp_norm is not None:
         y = rms_norm(y, lp.post_mlp_norm, cfg.rms_eps, cfg.norm_offset)
     return x + y
 
 
+def has_multi_lora(params: ModelParams) -> bool:
+    """True when any layer linear is a ``MultiLoRALinear`` (per-row adapter
+    stacks): such params need ``adapter_idx`` at every forward."""
+    return any(isinstance(getattr(lp, f), MultiLoRALinear) for lp in params.layers
+               for f in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
+
+
 def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCache,
             positions: torch.Tensor | None = None, last_only: bool = False,
-            last_index: int | None = None) -> tuple[torch.Tensor, KVCache]:
+            last_index: int | None = None, adapter_idx: torch.Tensor | None = None) -> tuple[torch.Tensor, KVCache]:
     """Run L tokens (B, L) through the model, appending to the cache.
 
     Returns (logits (B, L', vocab) f32, cache with the new lengths); L' is 1
     with ``last_only`` or ``last_index`` (the lm_head runs on that position
     only).  The cache tensors are updated in place.
+
+    ``adapter_idx``: (B,) int32 per-row adapter index (0 = no adapter) on
+    the tokens' device, for ``MultiLoRALinear`` params
+    (``models.lora.attach_multi_lora``); required exactly when the params
+    carry adapter stacks, as in the JAX package.
     """
+    multi = has_multi_lora(params)
+    if adapter_idx is None and multi:
+        raise ValueError("params carry MultiLoRALinear adapters: forward() needs adapter_idx ((B,) i32; 0 = no "
+                         "adapter)")
+    if adapter_idx is not None and not multi:
+        raise ValueError("adapter_idx given but params have no MultiLoRALinear")
     b, l = tokens.shape
     if positions is None:
         positions = cache.length[:, None] + torch.arange(l, dtype=torch.int32, device=tokens.device)[None, :]
@@ -662,7 +688,7 @@ def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor, cache: 
             ctx.attend[(rows, window)] = _attention_route(positions, *kv_pos[rows], window)
 
     for i, lp in enumerate(params.layers):
-        x = _layer_forward(lp, cfg, x, cache.k[i], cache.v[i], ctx, layer_idx=i)
+        x = _layer_forward(lp, cfg, x, cache.k[i], cache.v[i], ctx, layer_idx=i, adapter_idx=adapter_idx)
     x = rms_norm(x, params.final_norm, cfg.rms_eps, cfg.norm_offset)
     if last_index is not None:
         x = x[:, last_index : last_index + 1]

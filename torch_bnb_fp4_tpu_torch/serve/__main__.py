@@ -5,6 +5,7 @@
         [--top-p 1.0] [--top-k 0] [--prefill-chunk 0] [--spec-tokens 0]
         [--prefix-cache] [--prefix-store 0] [--no-sliding-kv] [--logprobs]
         [--kv-dtype bfloat16] [--warmup-prompt-len N] [--prefill-shadow]
+        [--lora DIR | --lora NAME=DIR ...] [--lora-merge]
         [--tokenizer DIR] [--device cuda]
 
 Counterpart of ``python -m torch_bnb_fp4_tpu.serve``: convert once, then
@@ -19,9 +20,16 @@ shard at load) serves through K9b; --prefill-shadow then skips every split-K
 linear, which keeps K9b for prefill too.  ``--device`` (default
 cuda) is the port's own flag: the server runs on the card unless asked for
 the CPU.  --warmup-prompt-len runs every serving program (the decode CUDA
-graphs included) before the server accepts requests.  The JAX CLI's LoRA,
-tensor-parallel and multi-host flags are accepted and refused with "not yet
-ported" when set.  Ctrl-C (SIGINT) stops the server and exits 0.
+graphs included) before the server accepts requests.  ``--lora DIR`` serves
+one HF PEFT adapter on every request (its exact low-rank delta beside the
+untouched FP4 bases), ``--lora-merge`` folds it into the weights instead
+(requantized: no cost per token); ``--lora NAME=DIR``, repeatable, stacks
+several adapters on the one base and each request picks one with
+``{"adapter": NAME}`` (omitted: the base model; an unknown name is a 400).
+Adapters attach before ``--prefill-shadow``, which then shadows their bases.
+The JAX CLI's tensor-parallel and multi-host flags are accepted and refused
+with "not yet ported" when set.  Ctrl-C (SIGINT) stops the server and exits
+0.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ import logging
 import time
 
 # JAX CLI flags the port does not serve yet (refused when not at their default)
-_UNPORTED = ("--multihost", "--coordinator", "--tp", "--lora", "--lora-merge")
+_UNPORTED = ("--multihost", "--coordinator", "--tp")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -67,26 +75,53 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--warmup-prompt-len", type=int, default=0,
                     help="run every serving program (decode CUDA graphs, prefill buckets) for prompts up to this "
                          "length before accepting traffic")
+    ap.add_argument("--lora", action="append", default=None, metavar="DIR|NAME=DIR",
+                    help="HF PEFT LoRA adapter dir to serve over the base (exact low-rank delta; base bytes "
+                         "untouched).  Repeatable as NAME=DIR for multi-adapter serving: requests then pick an "
+                         "adapter with {'adapter': NAME} (omitted = base model)")
+    ap.add_argument("--lora-merge", action="store_true",
+                    help="fold the --lora adapter into the base weights and requantize (zero runtime overhead, FP4 "
+                         "envelope on the delta)")
     # accepted for the JAX CLI's command lines; refused below when set
     ap.add_argument("--multihost", action="store_true")
     ap.add_argument("--coordinator", default=None)
     ap.add_argument("--tp", type=int, default=0)
-    ap.add_argument("--lora", action="append", default=None, metavar="DIR|NAME=DIR")
-    ap.add_argument("--lora-merge", action="store_true")
     return ap
+
+
+def lora_specs(args: argparse.Namespace) -> tuple[dict[str, str] | None, str | None]:
+    """The --lora flags under the JAX CLI's rules: (name -> dir, None) for
+    per-request serving when there are several or one is NAME=DIR, else
+    (None, the one dir or None).  Breaking a rule raises ``ValueError`` with
+    the JAX CLI's message."""
+    if not args.lora:
+        return None, None
+    if len(args.lora) > 1 or "=" in args.lora[0]:
+        named = {}
+        for spec in args.lora:
+            if "=" not in spec:
+                raise ValueError(f"multi-adapter --lora needs NAME=DIR, got {spec!r}")
+            name, path = spec.split("=", 1)
+            named[name] = path
+        if args.lora_merge:
+            raise ValueError("--lora-merge only applies to a single unnamed --lora")
+        return named, None
+    return None, args.lora[0]
 
 
 def build_engine(args: argparse.Namespace):
     """The engine the parsed flags ask for: the model (the checkpoint, or a
-    tiny random one), the shadows, the engine settings, and the warmup when
-    --warmup-prompt-len is set.  Invalid settings raise ``ValueError`` as
-    the JAX engine does."""
+    tiny random one), the adapters (:func:`lora_specs`: stacked for
+    per-request serving, or one attached, or merged with --lora-merge), the
+    shadows, the engine settings, and the warmup when --warmup-prompt-len is
+    set.  Invalid settings raise ``ValueError`` as the JAX engine does."""
     from ..models import transformer as T
     from ..models.linear import attach_prefill_shadow
     from ..utils.device import resolve_device
     from . import Engine, EngineConfig
 
     device = resolve_device(args.device)
+    named_loras, lora_dir = lora_specs(args)
     if args.ckpt:
         from ..convert import load_checkpoint
 
@@ -95,6 +130,19 @@ def build_engine(args: argparse.Namespace):
         cfg = T.ModelConfig.tiny_test(n_layers=2)
         params = T.quantize_params(cfg, T.random_weights(cfg, seed=0), device=device)
         logging.info("no --ckpt: serving a tiny random-weight model")
+    adapter_ids = None
+    if named_loras:
+        from ..models.lora import attach_multi_lora, load_peft_adapter
+
+        params, adapter_ids = attach_multi_lora(params, cfg, {n: load_peft_adapter(d) for n, d in named_loras.items()})
+        logging.info("attached %d LoRA adapters for per-request serving: %s", len(named_loras), sorted(adapter_ids))
+    elif lora_dir:
+        from ..models.lora import attach_lora, load_peft_adapter, merge_lora
+
+        adapter = load_peft_adapter(lora_dir)
+        params = (merge_lora if args.lora_merge else attach_lora)(params, cfg, adapter)
+        logging.info("%s LoRA adapter %s (r=%d, alpha=%g, %d modules)", "merged" if args.lora_merge else "attached",
+                     lora_dir, adapter.r, adapter.alpha, len(adapter.weights))
     if args.prefill_shadow:
         params = attach_prefill_shadow(params)
         logging.info("attached int8 prefill shadows (+1 byte/weight on the device)")
@@ -102,7 +150,7 @@ def build_engine(args: argparse.Namespace):
         max_batch=args.max_batch, max_len=args.max_len, inner_steps=args.inner_steps, temperature=args.temperature,
         top_p=args.top_p, top_k=args.top_k, prefill_chunk=args.prefill_chunk, spec_tokens=args.spec_tokens,
         prefix_cache=args.prefix_cache, prefix_store=args.prefix_store, sliding_kv=not args.no_sliding_kv,
-        kv_dtype=args.kv_dtype, logprobs=args.logprobs))
+        kv_dtype=args.kv_dtype, logprobs=args.logprobs), adapter_ids=adapter_ids)
     if args.warmup_prompt_len:
         logging.info("warming up (prompts to %d)...", args.warmup_prompt_len)
         t0 = time.perf_counter()
@@ -118,6 +166,10 @@ def main(argv: list[str] | None = None) -> None:
         dest = flag[2:].replace("-", "_")
         if getattr(args, dest) != ap.get_default(dest):
             ap.error(f"{flag} is not yet ported to torch_bnb_fp4_tpu_torch")
+    try:
+        lora_specs(args)
+    except ValueError as e:
+        ap.error(str(e))
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
 

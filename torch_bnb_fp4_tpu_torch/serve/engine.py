@@ -1,7 +1,7 @@
 """Continuous-batching serving engine (single device, slot-based).
 
 Counterpart of ``torch_bnb_fp4_tpu/serve/engine.py`` (every ``EngineConfig``
-field; LoRA adapters and meshes are not ported):
+field and per-request LoRA adapters; meshes are not ported):
 
   * one batched decode over ``max_batch`` fixed slots (or, with
     ``batch_buckets``, over the smallest power-of-two prefix of them that
@@ -13,8 +13,9 @@ field; LoRA adapters and meshes are not ported):
     captured at first use (:meth:`Engine.warmup` moves every capture before
     serving), as the JAX engine runs one jitted program per shape.  A
     captured function reads and writes only the engine's static device
-    buffers: the tokens, the active mask, per-slot temperature and top_p,
-    the cache and its lengths in, the tokens, logprobs and draft counts out.
+    buffers: the tokens, the active mask, per-slot temperature, top_p and
+    adapter index, the cache and its lengths in, the tokens, logprobs and
+    draft counts out.
     Host code updates those buffers in place and never rebinds them.  On the
     CPU the same functions run eagerly;
   * sampling (temperature, top-k, top-p, min-p; per-request temperature and
@@ -32,7 +33,14 @@ field; LoRA adapters and meshes are not ported):
   * sliding-window layers keep rolling rings of ``ring_rows`` rows
     (``sliding_kv``, with chunked prefill and without speculation);
   * ``kv_dtype="float8_e4m3fn"`` stores the cache in e4m3 (written through
-    ``models.transformer.kv_cast``).
+    ``models.transformer.kv_cast``);
+  * with ``adapter_ids`` (from ``models.lora.attach_multi_lora``) each
+    request names its adapter; the slot's index rides in a static device
+    buffer beside temperature and top_p, so an adapter change is a buffer
+    write and never a new graph.  Prefix donors and store entries are keyed
+    by adapter index: KV rows computed under one adapter are never forked
+    into a request under another (the JAX engine matches by tokens alone;
+    ROADMAP R7).
 
 KV writes are in place (``index_put_`` / ``copy_`` on the engine's cache
 tensors); the JAX engine donates its cache to functional programs instead.
@@ -67,9 +75,11 @@ class Request:
     # per-request sampling overrides (None = the engine's): temperature needs
     # a sampling engine (EngineConfig.temperature > 0), top_p one with a
     # nucleus path (EngineConfig.top_p < 1); temperature 0 makes just this
-    # request greedy.  Adapters (LoRA) are not ported: any name is rejected.
+    # request greedy.
     temperature: float | None = None
     top_p: float | None = None
+    # LoRA adapter name (an engine built with attach_multi_lora's adapter_ids);
+    # None = the base model
     adapter: str | None = None
 
 
@@ -284,10 +294,21 @@ class Engine:
     writes its last-position logits (row j of a tick = its step j;
     ``last_decode_steps`` says how many rows the last tick wrote): a
     diagnostic that works under graph replay, where a wrapper around the
-    forward runs only at capture."""
+    forward runs only at capture.
 
-    def __init__(self, params: T.ModelParams, cfg: T.ModelConfig, ecfg: EngineConfig, on_token=None):
+    ``adapter_ids``: the name -> index map of ``models.lora.attach_multi_lora``
+    when ``params`` carry per-request adapter stacks (``MultiLoRALinear``);
+    requests then pick an adapter by name (``Request.adapter``).  Params and
+    ids travel together, as in the JAX engine."""
+
+    def __init__(self, params: T.ModelParams, cfg: T.ModelConfig, ecfg: EngineConfig, on_token=None,
+                 adapter_ids: dict[str, int] | None = None):
         self.params, self.cfg, self.ecfg, self.on_token = params, cfg, ecfg, on_token
+        self.adapter_ids = dict(adapter_ids) if adapter_ids else None
+        self._mlora = self.adapter_ids is not None
+        if self._mlora != T.has_multi_lora(params):
+            raise ValueError("params and adapter_ids disagree: pass BOTH results of attach_multi_lora (params and "
+                             "ids) or neither")
         self.device = dev = params.embed.device
         b, ml = ecfg.max_batch, ecfg.max_len
         self._kv_dtype = getattr(torch, ecfg.kv_dtype)
@@ -299,7 +320,7 @@ class Engine:
         self.cache = T.KVCache.zeros(cfg, b + ecfg.prefix_store, ml, dtype=self._kv_dtype,
                                      write_chunk=self._ring_chunk, device=dev)
         self._ring_min = self.cache.min_rows if self._ring_chunk else None
-        self._store: list[dict] = []  # LRU of stored prefixes: dicts(row, tokens); index 0 = LRU
+        self._store: list[dict] = []  # LRU of stored prefixes: dicts(row, tokens, aidx); index 0 = LRU
         # host-side slot state
         self.slot_req: list[Request | None] = [None] * b
         self.slot_tokens: list[list[int]] = [[] for _ in range(b)]
@@ -308,6 +329,7 @@ class Engine:
         self.slot_cur = np.zeros(b, np.int64)  # current token per slot
         self.slot_temp = np.full(b, ecfg.temperature, np.float32)
         self.slot_tp = np.full(b, ecfg.top_p, np.float32)
+        self.slot_aidx = np.zeros(b, np.int32)  # per-slot adapter index (0 = the base model)
         self._submit_t: dict[int, float] = {}
         self.pending: deque[Request] = deque()
         self.completions: list[Completion] = []
@@ -329,7 +351,7 @@ class Engine:
         self._last_decode_batch = b
         self.last_decode_steps = 0
         self._pf: dict | None = None  # in-flight chunked admission
-        self._slots_dirty = True  # active mask / temp / top_p changed: re-upload before the next tick
+        self._slots_dirty = True  # active mask / temp / top_p / adapter changed: re-upload before the next tick
         self._hist_dirty = True  # slot set changed: rebuild the speculation history
         self.step_logits: torch.Tensor | None = None
         # static device buffers of the decode programs (updated in place, never rebound)
@@ -337,6 +359,7 @@ class Engine:
         self._active = torch.zeros(b, dtype=torch.bool, device=dev)
         self._temp = torch.full((b,), ecfg.temperature, dtype=torch.float32, device=dev)
         self._top_p = torch.full((b,), ecfg.top_p, dtype=torch.float32, device=dev)
+        self._aidx = torch.zeros(b, dtype=torch.int32, device=dev)
         steps = ecfg.inner_steps
         self._out_tok = torch.zeros((steps, b), dtype=torch.int32, device=dev)
         self._out_lp = torch.zeros((steps, b), dtype=torch.float32, device=dev)
@@ -355,6 +378,11 @@ class Engine:
 
     # -- device programs ---------------------------------------------------
 
+    def _forward(self, tokens: torch.Tensor, cache: T.KVCache, aidx: torch.Tensor | None, **kw):
+        """``T.forward`` on the engine's params; ``aidx`` (B,) int32 reaches
+        the adapter stacks of a multi-LoRA engine and is dropped otherwise."""
+        return T.forward(self.params, self.cfg, tokens, cache, adapter_idx=aidx if self._mlora else None, **kw)
+
     def _sub_cache(self, bp: int) -> T.KVCache:
         """The first ``bp`` slots of the cache (views: writes land in place);
         idle slots get length 0 so their write offset never creeps toward
@@ -372,7 +400,7 @@ class Engine:
         sub = self._sub_cache(bp)
         tok, temp, top_p = self._tok[:bp], self._temp[:bp], self._top_p[:bp]
         for j in range(n):
-            logits, sub = T.forward(self.params, self.cfg, tok[:, None], sub)
+            logits, sub = self._forward(tok[:, None], sub, self._aidx[:bp])
             lg = logits[:, -1]
             tok = select(self.ecfg, lg, self._gen, temp, top_p)
             self._out_tok[j, :bp].copy_(tok)
@@ -399,7 +427,7 @@ class Engine:
         t_idx = torch.arange(k + 1, dtype=torch.int32, device=self.device)[None, :]
         for si in range(s):
             draft = prompt_lookup_draft(hist[:, :h], hlen, k=k, n=n)
-            logits, sub = T.forward(self.params, self.cfg, torch.cat([cur[:, None], draft], dim=1), sub)
+            logits, sub = self._forward(torch.cat([cur[:, None], draft], dim=1), sub, self._aidx[:bp])
             emitted, emit = spec_verify(self.ecfg, logits, draft, self._gen, temp, top_p)
             sub = T.KVCache(k=sub.k, v=sub.v, length=sub.length - (k + 1) + emit)
             pos = torch.where(t_idx < emit[:, None], torch.clamp(hlen[:, None] + t_idx, max=h), h)
@@ -461,17 +489,21 @@ class Engine:
         K.add_launch_counts(launched, times=-1)  # a capture runs nothing; each replay adds them
         return _Graph(graph, launched)
 
-    def _row_tensors(self, req: Request, slot: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """Record a request's sampling overrides on its slot; returns the (1,)
-        temperature and top_p of its prefill draw (JAX's ``_resolve_sampling``)."""
+    def _row_tensors(self, req: Request, slot: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Record a request's sampling overrides and adapter on its slot;
+        returns the (1,) temperature, top_p and adapter index of its prefill
+        (JAX's ``_resolve_sampling``)."""
         t = self.ecfg.temperature if req.temperature is None else req.temperature
         p = self.ecfg.top_p if req.top_p is None else req.top_p
+        aid = 0 if req.adapter is None else self.adapter_ids[req.adapter]
         self.slot_temp[slot] = t
         self.slot_tp[slot] = p
+        self.slot_aidx[slot] = aid
         self._slots_dirty = True
         self._hist_dirty = True
         return (torch.tensor([t], dtype=torch.float32, device=self.device),
-                torch.tensor([p], dtype=torch.float32, device=self.device))
+                torch.tensor([p], dtype=torch.float32, device=self.device),
+                torch.tensor([aid], dtype=torch.int32, device=self.device))
 
     @torch.no_grad()
     def _first_token(self, logits, temp, top_p) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -482,7 +514,7 @@ class Engine:
         return first[0], (logprob_of(lg, first)[0] if self.ecfg.logprobs else None)
 
     @torch.no_grad()
-    def _prefill_fn(self, tokens: torch.Tensor, slot: int, true_len: int, temp, top_p):
+    def _prefill_fn(self, tokens: torch.Tensor, slot: int, true_len: int, temp, top_p, aidx=None):
         """Batch-1 prefill of a bucket-padded prompt (1, Lp_pad) on a small
         cache, spliced into ``slot``; rows past ``true_len`` are garbage that
         kv_valid masks.  The lm_head runs on the true last position only.
@@ -490,19 +522,20 @@ class Engine:
         lp_pad = tokens.shape[1]
         self._program("prefill", ("prefill", lp_pad))
         small = T.KVCache.zeros(self.cfg, 1, lp_pad, dtype=self._kv_dtype, device=self.device)
-        logits, small = T.forward(self.params, self.cfg, tokens, small, last_index=true_len - 1)
+        logits, small = self._forward(tokens, small, aidx, last_index=true_len - 1)
         self._splice_fn(small, slot, true_len)
         return self._first_token(logits, temp, top_p)
 
     @torch.no_grad()
-    def _chunk_fn(self, tokens: torch.Tensor, small: T.KVCache, last_index: int, lp_pad: int, temp, top_p):
+    def _chunk_fn(self, tokens: torch.Tensor, small: T.KVCache, last_index: int, lp_pad: int, temp, top_p,
+                  aidx=None):
         """One prefill chunk on the private batch-1 cache (of the prompt's
         bucket ``lp_pad``): its KV lands at small.length, which advances;
         ``last_index`` is the chunk-local position of the prompt's true last
         token (only the final chunk's draw is used).  Returns (token, logprob
         or None, cache)."""
         self._program("prefill", ("chunk", tokens.shape[1], lp_pad))
-        logits, small = T.forward(self.params, self.cfg, tokens, small, last_index=last_index)
+        logits, small = self._forward(tokens, small, aidx, last_index=last_index)
         return (*self._first_token(logits, temp, top_p), small)
 
     def _splice_fn(self, small: T.KVCache, slot: int, true_len: int) -> None:
@@ -553,16 +586,19 @@ class Engine:
         token but the newest (not fed back yet)."""
         return self.slot_req[i].prompt + self.slot_tokens[i][:-1]
 
-    def _find_prefix_donor(self, prompt: list[int], grain: int) -> tuple[int, int] | None:
-        """Longest-shared-prefix donor among active slots and the store:
-        (cache row, reuse) with reuse a multiple of ``grain``, capped at
-        len(prompt) - 1; None under one grain.  Ring caches: the donor must
-        not have wrapped and the reuse must fit the smallest ring.  A store
-        hit moves to the MRU end."""
+    def _find_prefix_donor(self, prompt: list[int], grain: int, aid: int = 0) -> tuple[int, int] | None:
+        """Longest-shared-prefix donor among the active slots and store
+        entries of adapter index ``aid``: (cache row, reuse) with reuse a
+        multiple of ``grain``, capped at len(prompt) - 1; None under one
+        grain.  Ring caches: the donor must not have wrapped and the reuse
+        must fit the smallest ring.  A store hit moves to the MRU end.  KV
+        rows hold the adapter's K/V projections, so a donor under another
+        adapter (the JAX engine does not ask) is no donor (ROADMAP R7)."""
         best: tuple[int, int] | None = None
         hit_store = -1
-        cands = [(i, self._slot_cached_seq(i)) for i, r in enumerate(self.slot_req) if r is not None]
-        cands += [(e["row"], e["tokens"]) for e in self._store]
+        cands = [(i, self._slot_cached_seq(i)) for i, r in enumerate(self.slot_req)
+                 if r is not None and self.slot_aidx[i] == aid]
+        cands += [(e["row"], e["tokens"]) for e in self._store if e["aidx"] == aid]
         for row, seq in cands:
             if self._ring_min is not None and len(seq) > self._ring_min:
                 continue  # donor rows may have wrapped: early KV evicted
@@ -579,17 +615,21 @@ class Engine:
 
     def _store_prefix(self, slot: int) -> None:
         """Move a retiring slot's KV rows into a store row (LRU-evicting), so
-        later admissions fork them after the donor is gone.  Unlike the JAX
-        engine, a sequence an entry already covers touches that entry (moves
-        it to MRU; ROADMAP R4)."""
+        later admissions fork them after the donor is gone.  Entries record
+        their adapter index, and cover or extend only entries of the same
+        one (ROADMAP R7).  Unlike the JAX engine, a sequence an entry already
+        covers touches that entry (moves it to MRU; ROADMAP R4)."""
         grain = self.ecfg.prefill_chunk or 32
         seq = self._slot_cached_seq(slot)
+        aid = int(self.slot_aidx[slot])
         if len(seq) < grain:
             return
         if self._ring_min is not None and len(seq) > self._ring_min:
             return  # wrapped ring: early rows evicted, useless as a donor
         replace_idx = None
         for j, e in enumerate(self._store):
+            if e["aidx"] != aid:
+                continue
             n = self._lcp(seq, e["tokens"])
             if n == len(seq):
                 self._store.append(self._store.pop(j))  # covered: touch it (R4)
@@ -603,7 +643,7 @@ class Engine:
         else:
             row = self._store.pop(0)["row"]  # LRU eviction
         self._move_fn(slot, row)
-        self._store.append(dict(row=row, tokens=seq))
+        self._store.append(dict(row=row, tokens=seq, aidx=aid))
         log.debug("prefix store: slot %d -> row %d (%d tokens)", slot, row, len(seq))
 
     # -- batch buckets -------------------------------------------------------
@@ -643,7 +683,7 @@ class Engine:
             self.slot_req[hi] = None
             self.slot_tokens[hi] = []
             self.slot_lps[hi] = []
-            for arr in (self.slot_cur, self.slot_temp, self.slot_tp):
+            for arr in (self.slot_cur, self.slot_temp, self.slot_tp, self.slot_aidx):
                 arr[dst] = arr[hi]
             self._slots_dirty = True
             self._hist_dirty = True
@@ -673,8 +713,10 @@ class Engine:
             if tp < 1.0 and self.ecfg.top_p >= 1.0:
                 raise ValueError("engine compiled without a nucleus path (EngineConfig.top_p == 1.0); a "
                                  "per-request top_p cannot enable it — start the engine/server with top_p < 1")
-        if req.adapter is not None:
-            raise ValueError(f"unknown adapter {req.adapter!r} (engine has []; LoRA adapters are not yet ported)")
+        if req.adapter is not None and (not self.adapter_ids or req.adapter not in self.adapter_ids):
+            known = sorted(self.adapter_ids) if self.adapter_ids else []
+            raise ValueError(f"unknown adapter {req.adapter!r} (engine has {known}); build the engine with "
+                             "attach_multi_lora's adapter_ids")
         self._submit_t[req.uid] = time.perf_counter()
         self.pending.append(req)
 
@@ -741,8 +783,9 @@ class Engine:
             req = self.pending.popleft()
             lp = len(req.prompt)
             lp_pad = self._bucket(lp)
-            temp, top_p = self._row_tensors(req, slot)
-            donor = self._find_prefix_donor(req.prompt, 32) if self.ecfg.prefix_cache else None
+            rows = self._row_tensors(req, slot)
+            aid = int(self.slot_aidx[slot])
+            donor = self._find_prefix_donor(req.prompt, 32, aid) if self.ecfg.prefix_cache else None
             if donor is not None:
                 # fork the donor's shared-prefix KV, prefill only the suffix in 32-token chunks
                 dslot, reuse = donor
@@ -751,14 +794,14 @@ class Engine:
                 while lo < lp:
                     hi = min(lo + 32, lp_pad)
                     first, lp0, small = self._chunk_fn(self._chunk_tokens(req.prompt, lo, hi), small,
-                                                       min(lp, hi) - 1 - lo, lp_pad, temp, top_p)
+                                                       min(lp, hi) - 1 - lo, lp_pad, *rows)
                     lo = hi
                 self._splice_fn(small, slot, lp)
                 self._prefix_hits += 1
                 self._prefix_tokens += reuse
                 log.debug("admit(prefix) uid=%d slot=%d donor=%d reused=%d/%d", req.uid, slot, dslot, reuse, lp)
             else:
-                first, lp0 = self._prefill_fn(self._chunk_tokens(req.prompt, 0, lp_pad), slot, lp, temp, top_p)
+                first, lp0 = self._prefill_fn(self._chunk_tokens(req.prompt, 0, lp_pad), slot, lp, *rows)
             self._bind(slot, req, first, lp0)
             admitted += 1
             log.debug("admit uid=%d slot=%d prompt_len=%d", req.uid, slot, lp)
@@ -774,7 +817,9 @@ class Engine:
             req = self.pending.popleft()
             lp_pad = self._bucket(len(req.prompt))
             done = 0
-            donor = self._find_prefix_donor(req.prompt, c) if self.ecfg.prefix_cache else None
+            rows = self._row_tensors(req, slots[0])
+            aid = int(self.slot_aidx[slots[0]])
+            donor = self._find_prefix_donor(req.prompt, c, aid) if self.ecfg.prefix_cache else None
             if donor is not None:
                 # start at the donated prefix (a chunk multiple, so chunk widths stay the same)
                 dslot, done = donor
@@ -786,8 +831,7 @@ class Engine:
                 # the small cache covers the whole bucket (ring layers keep fewer rows)
                 small = T.KVCache.zeros(self.cfg, 1, lp_pad, dtype=self._kv_dtype, write_chunk=self._ring_chunk,
                                         device=self.device)
-            self._pf = dict(req=req, slot=slots[0], small=small, done=done, lp_pad=lp_pad,
-                            rows=self._row_tensors(req, slots[0]))
+            self._pf = dict(req=req, slot=slots[0], small=small, done=done, lp_pad=lp_pad, rows=rows)
         pf = self._pf
         req, lp = pf["req"], len(pf["req"].prompt)
         lo = pf["done"]
@@ -820,8 +864,8 @@ class Engine:
         self._hist_dirty = True
 
     def _upload_slots(self, active: list[int]) -> None:
-        """The active mask, temperatures and top_p into their static buffers
-        (only when the slot set or a slot's sampling values changed)."""
+        """The active mask, temperatures, top_p and adapter indices into their
+        static buffers (only when the slot set or a slot's values changed)."""
         if not self._slots_dirty:
             return
         mask = np.zeros(self.ecfg.max_batch, bool)
@@ -829,6 +873,7 @@ class Engine:
         self._active.copy_(torch.from_numpy(mask))
         self._temp.copy_(torch.from_numpy(self.slot_temp))
         self._top_p.copy_(torch.from_numpy(self.slot_tp))
+        self._aidx.copy_(torch.from_numpy(self.slot_aidx))
         self._slots_dirty = False
 
     def _upload_hist(self, active: list[int]) -> None:
@@ -951,6 +996,7 @@ class Engine:
         dev = self.device
         t1 = torch.full((1,), self.ecfg.temperature, dtype=torch.float32, device=dev)
         p1 = torch.full((1,), self.ecfg.top_p, dtype=torch.float32, device=dev)
+        a1 = torch.zeros(1, dtype=torch.int32, device=dev)
         c = self.ecfg.prefill_chunk
         for lp_pad in buckets:
             if c:
@@ -959,17 +1005,17 @@ class Engine:
                 for lo in range(0, lp_pad, c):
                     hi = min(lo + c, lp_pad)
                     _, _, small = self._chunk_fn(torch.zeros((1, hi - lo), dtype=torch.int32, device=dev), small, 0,
-                                                 lp_pad, t1, p1)
+                                                 lp_pad, t1, p1, a1)
                 self._splice_fn(small, 0, 1)
             else:
-                self._prefill_fn(torch.zeros((1, lp_pad), dtype=torch.int32, device=dev), 0, 1, t1, p1)
+                self._prefill_fn(torch.zeros((1, lp_pad), dtype=torch.int32, device=dev), 0, 1, t1, p1, a1)
         if self.ecfg.prefix_cache:
             for lp_pad in buckets:
                 small = self._fork_fn(0, 0, lp_pad)
                 if not c:  # suffix widths are 32 except a max_len-clamped bucket's tail
                     for w in sorted({min(32, lp_pad)} | ({lp_pad % 32} if lp_pad % 32 else set())):
                         _, _, small = self._chunk_fn(torch.zeros((1, w), dtype=torch.int32, device=dev), small, 0,
-                                                     lp_pad, t1, p1)
+                                                     lp_pad, t1, p1, a1)
         self._upload_slots([])
         logits_flag = self.step_logits is not None
         for bp in self._batch_buckets():

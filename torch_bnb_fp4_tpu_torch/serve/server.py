@@ -15,10 +15,11 @@ Endpoints
   POST /v1/completions   {"prompt": [token ids], "max_tokens": N,
                           "temperature"?: f, "top_p"?: f, "eos_id"?: id,
                           "stop_ids"?: [ids], "stream"?: bool,
-                          "adapter"?: name}
+                          "adapter"?: name}  (multi-LoRA serving: pick the
+      request's adapter by name; omitted = the base model)
       Sampling overrides the engine cannot honour (a temperature on a greedy
-      engine, a top_p without its nucleus path) and adapters are rejected
-      with 400 and the server keeps serving.
+      engine, a top_p without its nucleus path) and unknown adapter names
+      are rejected with 400 and the server keeps serving.
       -> {"uid", "tokens", "finish_reason", "prompt_len", "ttft_s", "total_s"}
       (plus "logprobs" when the engine emits them)
       or, with "stream": true, chunked server-sent-event lines: first

@@ -2,20 +2,66 @@
 
 Counterpart of ``torch_bnb_fp4_tpu/utils/profiling.py``: ``time_fn`` times
 on the card with CUDA events (PyTorch returns before the device finishes, so
-a host clock would time the enqueue), and the roofline uses the H100 SXM's
-published dense peaks.  A card set below its 700 W limit runs slower than
-these peaks; report its ``power.limit`` beside any share of them.
+a host clock would time the enqueue), ``trace`` records a ``torch.profiler``
+trace, ``calibrate_rtt`` measures a host-device round trip, ``detect_chip``
+names the card, and the rooflines use the H100 SXM's published dense peaks.
+A card set below its 700 W limit runs slower than these peaks; report its
+``power.limit`` beside any share of them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import statistics
+import tempfile
+import time
+
 import torch
+
+from .device import resolve_device
 
 # NVIDIA H100 SXM data sheet, dense rates
 H100_HBM_BYTES_PER_S = 3.35e12
 H100_BF16_FLOPS = 989e12
 H100_INT8_OPS = 1979e12
 H100_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None = None):
+    """Record a ``torch.profiler`` trace (CPU, and CUDA where a card is
+    present) around a block and write it to ``log_dir``/trace.json (default:
+    ``tbfp4_trace`` in the temporary directory); open it in Perfetto.
+    Yields ``log_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    log_dir = os.path.join(tempfile.gettempdir(), "tbfp4_trace") if log_dir is None else log_dir
+    os.makedirs(log_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    with profile(activities=acts) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def calibrate_rtt(device=None) -> float:
+    """Median seconds of a host -> device -> host round trip: a one-element
+    add on ``device`` (default: the card) and the fetch of its result."""
+    dev = resolve_device(device)
+    x = torch.zeros(1, device=dev)
+    (x + 1.0).item()
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        (x + 1.0).item()
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts)
+
+
+def detect_chip(default: str = "H100") -> str:
+    """The card's name (``torch.cuda.get_device_name(0)``), or ``default``
+    where there is no card."""
+    return torch.cuda.get_device_name(0) if torch.cuda.is_available() else default
 
 
 def time_fn(fn, *args, rep: int = 50, warmup: int = 3) -> float:
@@ -139,3 +185,24 @@ def dequant_splitk_bound_s(k: int, n: int, out_bytes: int) -> tuple[float, str]:
     (K*N/16) read once, Wt (K*N*out_bytes) written once; one f32 multiply per
     weight on the CUDA cores."""
     return bound_s(k * n // 2 + (k // 64) * n * 4 + k * n * out_bytes, k * n, H100_F32_FLOPS)
+
+
+def fp4_matmul_roofline(m: int, k: int, n: int, chip: str = "H100", achieved_s: float | None = None,
+                        int8: bool = False) -> dict:
+    """Roofline of a fused FP4 matmul on the H100 (the JAX package's
+    function and keys; ``chip`` accepts "H100" alone): bytes = packed K*N/2
+    + f32 scales (K/64)*N*4 + bf16 x M*K*2 + bf16 out M*N*2, operations
+    2*M*K*N at the bf16 tensor-core peak, or the int8 one with ``int8`` (the
+    w4a8 path's ceiling).  ``t_mxu_us`` keeps the JAX key for the
+    tensor-core time.  With ``achieved_s``, also the fraction of the
+    roofline reached."""
+    if chip != "H100":
+        raise ValueError(f"fp4_matmul_roofline knows the H100's peaks only, got chip={chip!r}")
+    bytes_moved = k * n / 2 + (k // 64) * n * 4 + m * k * 2 + m * n * 2
+    t_mem = bytes_moved / H100_HBM_BYTES_PER_S
+    t_mma = 2 * m * k * n / (H100_INT8_OPS if int8 else H100_BF16_FLOPS)
+    out = dict(bound="memory" if t_mem > t_mma else "compute", t_mem_us=t_mem * 1e6, t_mxu_us=t_mma * 1e6,
+               roofline_us=max(t_mem, t_mma) * 1e6)
+    if achieved_s is not None:
+        out["fraction_of_roofline"] = max(t_mem, t_mma) / achieved_s
+    return out
