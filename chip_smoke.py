@@ -196,8 +196,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      DIR --lora-merge serves; (f) examples_torch/sanity_check.py in a child
      process on the card, inside the band.  Each sub-phase prints its
      seconds.
-Every engine (phases 5-12) decodes by CUDA-graph replay; its launch counts
-include the replays.  Prints the kernel table as one JSON line, then the
+  13. tensor parallelism and multi-process serving on this one card: every
+     rank is a process of its own on it (torch.multiprocessing spawn, the
+     kernels built in phase 1, a TCP rendezvous on a free port, gloo groups:
+     NCCL refuses two ranks on one card), so the phase shows correctness at
+     full width, never a TP speed.  (a) Mistral-7B at full width and depth,
+     tp = 2: each rank builds its shard of synth_params(fuse=True, tp=2)
+     one layer at a time; a 300-token (K4) and a 160-token (K3) prefill and
+     4 decode steps (K2, M = 1) fed the tp = 1 run's tokens, every call's
+     logits within 6e-2 of max and 3e-2 rel L2 of the tp = 1 forward on the
+     card; 2 x 32 all-reduces per decode step; an engine at tp = 2
+     (max_batch 4, prompts of 20-300 tokens, 32 new tokens) whose tokens
+     equal the tp = 1 engine's or first differ at a near-tie of both runs'
+     logits; ms per decode step and its all-reduces alone.  (c) Mixtral at
+     2 layers, tp = 2: logits as (a), routing as phase 8c.  (b) Llama-2-70B
+     at full width, 4 layers, tp = 4 (4 ranks), pair-K fused and split-K (K9b
+     reading the row-parallel shards in place), logits as (a).  (d) the CLI
+     as two processes (--multihost --coordinator, RANK / WORLD_SIZE) on a
+     4-layer checkpoint with --prefill-shadow: --tp 2, then --tp 1 (data 2);
+     HTTP tokens against the in-process tp = 1 engine (equal or a near-tie),
+     an abort, K5 launching on rank 0, SIGINT -> both ranks exit 0.  Then
+     the local shapes of K2-K5, K8 and K9b against their plain versions,
+     timed, as kernel-table rows with their launches per rank.
+Every engine of phases 5-12 decodes by CUDA-graph replay; its launch counts
+include the replays (phase 13's meshed engines decode eagerly).  Prints the kernel table as one JSON line, then the
 final status line.
 Kernel times are CUDA-graph replays timed with CUDA events (the card's own
 time, without the Python wrappers' launch cost, which is printed beside them
@@ -209,6 +231,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import pickle
 import queue
 import shutil
 import signal
@@ -1361,6 +1384,657 @@ def phase12(root: Path, dev, smi: str) -> None:
     print(f"[12] phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
+TP_A_FORWARD = (300, 160)  # phase 13a's forwards: K4 and K3 at the local shapes, then decode steps (K2, M=1)
+TP_A_PROMPTS = (20, 100, 200, 300)  # phase 13a's engine: prefill buckets 32 and 128 (K2), 224 (K3), 320 (K4)
+TP_DECODE_STEPS = 4
+LLAMA70_LAYERS = 4  # phase 13b: Llama-2-70B at full width, cut in depth
+MIXTRAL_TP_LAYERS = 2  # phase 13c
+TP_CLI_LAYERS = 4  # phase 13d's checkpoint
+TP_CLI_PROMPTS = (100, 300)  # 300: a 320-row prefill, K5 on the shadowed shards
+# the local (per-rank) shapes phase 13 gives the kernels: (name, K, N, count per layer or expert)
+TP2_FUSED = (("qkv", 4096, 3072, 1), ("o", 2048, 4096, 1), ("gate_up", 4096, 14336, 1), ("down", 7168, 4096, 1))
+TP2_UNFUSED = (("wq", 4096, 2048, 1), ("wk|wv", 4096, 512, 2), ("wo", 2048, 4096, 1), ("w_gate|w_up", 4096, 7168, 2),
+               ("w_down", 7168, 4096, 1))
+TP2_EXPERT = (("gate|up", 4096, 14336, 1), ("down", 7168, 4096, 1))
+TP4_SPLITK_70B = (("wq", 8192, 2048, 1), ("wk|wv", 8192, 256, 2), ("wo", 2048, 8192, 1), ("w_gate|w_up", 8192, 7168, 2),
+                  ("w_down", 7168, 8192, 1))
+
+
+def sync(dev) -> None:
+    """Wait for ``dev``'s queued work (a no-op on the CPU, where phase 13 is
+    rehearsed)."""
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tp_forwards(params, cfg, prompts, forced, dev, mesh=None, steps=TP_DECODE_STEPS):
+    """Prefill each prompt at batch 1, then ``steps`` decode steps fed the
+    tokens ``forced[i]`` (None: this run's own greedy tokens), through
+    ``parallel.tp_forward_fn`` on ``mesh`` or ``T.forward`` without one.
+    Returns the full-vocabulary last-position logits of every call (CPU),
+    the tokens fed, the launches of all the calls, the all-reduces of one
+    decode step, and the eager ms of a decode step (and, on a mesh, of its
+    2 all-reduces per layer alone)."""
+    import torch
+
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+    from torch_bnb_fp4_tpu_torch.ops import kernels as K
+    from torch_bnb_fp4_tpu_torch.parallel import tp as TP
+
+    kv_cfg = cfg if mesh is None else dataclasses.replace(cfg, n_kv_heads=cfg.n_kv_heads // mesh.n_model)
+    if mesh is None:
+        def fwd(p, t, c):
+            return T.forward(p, cfg, t, c, last_index=t.shape[1] - 1)
+    else:
+        tpf = TP.tp_forward_fn(params, cfg, T.KVCache.zeros(kv_cfg, 1, 1, device=dev), mesh, with_last_index=True)
+
+        def fwd(p, t, c):
+            return tpf(p, t, c, t.shape[1] - 1)
+    gather = (lambda x: x) if mesh is None else (lambda x: TP.gather_vocab(x, mesh))
+    out = dict(logits=[], tokens=[], ar_per_step=0)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        for i, prompt in enumerate(prompts):
+            cache = T.KVCache.zeros(kv_cfg, 1, len(prompt) + steps + 1, device=dev)
+            toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+            rows, fed = [], []
+            for s in range(steps + 1):
+                TP.reset_collective_counts()
+                lg, cache = fwd(params, toks, cache)
+                if s == 1:
+                    out["ar_per_step"] = TP.collective_counts()["all_reduce"]
+                lg = gather(lg[0, -1]).float()
+                rows.append(lg.cpu())
+                nxt = int(lg.argmax()) if forced is None else forced[i][s]
+                fed.append(nxt)
+                toks = torch.tensor([[nxt]], dtype=torch.int32, device=dev)
+            out["logits"].append(rows)
+            out["tokens"].append(fed)
+        sync(dev)
+        out["launches"] = K.launch_counts()
+        at = T.KVCache(k=cache.k, v=cache.v, length=cache.length.clone())
+
+        def one_step():
+            fwd(params, toks, T.KVCache(k=at.k, v=at.v, length=at.length))
+
+        one_step()
+        sync(dev)
+        t = time.perf_counter()
+        for _ in range(10):
+            one_step()
+        sync(dev)
+        out["step_ms"] = (time.perf_counter() - t) * 100
+        if mesh is not None and mesh.n_model > 1:
+            y = torch.zeros((1, 1, cfg.dim), dtype=torch.float32, device=dev)
+            n_ar = 2 * cfg.n_layers
+            torch.distributed.barrier(group=mesh.model_group)
+            t = time.perf_counter()
+            for _ in range(10 * n_ar):
+                TP.all_reduce_(y, mesh.model_group)
+            sync(dev)
+            out["ar_ms_per_step"] = (time.perf_counter() - t) * 100
+    return out
+
+
+def tp_first_diff_margin(params, cfg, prompt, tokens, ref_tokens, dev, mesh=None):
+    """Where ``tokens`` first differ from ``ref_tokens``: (step, this run's
+    margin of its own token over the reference's in its own logits fed its
+    own tokens, 2^-7 * max|logit|); None when they agree."""
+    import torch
+
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+    from torch_bnb_fp4_tpu_torch.parallel import tp as TP
+
+    j = next((t for t, (a, b) in enumerate(zip(ref_tokens, tokens)) if a != b), None)
+    if j is None:
+        return None
+    kv_cfg = cfg if mesh is None else dataclasses.replace(cfg, n_kv_heads=cfg.n_kv_heads // mesh.n_model)
+    seq = prompt + tokens[:j]
+    cache = T.KVCache.zeros(kv_cfg, 1, len(seq), device=dev)
+    with torch.no_grad():
+        lg, _ = T.forward(params, cfg, torch.tensor([seq], dtype=torch.int32, device=dev), cache,
+                          last_index=len(seq) - 1, group=None if mesh is None or mesh.n_model == 1 else mesh.model_group)
+        g = (lg[0, -1] if mesh is None else TP.gather_vocab(lg[0, -1], mesh)).float().cpu()
+    return j, (g[tokens[j]] - g[ref_tokens[j]]).item(), 2.0**-7 * g.abs().max().item()
+
+
+def tp_routes(T):
+    """Record the router's probabilities of every MoE call (T.moe_forward
+    wrapped; undo with the returned function)."""
+    import torch
+
+    routes, orig = [], T.moe_forward
+
+    def rec(moe, cfg, x, force_dense=None, group=None):
+        xt = x.reshape(-1, x.shape[-1])
+        routes.append(torch.softmax(moe.router(xt, out_dtype=torch.float32), dim=-1).cpu())
+        return orig(moe, cfg, x, force_dense=force_dense, group=group)
+
+    T.moe_forward = rec
+
+    def undo():
+        T.moe_forward = orig
+
+    return routes, undo
+
+
+def tp_job(mesh, job: dict) -> dict:
+    """One phase-13 job on this rank's mesh: this rank's shard of the seeded
+    params (built one layer at a time on its card), the forwards of
+    :func:`tp_forwards` fed the tp = 1 run's tokens, and for "mistral" the
+    engine, for "mixtral" the router's probabilities."""
+    import torch
+
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+    from torch_bnb_fp4_tpu_torch.ops import kernels as K
+    from torch_bnb_fp4_tpu_torch.parallel import tp as TP
+    from torch_bnb_fp4_tpu_torch.serve import Engine, EngineConfig, Request
+    from torch_bnb_fp4_tpu_torch.utils.synth import synth_params
+
+    cfg, dev, out = job["cfg"], mesh.device, {}
+    for name, kw in job["builds"]:
+        t0 = time.perf_counter()
+        params = synth_params(cfg, tp=mesh.n_model, device=dev, mesh=mesh, **kw)
+        sync(dev)
+        r = dict(build_s=time.perf_counter() - t0,
+                 gib=torch.cuda.memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0)
+        routes, undo = tp_routes(T) if cfg.n_experts else (None, None)
+        r.update(tp_forwards(params, cfg, job["prompts"], job["forced"][name], dev, mesh, job["steps"]))
+        if routes is not None:
+            undo()
+            r["routes"] = routes
+        if "engine" in job:
+            e = job["engine"]
+            eng = Engine(params, cfg, EngineConfig(**e["ecfg"]), mesh=mesh)
+            K.reset_launch_counts()
+            TP.reset_collective_counts()
+            t0 = time.perf_counter()
+            res = eng.run([Request(uid=i, prompt=p, max_new_tokens=e["new"]) for i, p in enumerate(e["prompts"])])
+            sync(dev)
+            r["engine_s"] = time.perf_counter() - t0
+            r["engine_tokens"] = {u: c.tokens for u, c in res.items()}
+            r["engine_launches"] = K.launch_counts()
+            r["engine_collectives"] = TP.collective_counts()
+            r["engine_stats"] = eng.stats()
+            r["engine_margins"] = {u: tp_first_diff_margin(params, cfg, e["prompts"][u], r["engine_tokens"][u], ref,
+                                                           dev, mesh) for u, ref in e["ref"].items()}
+            del eng
+        out[name] = r
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(root: str, rank: int, world: int, port: int, jobs: list, q) -> None:
+    """One rank of phase 13, a process of its own on the job's device (the
+    parent's card, shared by every rank; started by torch.multiprocessing
+    with spawn): join the job over TCP, then for each job build a mesh of
+    its shape (gloo: the ranks share the card) and run :func:`tp_job`.
+    Puts (rank, [results]) or (rank, the traceback)."""
+    import traceback
+
+    try:
+        sys.path.insert(0, root)
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from torch_bnb_fp4_tpu_torch import parallel as PP
+
+        PP.init_multihost(f"127.0.0.1:{port}", world, rank)
+        outs = []
+        for job in jobs:
+            mesh = PP.make_mesh(n_model=job["tp"], n_data=world // job["tp"], device=job["device"])
+            outs.append(dict(tp_job(mesh, job), backend=mesh.backend))
+        # pickled here: the queue would share tensors by file descriptors, gone when this process exits
+        q.put((rank, pickle.dumps(outs)))
+        torch.distributed.destroy_process_group()
+    except Exception:  # noqa: BLE001 - sent to the parent, which prints it and fails the phase
+        q.put((rank, traceback.format_exc()))
+
+
+def run_ranks(root: Path, world: int, jobs: list, tag: str) -> list:
+    """Start ``world`` ranks of :func:`tp_rank` and collect their results; a
+    rank that reports an error, exits non-zero or does not answer within 600
+    s fails the phase with its output printed."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=tp_rank, args=(str(root), r, world, port, jobs, q)) for r in range(world)]
+    for p in procs:
+        p.start()
+    res = {}
+    t0 = time.perf_counter()
+    try:
+        while len(res) < world and time.perf_counter() - t0 < 600:
+            try:
+                rank, out = q.get(timeout=5)
+                res[rank] = out if isinstance(out, str) else pickle.loads(out)
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break  # a rank died without reporting
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for rank in range(world):
+        if isinstance(res.get(rank), str):
+            print(f"{tag} rank {rank} failed:\n{res[rank]}", file=sys.stderr)
+    check(all(not isinstance(res.get(r), str) and r in res for r in range(world)),
+          f"{tag} ranks {sorted(set(range(world)) - {r for r, v in res.items() if not isinstance(v, str)})} failed "
+          f"or did not answer")
+    check(all(p.exitcode == 0 for p in procs), f"{tag} rank exit codes {[p.exitcode for p in procs]}")
+    return [res[r] for r in range(world)]
+
+
+def hold_logits(tag, ref_rows, rows, lim=(6e-2, 3e-2)) -> tuple[float, float]:
+    """Every call's logits within ``lim`` (max|d| of max|logit|, rel L2) of
+    the tp = 1 run's; returns the worst (max|d| / max, rel L2)."""
+    worst_d = worst_rel = 0.0
+    for s, (g, e) in enumerate(zip(ref_rows, rows)):
+        d, rel = (e - g).abs().max().item(), ((e - g).norm() / g.norm()).item()
+        check(bool(e.isfinite().all()), f"{tag} call {s}: non-finite logits")
+        check(d <= lim[0] * g.abs().max().item() and rel <= lim[1], f"{tag} call {s}: max|d| {d}, rel L2 {rel}")
+        worst_d, worst_rel = max(worst_d, d / g.abs().max().item()), max(worst_rel, rel)
+    return worst_d, worst_rel
+
+
+def start_rank_clis(root: Path, args, world: int, tag: str):
+    """The CLI as ``world`` processes with --multihost --coordinator on a free
+    port (RANK / WORLD_SIZE in each one's environment), each on cuda:0:
+    (processes, rank 0's URL, seconds to its serving line, log paths)."""
+    import os
+
+    port = free_port()
+    logs = [root / "build" / f"chip_smoke_tp_{tag}_rank{r}.log" for r in range(world)]
+    procs = []
+    t0 = time.perf_counter()
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world))
+        with open(logs[r], "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "torch_bnb_fp4_tpu_torch.serve", "--port", "0", "--multihost", "--coordinator",
+                 f"127.0.0.1:{port}", *args], cwd=root, env=env, stderr=err,
+                stdout=subprocess.PIPE if r == 0 else subprocess.DEVNULL, text=True))
+    lines = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in procs[0].stdout], daemon=True).start()
+    try:
+        line = lines.get(timeout=600)
+    except queue.Empty:
+        line = ""
+    if not line.startswith("serving on http://"):
+        for p in procs:
+            p.kill()
+            p.wait()
+        for r, lp in enumerate(logs):
+            print(f"[13d] rank {r} log (tail):\n" + lp.read_text()[-3000:], file=sys.stderr)
+        check(False, f"[13d] {tag}: rank 0 printed {line!r}")
+    return procs, line.split()[-1], time.perf_counter() - t0, logs
+
+
+def stop_rank_clis(procs, logs, tag: str) -> None:
+    """SIGINT to rank 0: its stop() releases the followers; every rank must
+    exit 0 (killed after 120 s)."""
+    procs[0].send_signal(signal.SIGINT)
+    rcs = []
+    for p in procs:
+        try:
+            rcs.append(p.wait(timeout=120))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rcs.append(p.wait())
+    if any(rcs):
+        for r, lp in enumerate(logs):
+            print(f"[13d] rank {r} log (tail):\n" + lp.read_text()[-3000:], file=sys.stderr)
+    check(rcs == [0] * len(procs), f"[13d] {tag}: exit codes {rcs} after stop()")
+
+
+def tp_kernel_rows(dev, launches: dict) -> list:
+    """Phase 13's local shapes of K2-K5, K8 and K9b, per layer (or expert):
+    each kernel against its plain version on the card at K2/K3's tolerance
+    (2^-7 of max), one bf16 ulp for K4/K5/K8-K4, K9b's 2^-7, timed by graph
+    replay cycling weight copies past the L2; the plain version timed
+    eagerly.  Returns the kernel-table rows, ``launches`` per instance being
+    the per-rank counts of the run that makes it."""
+    import torch
+
+    from torch_bnb_fp4_tpu_torch.ops import kernels as K
+    from torch_bnb_fp4_tpu_torch.utils import profiling as P
+
+    gen = torch.Generator(device=dev)
+    e_idx = torch.arange(MOE_EXPERTS, dtype=torch.int32, device=dev)
+    fp4_table = K.code_table(None, dev)
+    meta = {"K2": ("matmul_pk", "matmul_pk.cu", 655), "K3": ("matmul_pk_minner", "matmul_pk_minner.cu", 702),
+            "K4": ("matmul_pk_w4a8", "matmul_pk_w4a8.cu", 750), "K5": ("matmul_w8", "matmul_w8.cu", 813),
+            "K8/K2": ("matmul_pk_expert", "matmul_pk.cu", 1295),
+            "K8/K4": ("matmul_pk_w4a8_expert", "matmul_pk_w4a8.cu", 1215),
+            "K9b": ("matmul_splitk", "matmul_splitk.cu", 322)}
+    instances = (("K2", 1, TP2_FUSED, "a", "Mistral-7B tp=2, the 4 fused matmuls of one layer"),
+                 ("K3", 160, TP2_FUSED, "a", "Mistral-7B tp=2, the 4 fused matmuls of one layer"),
+                 ("K4", 300, TP2_FUSED, "a", "Mistral-7B tp=2, the 4 fused matmuls of one layer"),
+                 ("K5", 320, TP2_UNFUSED, "d", "Mistral-7B tp=2 served, the 7 unfused matmuls of one layer"),
+                 ("K8/K2", 1, TP2_EXPERT, "c", "Mixtral-8x7B tp=2, gate|up and down of one expert"),
+                 ("K8/K4", 300, TP2_EXPERT, "c", "Mixtral-8x7B tp=2, gate|up and down of one expert"),
+                 ("K9b", 1, TP4_SPLITK_70B, "b", "split-K Llama-2-70B tp=4, the 7 unfused matmuls of one layer"),
+                 ("K9b", 300, TP4_SPLITK_70B, "b", "split-K Llama-2-70B tp=4, the 7 unfused matmuls of one layer"))
+    rows = []
+    print("[13] local-shape kernel instances (per layer or expert; us: CUDA-graph replay, plain: eager on the card)")
+    for kname, m, shapes, run, what in instances:
+        tot = dict(ms=0.0, plain_ms=0.0, bytes=0.0, ops=0.0, err=0.0)
+        for sname, k, n, count in shapes:
+            gen.manual_seed(k + n + m)
+            lead = (MOE_EXPERTS,) if kname.startswith("K8") else ()
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            if kname == "K9b":
+                w_bytes = k * n // 2 + 2 * (k // 128) * n * 4
+                copies = max(1, math.ceil(2.5 * L2_BYTES / w_bytes))
+                ws = [(torch.randint(0, 256, (k // 2, n), generator=gen, dtype=torch.uint8, device=dev),
+                       tuple((torch.rand((k // 128, n), generator=gen, device=dev) + 0.5) * 0.01 for _ in range(2)))
+                      for _ in range(copies)]
+
+                def call(i, x=x, ws=ws):
+                    return K.matmul_fp4(x, ws[i][0], ws[i][1])
+
+                def plain(x=x, ws=ws):
+                    return K.matmul_splitk_plain(x, ws[0][0], *ws[0][1], None, fp4_table, out_dtype=x.dtype)
+
+                bnd_bytes = w_bytes + m * k * 2 + m * n * 2
+                tol = 2.0**-7
+            else:
+                w_bytes = k * n // 2 + (k // 64) * n * 4
+                copies = 1 if lead else max(1, math.ceil(2.5 * L2_BYTES / w_bytes))
+                ws = [(torch.randint(0, 256, (*lead, k // 2, n), generator=gen, dtype=torch.uint8, device=dev),
+                       (torch.rand((*lead, k // 64, n), generator=gen, device=dev) + 0.5) * (0.01 / 192.0))
+                      for _ in range(copies)]
+                ex = dict(expert=None)
+                if kname in ("K4", "K8/K4", "K5"):
+                    bk = 1024 if kname == "K5" else K.a8_block_k(k, torch.float32)
+                    x8, rs = K.quantize_activations(x, bk)
+                    x_bytes = x8.numel() + rs.numel() * 4
+                if kname == "K5":
+                    sh = [K.make_int8_shadow(w[0], w[1], variant="ramp", block_k=bk) for w in ws]
+
+                    def call(i, x8=x8, rs=rs, sh=sh):
+                        return K.matmul_w8_int8(x8, rs, sh[i][0], sh[i][1], out_dtype=torch.bfloat16, block_k=bk)
+
+                    def plain(x8=x8, rs=rs, sh=sh):
+                        return K.matmul_w8_plain(x8, rs, sh[0][0], sh[0][1], out_dtype=torch.bfloat16, block_k=bk)
+
+                    bnd_bytes = k * n + (k // bk) * n * 4 + x_bytes + m * n * 2
+                elif kname in ("K4", "K8/K4"):
+                    kw = dict(out_dtype=torch.bfloat16, variant="ramp", a8_block_k=bk)
+
+                    def call(i, x8=x8, rs=rs, ws=ws, kw=kw):
+                        if lead:
+                            return K.matmul_pk_w4a8(x8, rs, ws[0][0], ws[0][1], expert=e_idx[i], **kw)
+                        return K.matmul_pk_w4a8(x8, rs, ws[i][0], ws[i][1], **kw)
+
+                    def plain(x8=x8, rs=rs, ws=ws, kw=kw):
+                        return K.matmul_pk_w4a8_plain(x8, rs, ws[0][0], ws[0][1], expert=e_idx[0] if lead else None,
+                                                      **kw)
+
+                    bnd_bytes = w_bytes + x_bytes + m * n * 2
+                else:
+                    fn, fn_plain = ((K.matmul_pk, K.matmul_pk_plain) if kname in ("K2", "K8/K2") else
+                                    (K.matmul_pk_minner, K.matmul_pk_minner_plain))
+
+                    def call(i, x=x, ws=ws, fn=fn):
+                        if lead:
+                            return fn(x, ws[0][0], ws[0][1], expert=e_idx[i], variant="ramp")
+                        return fn(x, ws[i][0], ws[i][1], variant="ramp")
+
+                    def plain(x=x, ws=ws, fn_plain=fn_plain):
+                        return fn_plain(x, ws[0][0], ws[0][1], expert=e_idx[0] if lead else None, variant="ramp")
+
+                    bnd_bytes = w_bytes + m * k * 2 + m * n * 2
+                tol = None if kname in ("K4", "K8/K4", "K5") else 2.0**-7
+            y, y_ref = call(0).float(), plain().float()
+            torch.cuda.synchronize()
+            d = (y - y_ref).abs()
+            check(bool(torch.isfinite(y).all()), f"[13] {kname} {sname} M={m}: non-finite output")
+            if tol is None:
+                ulp = torch.exp2(torch.floor(torch.log2(y_ref.abs().clamp_min(1e-30))) - 7)
+                check(bool((d <= ulp * 1.0001).all()), f"[13] {kname} {sname} M={m}: off by more than one bf16 ulp")
+            else:
+                check(d.max().item() <= tol * y_ref.abs().max().item(), f"[13] {kname} {sname} M={m}: err {d.max()}")
+            n_cyc = MOE_EXPERTS if lead else copies
+            state = {"i": 0}
+
+            def cyc(call=call, n_cyc=n_cyc):
+                state["i"] = (state["i"] + 1) % n_cyc
+                return call(state["i"])
+
+            ms = P.time_graph(cyc, rep=50 if m < 64 else 20) * 1e3
+            plain_ms = P.time_fn(plain, rep=2, warmup=1) * 1e3
+            print(f"    {kname:6} {sname:12} M={m:4} {ms * 1e3:9.1f} us  plain {plain_ms:8.2f} ms  max|d| {d.max().item():.3g}"
+                  + (f"  (x{count})" if count > 1 else ""))
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * plain_ms
+            tot["bytes"] += count * bnd_bytes
+            tot["ops"] += count * 2 * m * k * n
+            tot["err"] = max(tot["err"], d.max().item())
+            del x, ws, y, y_ref
+            torch.cuda.empty_cache()
+        bnd, by = P.bound_s(tot["bytes"], tot["ops"], P.H100_INT8_OPS if kname in ("K4", "K5", "K8/K4")
+                            else P.H100_BF16_FLOPS)
+        wrapper, src, line = meta[kname]
+        rows.append(dict(
+            name=f"{kname} {wrapper} (M={m}, {what}, a rank's local shapes; launches per rank of phase 13{run})",
+            route="cuda", source=f"torch_bnb_fp4_tpu_torch/csrc/{src}", replaces=f"torch_bnb_fp4_tpu/ops/kernels.py:{line}",
+            launches=launches[run][wrapper], max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain_ms"],
+            bound_ms=bnd * 1e3, bound_by=by, library_ms=None))
+    return rows
+
+
+def phase13(root: Path, dev, smi: str) -> list:
+    """Phase 13: tensor parallelism and multi-process serving with every rank
+    a process on this one card (the module docstring lists its parts).
+    Returns the kernel-table rows of its local shapes."""
+    import torch
+
+    from torch_bnb_fp4_tpu_torch.convert import load_checkpoint, save_checkpoint
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+    from torch_bnb_fp4_tpu_torch.models.linear import attach_prefill_shadow
+    from torch_bnb_fp4_tpu_torch.ops import kernels as K
+    from torch_bnb_fp4_tpu_torch.serve import Engine, EngineConfig, Request
+    from torch_bnb_fp4_tpu_torch.utils.synth import synth_params
+
+    t_phase = time.perf_counter()
+    label = f"ranks sharing one card over gloo, not a TP speed; {smi}"
+    g = torch.Generator().manual_seed(13)
+    launches = {}
+    empty = torch.cuda.empty_cache if dev.type == "cuda" else (lambda: None)
+    empty()
+
+    # (a) Mistral-7B at full width and depth, tp = 2; (c) Mixtral at 2 layers, tp = 2 (one job of two ranks)
+    t_sub = time.perf_counter()
+    cfg_a = T.ModelConfig.mistral_7b()
+    cfg_c = dataclasses.replace(T.ModelConfig.mixtral_8x7b(), n_layers=MIXTRAL_TP_LAYERS)
+    prompts_a = [torch.randint(0, cfg_a.vocab_size, (n,), generator=g).tolist() for n in TP_A_FORWARD]
+    prompts_e = [torch.randint(0, cfg_a.vocab_size, (n,), generator=g).tolist() for n in TP_A_PROMPTS]
+    prompts_c = [torch.randint(0, cfg_c.vocab_size, (300,), generator=g).tolist()]
+    ecfg = dict(max_batch=4, max_len=512, inner_steps=8)
+    full = synth_params(cfg_a, seed=13, fuse=True, device=dev)
+    ref_a = tp_forwards(full, cfg_a, prompts_a, None, dev)
+    eng = Engine(full, cfg_a, EngineConfig(**ecfg))
+    ref_eng = {u: c.tokens for u, c in eng.run([Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                                                 for i, p in enumerate(prompts_e)]).items()}
+    del eng
+    full_c = synth_params(cfg_c, seed=16, fuse=True, device=dev)
+    routes_c, undo = tp_routes(T)
+    ref_c = tp_forwards(full_c, cfg_c, prompts_c, None, dev, steps=2)
+    undo()
+    sync(dev)
+    print(f"[13a] tp = 1 references on the card: Mistral-7B forwards (prompts {TP_A_FORWARD}, {TP_DECODE_STEPS} decode "
+          f"steps each; eager step {ref_a['step_ms']:.2f} ms), its engine ({len(prompts_e)} requests), Mixtral "
+          f"{MIXTRAL_TP_LAYERS} layers; {time.perf_counter() - t_sub:.1f} s")
+    jobs = [dict(kind="mistral", tp=2, device=str(dev), cfg=cfg_a, builds=[("pairk", dict(seed=13, fuse=True))], prompts=prompts_a,
+                 forced={"pairk": ref_a["tokens"]}, steps=TP_DECODE_STEPS,
+                 engine=dict(ecfg=ecfg, new=NEW_TOKENS, prompts=prompts_e, ref=ref_eng)),
+            dict(kind="mixtral", tp=2, device=str(dev), cfg=cfg_c, builds=[("pairk", dict(seed=16, fuse=True))], prompts=prompts_c,
+                 forced={"pairk": ref_c["tokens"]}, steps=2)]
+    del full_c  # the Mistral reference stays for the near-tie margins of the engine's tokens
+    empty()
+    t0 = time.perf_counter()
+    ranks = run_ranks(root, 2, jobs, "[13a/c]")
+    print(f"[13a/c] 2 ranks on {dev} ({ranks[0][0]['backend']} groups) ran in {time.perf_counter() - t0:.1f} s")
+    for r, outs in enumerate(ranks):
+        a, c = outs[0]["pairk"], outs[1]["pairk"]
+        worst = [hold_logits(f"[13a] rank {r} {n}-token prompt", ref_a["logits"][i], a["logits"][i])
+                 for i, n in enumerate(TP_A_FORWARD)]
+        check(a["ar_per_step"] == 2 * cfg_a.n_layers, f"[13a] rank {r}: {a['ar_per_step']} all-reduces per decode step")
+        ln = {k: a["launches"][w] + a["engine_launches"][w] for k, w in (("K2", "matmul_pk"), ("K3", "matmul_pk_minner"),
+                                                                         ("K4", "matmul_pk_w4a8"))}
+        check(all(v > 0 for v in ln.values()), f"[13a] rank {r}: launches {ln}")
+        launches.setdefault("a", {w: a["launches"][w] + a["engine_launches"][w] for w in a["launches"]})
+        print(f"[13a] rank {r}: shard built in {a['build_s']:.1f} s, {a['gib']:.2f} GiB on the card; logits vs tp = 1 "
+              f"worst max|d| {max(w[0] for w in worst):.4g} of max, rel L2 {max(w[1] for w in worst):.3g} (300-row "
+              f"prefill: K4; 160: K3; decode: K2); {a['ar_per_step']} all-reduces per decode step "
+              f"(2 x {cfg_a.n_layers} layers); launches K2 {ln['K2']}, K3 {ln['K3']}, K4 {ln['K4']}; decode step "
+              f"{a['step_ms']:.2f} ms eager, of which its all-reduces alone {a['ar_ms_per_step']:.2f} ms ({label})")
+        same = 0
+        for u, ref in ref_eng.items():
+            got, mg = a["engine_tokens"][u], a["engine_margins"][u]
+            check(len(got) == NEW_TOKENS, f"[13a] rank {r} request {u}: {len(got)} tokens")
+            if mg is None:
+                same += 1
+                continue
+            j, m_tp, tie = mg
+            _, m_ref, tie_ref = tp_first_diff_margin(full, cfg_a, prompts_e[u], ref, got, dev)
+            check(m_tp <= tie and m_ref <= tie_ref,
+                  f"[13a] rank {r} request {u}: first difference at {j} is no near-tie ({m_tp}, {m_ref})")
+            print(f"[13a] rank {r} request {u}: first difference from the tp = 1 engine at token {j}, a near-tie "
+                  f"(each run's winner leads by {m_ref:.4g} / {m_tp:.4g} in its own logits, limits {tie_ref:.4g} / "
+                  f"{tie:.4g})")
+        check(outs[0]["pairk"]["engine_tokens"] == ranks[0][0]["pairk"]["engine_tokens"],
+              "[13a] the ranks' engines disagree")
+        st = a["engine_stats"]
+        print(f"[13a] rank {r}: engine at tp = 2, {same}/{len(ref_eng)} requests equal to the tp = 1 engine's tokens; "
+              f"{st['decode_steps']} decode steps, {st['step_p50_s'] * 1e3:.1f} ms/step p50 (eager, {label}); "
+              f"all-reduces {a['engine_collectives']['all_reduce']}, gathers {a['engine_collectives']['all_gather']}")
+        # (c) Mixtral: logits and routing
+        worst = hold_logits(f"[13c] rank {r}", ref_c["logits"][0], c["logits"][0])
+        check(len(c["routes"]) == len(routes_c), f"[13c] rank {r}: {len(c['routes'])} MoE calls")
+        flips = total = 0
+        for pr, pt in zip(routes_c, c["routes"]):
+            ti_r = torch.topk(pr, cfg_c.experts_per_tok, dim=-1).indices.sort(dim=-1).values
+            ti_t = torch.topk(pt, cfg_c.experts_per_tok, dim=-1).indices.sort(dim=-1).values
+            diff = (ti_r != ti_t).any(dim=-1)
+            srt = pr.sort(dim=-1, descending=True).values
+            margin = srt[:, cfg_c.experts_per_tok - 1] - srt[:, cfg_c.experts_per_tok]
+            check(bool((margin[diff] < 1e-2).all()), f"[13c] rank {r}: a routing difference that is no near-tie")
+            flips += int(diff.sum())
+            total += diff.numel()
+        check(flips <= 0.01 * total, f"[13c] rank {r}: {flips} of {total} routing decisions differ")
+        k8 = {w: c["launches"][w] for w in ("matmul_pk_expert", "matmul_pk_w4a8_expert")}
+        check(all(v > 0 for v in k8.values()), f"[13c] rank {r}: K8 launches {k8}")
+        launches.setdefault("c", c["launches"])
+        print(f"[13c] rank {r}: Mixtral {MIXTRAL_TP_LAYERS} layers at tp = 2: logits vs tp = 1 worst max|d| "
+              f"{worst[0]:.4g} of max, rel L2 {worst[1]:.3g}; routing {flips}/{total} decisions differ (near-ties); "
+              f"K8 launches {k8}; {c['ar_per_step']} all-reduces per decode step")
+    del full
+    empty()
+    print(f"[13a/c] {time.perf_counter() - t_sub:.1f} s")
+
+    # (b) Llama-2-70B at full width, 4 layers, tp = 4: pair-K fused, then split-K (K9b on the shards in place)
+    t_sub = time.perf_counter()
+    cfg_b = dataclasses.replace(T.ModelConfig.llama2_70b(), n_layers=LLAMA70_LAYERS)
+    prompts_b = [torch.randint(0, cfg_b.vocab_size, (300,), generator=g).tolist()]
+    builds = [("pairk", dict(seed=14, fuse=True)), ("splitk", dict(seed=15, layout="splitk"))]
+    refs_b = {}
+    for name, kw in builds:
+        full = synth_params(cfg_b, tp=4 if name == "splitk" else 1, device=dev, **kw)
+        refs_b[name] = tp_forwards(full, cfg_b, prompts_b, None, dev, steps=2)
+        del full
+        empty()
+    ranks = run_ranks(root, 4, [dict(kind="llama70", tp=4, device=str(dev), cfg=cfg_b, builds=builds, prompts=prompts_b,
+                                     forced={n: refs_b[n]["tokens"] for n, _ in builds}, steps=2)], "[13b]")
+    for r, outs in enumerate(ranks):
+        for name, _ in builds:
+            b = outs[0][name]
+            worst = hold_logits(f"[13b] rank {r} {name}", refs_b[name]["logits"][0], b["logits"][0])
+            check(b["ar_per_step"] == 2 * cfg_b.n_layers, f"[13b] rank {r} {name}: {b['ar_per_step']} all-reduces")
+            w = "matmul_splitk" if name == "splitk" else "matmul_pk_w4a8"
+            check(b["launches"][w] > 0, f"[13b] rank {r} {name}: {w} never launched")
+            if name == "splitk":
+                launches.setdefault("b", b["launches"])
+            print(f"[13b] rank {r} {name}: shard {b['gib']:.2f} GiB; logits vs tp = 1 worst max|d| {worst[0]:.4g} of "
+                  f"max, rel L2 {worst[1]:.3g}; {b['ar_per_step']} all-reduces per decode step; {w} launches "
+                  f"{b['launches'][w]}; decode step {b['step_ms']:.2f} ms eager, all-reduces alone "
+                  f"{b['ar_ms_per_step']:.2f} ms ({label})")
+    print(f"[13b] Llama-2-70B geometry, {LLAMA70_LAYERS} layers, tp = 4 (row-parallel K 2048 and 7168, 2 KV heads per "
+          f"rank), pair-K and split-K: {time.perf_counter() - t_sub:.1f} s")
+
+    # (d) the CLI: two ranks serve a 4-layer checkpoint, --tp 2, then --tp 1 (data 2)
+    t_sub = time.perf_counter()
+    ckpt = root / "build" / "chip_smoke_tp_ckpt"
+    cfg_d = dataclasses.replace(T.ModelConfig.mistral_7b(), n_layers=TP_CLI_LAYERS)
+    try:
+        save_checkpoint(str(ckpt), cfg_d, synth_params(cfg_d, seed=17, device=dev))
+        _, pd = load_checkpoint(str(ckpt), device=dev)
+        pd = attach_prefill_shadow(pd)
+        prompts_d = [torch.randint(0, cfg_d.vocab_size, (n,), generator=g).tolist() for n in TP_CLI_PROMPTS]
+        eng = Engine(pd, cfg_d, EngineConfig(max_batch=4, max_len=512, inner_steps=8))
+        ref_d = {u: c.tokens for u, c in eng.run([Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                                                   for i, p in enumerate(prompts_d)]).items()}
+        del eng
+        args = ["--ckpt", str(ckpt), "--prefill-shadow", "--max-batch", "4", "--max-len", "512"]
+        args += [] if dev.type == "cuda" else ["--device", "cpu"]  # the CPU only in a rehearsal
+        for tp in ("2", "1"):
+            procs, url, up_s, logs = start_rank_clis(root, args + ["--tp", tp], 2, f"tp{tp}")
+            try:
+                got = [http_post(url, dict(prompt=p, max_tokens=NEW_TOKENS))["tokens"] for p in prompts_d]
+                box = {}
+
+                def on_event(ev, box=box, url=url):
+                    if "uid" in ev and "abort" not in box:
+                        box["abort"] = http_post(url, {"uid": ev["uid"]}, "/v1/abort")
+
+                events = http_stream(url, dict(prompt=prompts_d[0], max_tokens=400), on_event)
+                stats = http_get(url, "/v1/stats")
+            finally:
+                if procs[0].poll() is None:
+                    stop_rank_clis(procs, logs, f"tp{tp}")
+            check(box.get("abort", {}).get("aborted") is True and events[-1]["done"]["finish_reason"] == "abort",
+                  f"[13d] tp {tp}: the abort did not land ({box}, {events[-1]})")
+            check(stats["launches"]["matmul_w8"] > 0, f"[13d] tp {tp}: K5 never launched on rank 0")
+            launches.setdefault("d", stats["launches"])
+            notes = []
+            for u, (p, want) in enumerate(zip(prompts_d, [ref_d[i] for i in range(len(prompts_d))])):
+                mg = tp_first_diff_margin(pd, cfg_d, p, want, got[u], dev)
+                if mg is None:
+                    notes.append(f"{len(want)}/{len(want)} equal")
+                    continue
+                j, m_ref, tie = mg
+                check(m_ref <= tie, f"[13d] tp {tp} request {u}: differs at {j}, margin {m_ref} > {tie}")
+                notes.append(f"first difference at {j}, a near-tie in the tp = 1 logits ({m_ref:.4g} <= {tie:.4g})")
+            print(f"[13d] CLI --multihost --tp {tp} (data {2 // int(tp)}) on {TP_CLI_LAYERS} layers: serving line after "
+                  f"{up_s:.1f} s; HTTP tokens vs the in-process tp = 1 engine: {'; '.join(notes)}; abort landed; K5 "
+                  f"{stats['launches']['matmul_w8']} launches on rank 0; both ranks exited 0 after stop()")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        empty()
+    print(f"[13d] {time.perf_counter() - t_sub:.1f} s")
+
+    rows = tp_kernel_rows(dev, launches)
+    print(f"[13] phase 13: {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2237,9 +2911,9 @@ def main() -> int:
     p_cpu = T.params_to(p_gpu, "cpu")
     moe_forward, routes, moe_io = T.moe_forward, [], []
 
-    def recorded(moe, c, x, force_dense=None):
+    def recorded(moe, c, x, force_dense=None, group=None):
         routes.append(torch.softmax(moe.router(x.reshape(-1, x.shape[-1]), out_dtype=torch.float32), -1).cpu())
-        y = moe_forward(moe, c, x, force_dense)
+        y = moe_forward(moe, c, x, force_dense, group=group)
         if x.is_cuda:
             moe_io.append((x.cpu(), y.cpu()))
         return y
@@ -2926,6 +3600,9 @@ def main() -> int:
     # -- phase 12: LoRA adapters at Mistral-7B width ----------------------------------------------
     phase12(root, dev, smi)
 
+    # -- phase 13: tensor parallelism and multi-process serving, the ranks sharing this card --------
+    tp_rows = phase13(root, dev, smi)
+
     # -- kernel table ------------------------------------------------------------------
     k_launch = launches["matmul_pk"] + launches["matmul_pk_minner"] + launches["matmul_pk_w4a8"]
     kernels_json.append(dict(
@@ -3026,6 +3703,7 @@ def main() -> int:
         launches=launches10e["flash_attention_fp8"], max_abs_err=fr["max_abs_err"], row_err=fr["row_err"], ms=fr["ms"],
         plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"], bound_by=fr["bound_by"], library_ms=None,
         sdpa_on_widened_kv_ms=fr["sdpa_widened_ms"], bf16_form_ms=fr["bf16_ms"], split=fr["split"]))
+    kernels_json.extend(tp_rows)  # phase 13's local shapes of K2-K5, K8 and K9b
     print(json.dumps({"kernels": kernels_json}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -7,8 +7,8 @@
 * Port save -> JAX load: the same bytes come back.
 * A checkpoint loaded by both packages gives the same greedy tokens.
 * A quantized embedding table loads (tests/test_torch_embed.py holds its
-  bytes both ways); tp > 1 raises NotImplementedError; an unknown format
-  version raises ValueError in both packages.  Split-K checkpoints are
+  bytes both ways); tp = 2 loads fused per shard with JAX's bytes; an
+  unknown format version raises ValueError in both packages.  Split-K checkpoints are
   tests/test_torch_splitk.py's.
 """
 
@@ -181,9 +181,13 @@ def test_unported_checkpoint_contents_raise(tmp_path, monkeypatch, what, match):
 
 
 def test_unknown_version_and_tp_raise(tmp_path):
+    """tp = 2 loads (fused per shard: JAX's bytes; tests/test_torch_parallel.py
+    covers split-K repacking); an unknown format version raises in both
+    packages."""
     _save_variant(str(tmp_path), "plain")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        load_checkpoint(str(tmp_path), tp=2, device="cpu")
+    _, jp = JC.load_checkpoint(str(tmp_path), tp=2, fuse=True)
+    _, tp = load_checkpoint(str(tmp_path), tp=2, fuse=True, device="cpu")
+    np.testing.assert_array_equal(tp.layers[0].wqkv.packed.numpy(), np.asarray(jp.layers[0].wqkv.packed))
     man_path = tmp_path / "manifest.json"
     man = json.loads(man_path.read_text())
     man["format_version"] = 99

@@ -408,7 +408,9 @@ def test_cli_lora_flags_follow_the_jax_rules():
         parse("--lora", "a=x", "--lora", "y")
     with pytest.raises(ValueError, match="--lora-merge only applies to a single unnamed --lora"):
         parse("--lora", "a=x", "--lora-merge")
-    assert cli._UNPORTED == ("--multihost", "--coordinator", "--tp")
+    # the multi-process flags have rules of their own (tests/test_torch_multihost.py serves them)
+    with pytest.raises(ValueError, match="--tp 2 needs --multihost"):
+        cli.multihost_rules(ap.parse_args(["--lora", "a=x", "--tp", "2"]))
 
 
 @pytest.fixture(scope="module")

@@ -137,10 +137,10 @@ def test_slice_entry_points_default_to_cuda(monkeypatch):
     assert T.quantize_embedding(np.zeros((4, 64), np.float32), device="cpu").device.type == "cpu"
 
 
-# names of the JAX package's __all__s the port has not ported yet: tensor
-# parallelism and multi-host serving (ROADMAP queue 1 item 4)
-NOT_YET_PORTED = {"parallel", "local_view", "MultihostEngineServer", "follow"}
-SURFACES = ("", ".models", ".ops", ".utils", ".serve", ".convert", ".compat")
+# names of the JAX package's __all__s the port has not ported yet: none (tensor
+# parallelism and multi-host serving were the last)
+NOT_YET_PORTED: set = set()
+SURFACES = ("", ".models", ".ops", ".utils", ".serve", ".convert", ".compat", ".parallel")
 
 
 @pytest.mark.parametrize("sub", SURFACES, ids=lambda s: s or "top")

@@ -195,14 +195,21 @@ def test_bad_requests(server):
 @pytest.mark.parametrize("argv", [["--multihost"], ["--coordinator", "h:1"], ["--tp", "2"],
                                   ["--lora", "a=d", "--lora", "d"], ["--lora-merge", "--lora", "a=d"]],
                          ids=lambda a: a[0])
-def test_cli_refuses_unported_flags(capsys, argv):
-    """The TP and multi-host flags exit 2 with "not yet ported"; the LoRA
-    flags are ported and exit 2 only where the JAX CLI's rules refuse them
-    (tests/test_torch_lora.py serves them)."""
+def test_cli_refuses_unported_flags(capsys, monkeypatch, argv):
+    """The TP and multi-host flags and the LoRA flags are ported; each exits
+    2 where its rules refuse it: --multihost without the job's environment,
+    --coordinator or --tp > 1 without --multihost (tests/test_torch_multihost.py
+    serves them), and the JAX CLI's LoRA rules (tests/test_torch_lora.py
+    serves them)."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
     with pytest.raises(SystemExit) as ei:
         cli.main(["--device", "cpu", *argv])
     want = {"--lora": "multi-adapter --lora needs NAME=DIR, got 'd'",
-            "--lora-merge": "--lora-merge only applies to a single unnamed --lora"}.get(argv[0], "not yet ported")
+            "--lora-merge": "--lora-merge only applies to a single unnamed --lora",
+            "--multihost": "--multihost needs MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK in the environment",
+            "--coordinator": "--coordinator applies to --multihost only",
+            "--tp": "--tp 2 needs --multihost"}[argv[0]]
     assert ei.value.code == 2 and want in capsys.readouterr().err
 
 

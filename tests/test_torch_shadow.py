@@ -183,10 +183,12 @@ def test_attach_int8_shadow_errors(layer_pair):
                                   scale=q.scale.expand(2, *q.scale.shape))
     with pytest.raises(ValueError, match="stacked"):
         L.attach_int8_shadow(stacked)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        L.attach_int8_shadow(q, tp=2)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        L.attach_prefill_shadow([q], tp=4)
+    # tensor parallelism: the tile depth divides the per-shard K (JAX's rule); a K that does not shard is refused
+    assert L.attach_int8_shadow(q, tp=2).w8_block_k == 1024 and L.attach_prefill_shadow([q], tp=4)[0].w8_block_k == 512
+    with pytest.raises(ValueError, match="does not shard into 256-multiples over tp=16"):
+        L.attach_int8_shadow(q, tp=16)
+    with pytest.raises(ValueError, match="does not shard into 256-multiples over tp=3"):
+        L.attach_prefill_shadow([q], tp=3)
     with pytest.raises(ValueError, match="pairk layout"):
         L.attach_int8_shadow(L.quantize_linear(np.zeros((128, 512), np.float32), layout="splitk", device="cpu"))
 

@@ -167,10 +167,12 @@ def test_prefill_and_decode_step_api():
 
 
 def test_not_yet_ported_features_raise():
-    """Tensor parallelism is still refused; the quantized embedding table,
-    once refused here, is built (tests/test_torch_embed.py holds it)."""
+    """Features once refused here are built: the quantized embedding table
+    (tests/test_torch_embed.py holds it) and shadows for a model-axis width
+    of 2, whose tile depth divides each shard's K (tests/test_torch_parallel.py
+    holds them against JAX's)."""
     cfg = T.ModelConfig.tiny_test(n_layers=1, quantize_embed=True)
     p = T.quantize_params(cfg, T.random_weights(cfg), device="cpu")
     assert isinstance(p.embed, T.QuantEmbedding)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        L.attach_prefill_shadow(p, tp=2)
+    s = L.attach_prefill_shadow(p, tp=2)
+    assert (s.layers[0].wq.w8_block_k, s.layers[0].w_down.w8_block_k) == (512, 1024)

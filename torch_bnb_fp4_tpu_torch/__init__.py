@@ -13,15 +13,16 @@ the JAX package's format (convert/checkpoint.py), quantized embedding tables
 safetensors reader and the native C packer), the reference library's API
 (compat.py: ``TorchFP4Linear``, ``QuantData``, the functional wrappers and
 ``recursively_replace_with_fp4_linear``), LoRA adapters attached, merged or
-stacked for per-request serving (models/lora.py) and a weight carrier from
-the JAX package's layout (convert/from_numpy.py).  Entry points default to
+stacked for per-request serving (models/lora.py), a weight carrier from
+the JAX package's layout (convert/from_numpy.py), and tensor and data
+parallelism over torch.distributed with multi-process serving
+(parallel/tp.py, serve/multihost.py).  Entry points default to
 ``device="cuda"`` and raise without a card unless given ``device="cpu"``.
 
-The names below follow the JAX package's ``__init__``; its ``parallel``
-(tensor parallelism and multi-host serving) is not ported yet.
+The names below follow the JAX package's ``__init__``.
 """
 
-from . import compat, convert, models, ops, serve, utils
+from . import compat, convert, models, ops, parallel, serve, utils
 from .models import (
     DenseLinear,
     KVCache,
@@ -45,6 +46,7 @@ __all__ = [
     "convert",
     "models",
     "ops",
+    "parallel",
     "serve",
     "utils",
     "QuantLinear",

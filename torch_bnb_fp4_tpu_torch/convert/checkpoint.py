@@ -21,8 +21,9 @@ port's field ``scale``), a split-K linear also ``absmax_lo`` (``scale_lo``),
 ``bias`` when present, and ``layout``, ``k_shards``, ``variant`` and the
 codebook in the manifest.  An entry without ``layout`` (formats 1 and 2) is
 split-K.  A row-parallel split-K entry (wo, w_down, the experts' down) packed
-with ``k_shards`` other than the load's ``tp`` (1) is repacked to one shard
-where it was loaded (``convert/quantize.repack_k_shards``, exact).  bf16
+with ``k_shards`` other than the load's ``tp`` is repacked to ``tp`` shards
+where it was loaded (``convert/quantize.repack_k_shards``, exact), so that
+``parallel.shard_params`` cuts its K axis contiguously.  bf16
 arrays are stored as uint16 views and listed in ``bf16_keys`` (npz cannot
 hold bf16).  Linears are stored unfused and int8 prefill shadows are never
 stored (they are rebuilt at load time by ``attach_prefill_shadow``).  A
@@ -34,8 +35,6 @@ versions 1-3 are read, 3 is written.
 :class:`CheckpointWriter` writes one group at a time (``put``) and the
 manifest at ``finish``: the streaming converter (``convert/hf.py``) frees
 each group's floats before it reads the next.
-
-Not yet ported (``NotImplementedError``): ``tp > 1``.
 """
 
 from __future__ import annotations
@@ -173,17 +172,17 @@ def save_checkpoint(path: str, cfg: ModelConfig, params: ModelParams) -> None:
     writer.finish()
 
 
-def _linear_from_arrays(prefix: str, meta: dict, arrays: dict, device):
+def _linear_from_arrays(prefix: str, meta: dict, arrays: dict, device, tp: int):
     if meta.get("kind") == "dense":
         bias = arrays.get(f"{prefix}.bias")
         return DenseLinear(w=arrays[f"{prefix}.w"], bias=bias, n_out=meta["n_out"], k_in=meta["k_in"])
     packed, hi, lo = arrays[f"{prefix}.packed"], arrays[f"{prefix}.absmax_hi"], arrays.get(f"{prefix}.absmax_lo")
     layout = meta.get("layout", "splitk")
     k_shards = meta["k_shards"]
-    if layout == "splitk" and meta.get("row_parallel") and k_shards != 1:
-        # to the load's tp = 1: an exact byte shuffle, run where the tensors were loaded
-        packed, hi, lo = repack_k_shards(packed, hi, lo, meta["blocksize"], k_shards, 1)
-        k_shards = 1
+    if layout == "splitk" and meta.get("row_parallel") and k_shards != tp:
+        # to the load's tp: an exact byte shuffle, run where the tensors were loaded (pair-K needs none)
+        packed, hi, lo = repack_k_shards(packed, hi, lo, meta["blocksize"], k_shards, tp)
+        k_shards = tp
     cb = meta.get("codebook")
     return QuantLinear(
         packed=packed, scale=hi, scale_lo=lo, bias=arrays.get(f"{prefix}.bias"), n_out=meta["n_out"],
@@ -194,11 +193,12 @@ def _linear_from_arrays(prefix: str, meta: dict, arrays: dict, device):
 
 def load_checkpoint(path: str, tp: int = 1, fuse: bool = False, device=None) -> tuple[ModelConfig, ModelParams]:
     """Load a packed checkpoint onto ``device`` (default CUDA), a quantized
-    embedding table included; ``fuse=True`` fuses QKV and gate|up
-    (checkpoints always store unfused)."""
+    embedding table included; split-K row-parallel layers are repacked for a
+    model-axis width of ``tp`` (exact), and ``fuse=True`` fuses QKV and
+    gate|up with the columns interleaved for ``tp`` (checkpoints always
+    store unfused).  For a sharded load, read onto the CPU and let
+    ``parallel.shard_params`` move each rank's shard to its device."""
     device = resolve_device(device)
-    if tp != 1:
-        raise NotImplementedError("tensor parallelism is not yet ported (tp must be 1)")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     version = manifest.get("format_version")
@@ -224,21 +224,21 @@ def load_checkpoint(path: str, tp: int = 1, fuse: bool = False, device=None) -> 
     for i in range(cfg.n_layers):
         p = f"layers.{i}"
         a = arrs(p)
-        kw = {f: _linear_from_arrays(f"{p}.{f}", m, a, device) for f, m in tensors[p]["linears"].items()}
+        kw = {f: _linear_from_arrays(f"{p}.{f}", m, a, device, tp) for f, m in tensors[p]["linears"].items()}
         moe = tensors[p].get("moe")
         if moe is not None:
             kw["moe"] = MoEParams(
                 router=DenseLinear(w=a[f"{p}.moe.router.w"], bias=a.get(f"{p}.moe.router.bias"),
                                    n_out=moe["router"]["n_out"], k_in=moe["router"]["k_in"]),
-                **{f: _linear_from_arrays(f"{p}.moe.{f}", moe["experts"][f], a, device) for f in _EXPERTS})
+                **{f: _linear_from_arrays(f"{p}.moe.{f}", moe["experts"][f], a, device, tp) for f in _EXPERTS})
         kw.update({n: a[f"{p}.{n}"] for n in _EXTRA_NORMS if f"{p}.{n}" in a})
         layers.append(LayerParams(attn_norm=a[f"{p}.attn_norm"], mlp_norm=a[f"{p}.mlp_norm"], **kw))
     lm_meta = tensors["lm_head"]
     a = arrs("lm_head")
     if lm_meta["kind"] == "quant":
-        lm_head = _linear_from_arrays("lm_head", lm_meta, a, device)
+        lm_head = _linear_from_arrays("lm_head", lm_meta, a, device, tp)
     else:
         w = a["lm_head.w"]
         lm_head = DenseLinear(w=w, bias=a.get("lm_head.bias"), n_out=w.shape[1], k_in=w.shape[0])
     params = ModelParams(embed=embed, layers=layers, final_norm=final_norm, lm_head=lm_head)
-    return cfg, (fuse_params(params) if fuse else params)
+    return cfg, (fuse_params(params, tp=tp) if fuse else params)

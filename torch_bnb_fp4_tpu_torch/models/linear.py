@@ -450,12 +450,14 @@ def apply_expert_linear(sq: QuantLinear, e, x: torch.Tensor, *, out_dtype=None) 
     return out.reshape(*lead, sq.n_out)
 
 
-def fuse_linears(linears: list[QuantLinear]) -> QuantLinear:
+def fuse_linears(linears: list[QuantLinear], tp: int = 1) -> QuantLinear:
     """Fuse same-input pair-K linears into one (column concat): one kernel
     call for QKV and one for gate|up.  Stacked (expert) linears fuse the same
-    way: every concat is on the last axis.  Tensor parallelism (tp > 1) is
-    not yet ported.  Split-K layers are never fused (as in the JAX
-    package)."""
+    way: every concat is on the last axis.  With ``tp`` > 1 the columns are
+    interleaved per shard, ``[q_d | k_d | v_d]`` for each shard d (the JAX
+    package's ``fuse_linears``), so that a contiguous column split gives
+    every rank exactly its heads and the local output splits at the local
+    widths.  Split-K layers are never fused (as in the JAX package)."""
     q0 = linears[0]
     if any(l.layout != "pairk" for l in linears):
         raise ValueError("fusion is pairk-only")
@@ -467,18 +469,49 @@ def fuse_linears(linears: list[QuantLinear]) -> QuantLinear:
         raise ValueError("fused linears must share k_in, k_pad and blocksize")
     if any(l.n_out != l.n_pad for l in linears):
         raise ValueError("fused linears must be 128-aligned")
+    if any(l.n_out % tp for l in linears):
+        raise ValueError(f"fused widths {[l.n_out for l in linears]} do not split over tp={tp}")
+
+    def interleave(ts):
+        return torch.cat([part for d in range(tp) for t in ts for part in t.chunk(tp, dim=-1)[d : d + 1]],
+                         dim=-1).contiguous()
+
     if any(l.bias is not None for l in linears):
-        bias = torch.cat([l.bias if l.bias is not None else torch.zeros((*l.packed.shape[:-2], l.n_out),
+        bias = interleave([l.bias if l.bias is not None else torch.zeros((*l.packed.shape[:-2], l.n_out),
                                                                          dtype=torch.float32, device=l.packed.device)
-                          for l in linears], dim=-1)
+                           for l in linears])
     else:
         bias = None
     return QuantLinear(
-        packed=torch.cat([l.packed for l in linears], dim=-1).contiguous(),
-        scale=torch.cat([l.scale for l in linears], dim=-1).contiguous(),
+        packed=interleave([l.packed for l in linears]), scale=interleave([l.scale for l in linears]),
         bias=bias, n_out=sum(l.n_out for l in linears), k_in=q0.k_in, blocksize=q0.blocksize,
         variant=q0.variant, codebook=q0.codebook,
     )
+
+
+def local_view(q, *, n_parts: int = 1, k_parts: int = 1):
+    """The static fields of one tensor-parallel shard of ``q``, whose tensors
+    are already local (the JAX package's ``local_view``): ``n_parts`` is the
+    column-parallel width (the last axis of every tensor is split),
+    ``k_parts`` the row-parallel width (the K axis is split; a split-K
+    packing then holds ``k_shards // k_parts`` self-contained slices).  A
+    :class:`LoRALinear` or :class:`MultiLoRALinear` passes through to its
+    base (its factors are already local).  Raises ``ValueError`` where the
+    shapes do not split."""
+    if q.n_out % n_parts or q.k_in % k_parts:
+        raise ValueError(f"a {q.n_out}x{q.k_in} linear does not split into n_parts={n_parts}, k_parts={k_parts}")
+    if isinstance(q, (LoRALinear, MultiLoRALinear)):
+        return dataclasses.replace(q, base=local_view(q.base, n_parts=n_parts, k_parts=k_parts))
+    if isinstance(q, DenseLinear):
+        return dataclasses.replace(q, n_out=q.n_out // n_parts, k_in=q.k_in // k_parts)
+    if q.layout == "pairk":
+        # pair-K splits contiguously: only the static K changes
+        if (q.k_in // k_parts) % (2 * q.blocksize):
+            raise ValueError(f"k_in={q.k_in} / {k_parts} is not a multiple of {2 * q.blocksize}")
+        return dataclasses.replace(q, n_out=q.n_out // n_parts, k_in=q.k_in // k_parts)
+    if q.k_shards % k_parts:
+        raise ValueError(f"k_shards={q.k_shards} does not split into k_parts={k_parts}")
+    return dataclasses.replace(q, n_out=q.n_out // n_parts, k_in=q.k_in // k_parts, k_shards=q.k_shards // k_parts)
 
 
 def dequantize_weight(q: QuantLinear, out_dtype=torch.bfloat16) -> torch.Tensor:
@@ -502,15 +535,19 @@ def attach_int8_shadow(q: QuantLinear, tp: int = 1) -> QuantLinear:
     requantization run once (``ops.kernels.make_int8_shadow``) so that
     prefill GEMMs of M >= 256 rows run as pure int8 GEMMs (K5).  Costs one
     byte per weight on the device (twice the packed FP4); the FP4 bytes stay
-    the decode path.  The tile depth ``w8_block_k`` is 1024 where it divides
-    k_pad, else 512 (the pair-K layout pads K to a multiple of 512)."""
+    the decode path.  ``tp`` is the model-axis width the params will be
+    sharded over: the tile depth ``w8_block_k`` is the first of 1024, 512
+    and 256 that divides the per-shard K (``k_pad / tp``), so a row-parallel
+    shard's ``w8`` / ``w8_scale`` stay self-contained (the JAX package's
+    rule; attach before ``parallel.shard_params``)."""
     if q.layout != "pairk":
         raise ValueError("int8 shadow requires the pairk layout")
-    if tp != 1:
-        raise NotImplementedError("tensor parallelism is not yet ported (tp must be 1)")
     if q.packed.ndim != 2:
         raise ValueError("stacked (expert) linears are not supported yet")
-    bk = 1024 if q.k_pad % 1024 == 0 else 512
+    k_loc = q.k_pad // tp
+    if q.k_pad % tp or k_loc % 256:
+        raise ValueError(f"k_pad={q.k_pad} does not shard into 256-multiples over tp={tp}")
+    bk = next(b for b in (1024, 512, 256) if k_loc % b == 0)
     w8, g = K.make_int8_shadow(q.packed, q.scale, q.codebook if q.variant == "lut" else None,
                                blocksize=q.blocksize, variant=q.variant, block_k=bk)
     return dataclasses.replace(q, w8=w8, w8_scale=g, w8_block_k=bk)
@@ -521,14 +558,13 @@ def attach_prefill_shadow(params, tp: int = 1):
     holding linears) in which every 2-D pair-K QuantLinear, a quantized
     lm_head and the base of a :class:`LoRALinear` or :class:`MultiLoRALinear`
     included, carries an int8 prefill shadow (an adapter's factors stay as
-    they are).  Dense layers, split-K layers and stacked (expert) packings are
-    left as they are."""
-    if tp != 1:
-        raise NotImplementedError("tensor parallelism is not yet ported (tp must be 1)")
+    they are), with the tile depth for a model-axis width of ``tp``
+    (:func:`attach_int8_shadow`).  Dense layers, split-K layers and stacked
+    (expert) packings are left as they are."""
 
     def walk(v):
         if isinstance(v, QuantLinear):
-            return attach_int8_shadow(v) if v.packed.ndim == 2 and v.layout == "pairk" else v
+            return attach_int8_shadow(v, tp=tp) if v.packed.ndim == 2 and v.layout == "pairk" else v
         if isinstance(v, list):
             return [walk(x) for x in v]
         if dataclasses.is_dataclass(v) and not isinstance(v, (type, DenseLinear)):

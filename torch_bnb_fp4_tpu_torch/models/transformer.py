@@ -27,7 +27,12 @@ Adapters (``models/lora.py``) wrap unfused linears in ``LoRALinear`` or
 ``MultiLoRALinear``; the latter needs ``forward(adapter_idx=...)``, a (B,)
 int32 device tensor that every layer linear receives.
 
-Not yet ported: tensor parallelism.
+Tensor parallelism (``parallel/tp.py``): ``forward(group=...)`` runs a rank's
+local shard of the params (column-parallel wq/wk/wv/w_gate/w_up, row-parallel
+wo/w_down, vocab-sharded lm_head) with the local head counts taken from the
+local widths, and sums the two row-parallel outputs of each layer over the
+model group (Megatron's pattern: 2 all-reduces per dense layer, 1 for the
+weighted expert sum of a MoE layer).
 """
 
 from __future__ import annotations
@@ -552,7 +557,8 @@ def _expert_ffn(moe: MoEParams, cfg: ModelConfig, e, x: torch.Tensor) -> torch.T
     return _apply_expert(moe.down, e, _act(cfg, gate).to(up.dtype) * up, out_dtype=torch.float32)
 
 
-def moe_forward(moe: MoEParams, cfg: ModelConfig, x: torch.Tensor, force_dense: bool | None = None) -> torch.Tensor:
+def moe_forward(moe: MoEParams, cfg: ModelConfig, x: torch.Tensor, force_dense: bool | None = None,
+                group=None) -> torch.Tensor:
     """Sparse-MoE MLP (the JAX package's ``moe_forward``, HF
     MixtralSparseMoeBlock semantics): router softmax in f32, top
     ``experts_per_tok`` (sorted), renormalized over the selected k, weighted
@@ -564,7 +570,14 @@ def moe_forward(moe: MoEParams, cfg: ModelConfig, x: torch.Tensor, force_dense: 
     all-experts (prefill: every expert runs all T rows, weighted by each
     token's routing mass, zero where it was not chosen).  Neither reads a
     routing decision on the host, so a decode step needs no host sync and
-    replays as a CUDA graph."""
+    replays as a CUDA graph.
+
+    With a tensor-parallel ``group`` the experts are local shards and the
+    result is this rank's partial of the weighted sum, which the caller sums
+    over the group; an expert down bias is refused there (it would be added
+    once per rank)."""
+    if group is not None and getattr(moe.down, "bias", None) is not None:
+        raise ValueError("expert down-projection bias is unsupported under TP")
     *lead, d = x.shape
     t = math.prod(lead)
     xt = x.reshape(t, d)
@@ -591,14 +604,50 @@ def moe_forward(moe: MoEParams, cfg: ModelConfig, x: torch.Tensor, force_dense: 
     return out.reshape(*lead, d)
 
 
+def _split_bias(q, group):
+    """Under TP a row-parallel layer's bias is added once, after the sum over
+    the group (the JAX package's ``_split_bias``): (the layer without its
+    bias, the bias), the bias of a LoRA wrapper's base included."""
+    if group is None or q.bias is None:
+        return q, None
+    from .linear import LoRALinear
+
+    if isinstance(q, (LoRALinear, MultiLoRALinear)):  # the bias lives on the base
+        return dataclasses.replace(q, base=dataclasses.replace(q.base, bias=None)), q.bias
+    return dataclasses.replace(q, bias=None), q.bias
+
+
 def _layer_forward(lp: LayerParams, cfg: ModelConfig, x, k_cache, v_cache, ctx: _StepContext, layer_idx: int = 0,
-                   adapter_idx: torch.Tensor | None = None):
-    """One decoder block (tp = 1).  Writes this step's K/V into the layer's
-    cache tensors in place; returns the new hidden state.  ``adapter_idx``
-    goes to every linear; only ``MultiLoRALinear`` targets read it."""
+                   adapter_idx: torch.Tensor | None = None, group=None):
+    """One decoder block.  Writes this step's K/V into the layer's cache
+    tensors in place; returns the new hidden state.  ``adapter_idx`` goes to
+    every linear; only ``MultiLoRALinear`` targets read it.
+
+    ``group`` (tensor parallelism, ``parallel/tp.py``): ``lp`` holds this
+    rank's local shards, so the head counts come from the local widths; the
+    row-parallel wo and w_down (or the MoE block) return f32 partials that
+    are summed over the group, then get their bias, then are cast: exactly 2
+    all-reduces per dense layer (the JAX package's psum pattern)."""
     b, l, _ = x.shape
-    n_heads, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    if lp.wqkv is not None:  # local head counts from the fused width (exact: the width scales 1/tp)
+        full = (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+        n_heads, n_kv = cfg.n_heads * lp.wqkv.n_out // full, cfg.n_kv_heads * lp.wqkv.n_out // full
+    else:
+        n_heads, n_kv = lp.wq.n_out // hd, lp.wk.n_out // hd
     akw = {} if adapter_idx is None else dict(adapter_idx=adapter_idx)
+    row_kw = dict(akw) if group is None else dict(akw, out_dtype=torch.float32)
+
+    def reduce(y, bias):
+        # partials stay f32 until after the sum (per-rank bf16 rounding would add O(tp) ulps per layer)
+        if group is not None:
+            from ..parallel.tp import all_reduce_
+
+            y = all_reduce_(y, group)
+        if bias is not None:
+            y = y + bias
+        return y.to(x.dtype)
+
     h = rms_norm(x, lp.attn_norm, cfg.rms_eps, cfg.norm_offset)
     if lp.wqkv is not None:
         qkv = lp.wqkv(h, **akw)
@@ -618,19 +667,21 @@ def _layer_forward(lp: LayerParams, cfg: ModelConfig, x, k_cache, v_cache, ctx: 
     _write_kv(v_cache, v, ctx)
     rows, window = k_cache.shape[1], cfg.layer_sliding_window(layer_idx)
     attn = ctx.attend[(rows, window)](q, k_cache, v_cache, _attn_scale(cfg), cfg.attn_logit_softcap)
-    y = lp.wo(attn.reshape(b, l, n_heads * hd), **akw).to(x.dtype)
+    wo, wo_bias = _split_bias(lp.wo, group)
+    y = reduce(wo(attn.reshape(b, l, n_heads * hd), **row_kw), wo_bias)
     if lp.post_attn_norm is not None:
         y = rms_norm(y, lp.post_attn_norm, cfg.rms_eps, cfg.norm_offset)
     x = x + y
     h = rms_norm(x, lp.mlp_norm, cfg.rms_eps, cfg.norm_offset)
     if lp.moe is not None:
-        y = moe_forward(lp.moe, cfg, h).to(x.dtype)
+        y = reduce(moe_forward(lp.moe, cfg, h, group=group), None)
     else:
         if lp.w_gateup is not None:
             gate, up = torch.chunk(lp.w_gateup(h, **akw), 2, dim=-1)
         else:
             gate, up = lp.w_gate(h, **akw), lp.w_up(h, **akw)
-        y = lp.w_down(_act(cfg, gate).to(up.dtype) * up, **akw).to(x.dtype)
+        wd, wd_bias = _split_bias(lp.w_down, group)
+        y = reduce(wd(_act(cfg, gate).to(up.dtype) * up, **row_kw), wd_bias)
     if lp.post_mlp_norm is not None:
         y = rms_norm(y, lp.post_mlp_norm, cfg.rms_eps, cfg.norm_offset)
     return x + y
@@ -645,7 +696,8 @@ def has_multi_lora(params: ModelParams) -> bool:
 
 def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCache,
             positions: torch.Tensor | None = None, last_only: bool = False,
-            last_index: int | None = None, adapter_idx: torch.Tensor | None = None) -> tuple[torch.Tensor, KVCache]:
+            last_index: int | None = None, adapter_idx: torch.Tensor | None = None,
+            group=None) -> tuple[torch.Tensor, KVCache]:
     """Run L tokens (B, L) through the model, appending to the cache.
 
     Returns (logits (B, L', vocab) f32, cache with the new lengths); L' is 1
@@ -656,6 +708,10 @@ def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor, cache: 
     the tokens' device, for ``MultiLoRALinear`` params
     (``models.lora.attach_multi_lora``); required exactly when the params
     carry adapter stacks, as in the JAX package.
+
+    ``group``: the model group of a tensor-parallel mesh when ``params`` and
+    ``cache`` are this rank's local shards (``parallel.tp_forward_fn``): the
+    logits are then this rank's vocabulary shard (B, L', vocab / tp).
     """
     multi = has_multi_lora(params)
     if adapter_idx is None and multi:
@@ -688,7 +744,8 @@ def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor, cache: 
             ctx.attend[(rows, window)] = _attention_route(positions, *kv_pos[rows], window)
 
     for i, lp in enumerate(params.layers):
-        x = _layer_forward(lp, cfg, x, cache.k[i], cache.v[i], ctx, layer_idx=i, adapter_idx=adapter_idx)
+        x = _layer_forward(lp, cfg, x, cache.k[i], cache.v[i], ctx, layer_idx=i, adapter_idx=adapter_idx,
+                           group=group)
     x = rms_norm(x, params.final_norm, cfg.rms_eps, cfg.norm_offset)
     if last_index is not None:
         x = x[:, last_index : last_index + 1]
@@ -746,27 +803,30 @@ def norm_names(cfg: ModelConfig) -> tuple[str, str, str | None, str | None]:
     return ("input_layernorm", "post_attention_layernorm", None, None)
 
 
-def fuse_layer(lp: LayerParams) -> LayerParams:
+def fuse_layer(lp: LayerParams, tp: int = 1) -> LayerParams:
     """Fuse QKV and gate|up (the expert stacks' too) in one layer: one kernel
-    launch each.  Only pair-K linears fuse; split-K ones stay as they are."""
+    launch each.  Only pair-K linears fuse; split-K ones stay as they are.
+    ``tp`` interleaves the fused columns per shard (``fuse_linears``), so a
+    contiguous column split stays exact."""
     def fusable(*ls):
         return all(isinstance(l, QuantLinear) and l.layout == "pairk" for l in ls)
 
     rep = {}
     if fusable(lp.wq, lp.wk, lp.wv):
-        rep.update(wqkv=fuse_linears([lp.wq, lp.wk, lp.wv]), wq=None, wk=None, wv=None)
+        rep.update(wqkv=fuse_linears([lp.wq, lp.wk, lp.wv], tp=tp), wq=None, wk=None, wv=None)
     if fusable(lp.w_gate, lp.w_up):
-        rep.update(w_gateup=fuse_linears([lp.w_gate, lp.w_up]), w_gate=None, w_up=None)
+        rep.update(w_gateup=fuse_linears([lp.w_gate, lp.w_up], tp=tp), w_gate=None, w_up=None)
     if lp.moe is not None and fusable(lp.moe.gate, lp.moe.up):
         # fuse_linears concatenates on the last axis, so stacked experts fuse in one call
-        rep.update(moe=dataclasses.replace(lp.moe, gateup=fuse_linears([lp.moe.gate, lp.moe.up]), gate=None,
+        rep.update(moe=dataclasses.replace(lp.moe, gateup=fuse_linears([lp.moe.gate, lp.moe.up], tp=tp), gate=None,
                                            up=None))
     return dataclasses.replace(lp, **rep)
 
 
-def fuse_params(params: ModelParams) -> ModelParams:
-    """Fuse QKV and gate|up in every layer (:func:`fuse_layer`)."""
-    return dataclasses.replace(params, layers=[fuse_layer(lp) for lp in params.layers])
+def fuse_params(params: ModelParams, tp: int = 1) -> ModelParams:
+    """Fuse QKV and gate|up in every layer (:func:`fuse_layer`), the
+    columns interleaved per shard for a model-axis width of ``tp``."""
+    return dataclasses.replace(params, layers=[fuse_layer(lp, tp=tp) for lp in params.layers])
 
 
 def quantize_params(cfg: ModelConfig, weights: dict[str, np.ndarray], fuse: bool = False,

@@ -6,7 +6,8 @@
         [--prefix-cache] [--prefix-store 0] [--no-sliding-kv] [--logprobs]
         [--kv-dtype bfloat16] [--warmup-prompt-len N] [--prefill-shadow]
         [--lora DIR | --lora NAME=DIR ...] [--lora-merge]
-        [--tokenizer DIR] [--device cuda]
+        [--tokenizer DIR] [--device cuda] [--multihost [--coordinator HOST:PORT]
+        [--tp N]]
 
 Counterpart of ``python -m torch_bnb_fp4_tpu.serve``: convert once, then
 serve the packed bytes and POST token-id prompts (serve/server.py).  Without
@@ -27,19 +28,31 @@ untouched FP4 bases), ``--lora-merge`` folds it into the weights instead
 several adapters on the one base and each request picks one with
 ``{"adapter": NAME}`` (omitted: the base model; an unknown name is a 400).
 Adapters attach before ``--prefill-shadow``, which then shadows their bases.
-The JAX CLI's tensor-parallel and multi-host flags are accepted and refused
-with "not yet ported" when set.  Ctrl-C (SIGINT) stops the server and exits
-0.
+Ctrl-C (SIGINT) stops the server and exits 0.
+
+``--multihost`` serves one model over several processes, one rank each
+(``parallel/tp.py``, ``serve/multihost.py``): every rank runs this command;
+the job's address, size and this rank come from ``--coordinator HOST:PORT``
+and the ``RANK`` / ``WORLD_SIZE`` environment, or from torchrun's
+environment alone (``torchrun --nproc-per-node N -m
+torch_bnb_fp4_tpu_torch.serve --multihost ...``).  ``--tp N`` is the
+model-axis width (default: the world size); the data axis takes the rest
+(world / N replicas, ``--max-batch`` a multiple of it).  This differs from
+the JAX CLI by design: there a process drives several devices, so data =
+process count and model = devices per process; here one process drives one
+device.  Each rank loads the checkpoint onto the CPU, repacked and fused for
+the model axis, attaches the adapters there, keeps its shard on its device
+(``--device``: ``cuda`` is ``cuda:{local rank % cards}``, ``cpu`` for the
+plain versions), then attaches the prefill shadows to its shard.  Rank 0
+serves HTTP; the others follow its ticks and exit 0 when it stops.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import time
-
-# JAX CLI flags the port does not serve yet (refused when not at their default)
-_UNPORTED = ("--multihost", "--coordinator", "--tp")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -82,11 +95,36 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--lora-merge", action="store_true",
                     help="fold the --lora adapter into the base weights and requantize (zero runtime overhead, FP4 "
                          "envelope on the delta)")
-    # accepted for the JAX CLI's command lines; refused below when set
-    ap.add_argument("--multihost", action="store_true")
-    ap.add_argument("--coordinator", default=None)
-    ap.add_argument("--tp", type=int, default=0)
+    ap.add_argument("--multihost", action="store_true",
+                    help="multi-process serving, one rank per process: HTTP on rank 0, the engine loop in lockstep "
+                         "on every rank (torchrun's environment, or --coordinator with RANK/WORLD_SIZE)")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="the job's rendezvous address for --multihost (this rank and the world size from the "
+                         "RANK and WORLD_SIZE environment variables)")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="model-axis width under --multihost (0 = the world size; the data axis takes the rest)")
     return ap
+
+
+def multihost_rules(args: argparse.Namespace) -> None:
+    """The --multihost, --coordinator and --tp rules: a ``ValueError`` with
+    the reason where they are broken (a rank's own count of processes is
+    only known after the rendezvous, :func:`build_engine`)."""
+    if args.tp < 0:
+        raise ValueError(f"--tp must be >= 0, got {args.tp}")
+    if not args.multihost:
+        if args.coordinator is not None:
+            raise ValueError("--coordinator applies to --multihost only")
+        if args.tp > 1:
+            raise ValueError(f"--tp {args.tp} needs --multihost: one process serves one rank of the model axis")
+        return
+    if args.coordinator is None:
+        missing = [v for v in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK") if v not in os.environ]
+    else:
+        missing = [v for v in ("WORLD_SIZE", "RANK") if v not in os.environ]
+    if missing:
+        raise ValueError(f"--multihost needs {', '.join(missing)} in the environment (torchrun sets them; with "
+                         "--coordinator set RANK and WORLD_SIZE)")
 
 
 def lora_specs(args: argparse.Namespace) -> tuple[dict[str, str] | None, str | None]:
@@ -114,18 +152,36 @@ def build_engine(args: argparse.Namespace):
     tiny random one), the adapters (:func:`lora_specs`: stacked for
     per-request serving, or one attached, or merged with --lora-merge), the
     shadows, the engine settings, and the warmup when --warmup-prompt-len is
-    set.  Invalid settings raise ``ValueError`` as the JAX engine does."""
+    set.  With --multihost it first joins the job (``init_multihost``),
+    builds the mesh and keeps this rank's shard.  Invalid settings raise
+    ``ValueError`` as the JAX engine does."""
     from ..models import transformer as T
     from ..models.linear import attach_prefill_shadow
     from ..utils.device import resolve_device
     from . import Engine, EngineConfig
 
-    device = resolve_device(args.device)
     named_loras, lora_dir = lora_specs(args)
+    mesh, tp = None, 1
+    if args.multihost:
+        import torch.distributed as dist
+
+        from ..parallel import init_multihost, make_mesh, validate_tp
+
+        init_multihost(coordinator_address=args.coordinator)
+        world = dist.get_world_size()
+        tp = args.tp or world
+        if world % tp:
+            raise ValueError(f"--tp {tp} does not divide the {world} processes")
+        mesh = make_mesh(n_model=tp, n_data=world // tp, device=None if args.device == "cuda" else args.device)
+        logging.info("multihost: rank %d of %d, mesh data=%d x model=%d on %s (%s)", mesh.rank, world, mesh.n_data,
+                     tp, mesh.device, mesh.backend)
+        device = resolve_device("cpu")  # the full model lives on the CPU; each rank keeps its shard
+    else:
+        device = resolve_device(args.device)
     if args.ckpt:
         from ..convert import load_checkpoint
 
-        cfg, params = load_checkpoint(args.ckpt, device=device)
+        cfg, params = load_checkpoint(args.ckpt, tp=tp, device=device)
     else:
         cfg = T.ModelConfig.tiny_test(n_layers=2)
         params = T.quantize_params(cfg, T.random_weights(cfg, seed=0), device=device)
@@ -143,14 +199,23 @@ def build_engine(args: argparse.Namespace):
         params = (merge_lora if args.lora_merge else attach_lora)(params, cfg, adapter)
         logging.info("%s LoRA adapter %s (r=%d, alpha=%g, %d modules)", "merged" if args.lora_merge else "attached",
                      lora_dir, adapter.r, adapter.alpha, len(adapter.weights))
-    if args.prefill_shadow:
+    if mesh is not None:
+        from ..parallel import shard_params
+        from ..parallel.tp import attach_local_shadow
+
+        validate_tp(cfg, tp)
+        params = shard_params(params, mesh)
+        if args.prefill_shadow:
+            params = attach_local_shadow(params, tp)
+            logging.info("attached int8 prefill shadows to this rank's shard")
+    elif args.prefill_shadow:
         params = attach_prefill_shadow(params)
         logging.info("attached int8 prefill shadows (+1 byte/weight on the device)")
     eng = Engine(params, cfg, EngineConfig(
         max_batch=args.max_batch, max_len=args.max_len, inner_steps=args.inner_steps, temperature=args.temperature,
         top_p=args.top_p, top_k=args.top_k, prefill_chunk=args.prefill_chunk, spec_tokens=args.spec_tokens,
         prefix_cache=args.prefix_cache, prefix_store=args.prefix_store, sliding_kv=not args.no_sliding_kv,
-        kv_dtype=args.kv_dtype, logprobs=args.logprobs), adapter_ids=adapter_ids)
+        kv_dtype=args.kv_dtype, logprobs=args.logprobs), adapter_ids=adapter_ids, mesh=mesh)
     if args.warmup_prompt_len:
         logging.info("warming up (prompts to %d)...", args.warmup_prompt_len)
         t0 = time.perf_counter()
@@ -162,12 +227,9 @@ def build_engine(args: argparse.Namespace):
 def main(argv: list[str] | None = None) -> None:
     ap = _parser()
     args = ap.parse_args(argv)
-    for flag in _UNPORTED:
-        dest = flag[2:].replace("-", "_")
-        if getattr(args, dest) != ap.get_default(dest):
-            ap.error(f"{flag} is not yet ported to torch_bnb_fp4_tpu_torch")
     try:
         lora_specs(args)
+        multihost_rules(args)
     except ValueError as e:
         ap.error(str(e))
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
@@ -181,7 +243,19 @@ def main(argv: list[str] | None = None) -> None:
         from transformers import AutoTokenizer
 
         tok = AutoTokenizer.from_pretrained(args.tokenizer, local_files_only=True)
-    srv = EngineServer(eng, host=args.host, port=args.port, tokenizer=tok).start()
+    if eng.mesh is not None:
+        import torch.distributed as dist
+
+        from . import MultihostEngineServer, follow
+
+        if eng.mesh.rank != 0:
+            logging.info("follower rank %d: engine loop in lockstep with rank 0", eng.mesh.rank)
+            follow(eng)  # returns when rank 0's server stops
+            dist.destroy_process_group()
+            return
+        srv = MultihostEngineServer(eng, host=args.host, port=args.port, tokenizer=tok).start()
+    else:
+        srv = EngineServer(eng, host=args.host, port=args.port, tokenizer=tok).start()
     # flushed: a parent reading this through a pipe waits for the line
     print(f"serving on http://{srv.host}:{srv.port}", flush=True)
     try:
@@ -190,6 +264,10 @@ def main(argv: list[str] | None = None) -> None:
     except KeyboardInterrupt:
         print("shutting down", flush=True)
         srv.stop()
+    if eng.mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

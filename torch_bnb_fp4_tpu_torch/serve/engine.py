@@ -1,7 +1,8 @@
-"""Continuous-batching serving engine (single device, slot-based).
+"""Continuous-batching serving engine (slot-based; one device, or one rank
+of a tensor/data-parallel mesh).
 
 Counterpart of ``torch_bnb_fp4_tpu/serve/engine.py`` (every ``EngineConfig``
-field and per-request LoRA adapters; meshes are not ported):
+field, per-request LoRA adapters and meshes):
 
   * one batched decode over ``max_batch`` fixed slots (or, with
     ``batch_buckets``, over the smallest power-of-two prefix of them that
@@ -41,6 +42,24 @@ field and per-request LoRA adapters; meshes are not ported):
     by adapter index: KV rows computed under one adapter are never forked
     into a request under another (the JAX engine matches by tokens alone;
     ROADMAP R7).
+
+  * with a ``mesh`` (``parallel.make_mesh``; params from
+    ``parallel.shard_params``) every rank runs this same host loop in
+    lockstep on identical submissions.  Decode slots shard over the data
+    axis: global slot i lives on data replica ``i % n_data`` at local row
+    ``i // n_data`` (so a batch bucket, a power of two times n_data, is a
+    local prefix of every replica), and the retired-prefix store rows
+    follow the same map.  Each rank's cache holds its replica's rows and its
+    model index's KV heads.  Prefill runs at batch 1 alike on every data
+    replica and its KV lands only in the owning replica's rows; a row that
+    moves between replicas (compaction, the prefix store) or is forked from
+    another replica's row travels by one broadcast over the data group.
+    Sampling reads the full-vocabulary logits (gathered over the model
+    group); the generator is seeded alike on every rank and draws the noise
+    of the whole batch, each replica keeping its rows, so its draws are a
+    single-device engine's.  The tick's host fetch gathers tokens, counts
+    and logprobs over the data group, so every rank's host state agrees.
+    With a mesh the engine decodes eagerly (see :meth:`Engine._capture`).
 
 KV writes are in place (``index_put_`` / ``copy_`` on the engine's cache
 tensors); the JAX engine donates its cache to functional programs instead.
@@ -183,26 +202,41 @@ def filtered_logits(ecfg: EngineConfig, logits: torch.Tensor, temp=None, top_p=N
     return scaled
 
 
-def categorical(logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+def _uniform(shape, gen: torch.Generator, device, shard: tuple[int, int] | None) -> torch.Tensor:
+    """Uniforms of ``shape`` from ``gen``.  ``shard`` (index, count): the rows
+    (leading axis) are data shard ``index`` of ``count``, interleaved (local
+    row j is global row ``j * count + index``): the uniforms of all ``count``
+    shards are drawn and this shard's rows kept, so every rank's generator
+    advances alike and the draws equal an unsharded batch's."""
+    if shard is None:
+        return torch.rand(shape, generator=gen, device=device, dtype=torch.float32)
+    i, n = shard
+    u = torch.rand((shape[0] * n, *shape[1:]), generator=gen, device=device, dtype=torch.float32)
+    return u.reshape(shape[0], n, *shape[1:])[:, i]
+
+
+def categorical(logits: torch.Tensor, gen: torch.Generator, shard: tuple[int, int] | None = None) -> torch.Tensor:
     """One draw per row of softmax(``logits``) over the last axis, by
     Gumbel-max as ``jax.random.categorical`` draws (uniforms from ``gen``,
-    clamped away from 0 as JAX's are); int32.  No host sync."""
-    u = torch.rand(logits.shape, generator=gen, device=logits.device, dtype=torch.float32)
+    clamped away from 0 as JAX's are); int32.  No host sync.  ``shard``: see
+    :func:`_uniform`."""
+    u = _uniform(logits.shape, gen, logits.device, shard)
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(torch.float32).tiny)))
     return torch.argmax(logits.float() + gumbel, dim=-1).to(torch.int32)
 
 
 def select(ecfg: EngineConfig, logits: torch.Tensor, gen: torch.Generator | None, temp=None,
-           top_p=None) -> torch.Tensor:
+           top_p=None, shard: tuple[int, int] | None = None) -> torch.Tensor:
     """Next tokens (B,) int32 from (B, V) logits (JAX's ``Engine._select``):
     argmax on a greedy engine (temperature 0: ``gen`` is not used); else a
     draw from :func:`filtered_logits`, with rows whose own temperature is 0
-    taking the argmax."""
+    taking the argmax.  ``shard``: the rows are a data shard
+    (:func:`_uniform`)."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     if ecfg.temperature <= 0.0:
         return greedy
     t = torch.full((logits.shape[0],), ecfg.temperature, device=logits.device) if temp is None else temp
-    sampled = categorical(filtered_logits(ecfg, logits, t, top_p), gen)
+    sampled = categorical(filtered_logits(ecfg, logits, t, top_p), gen, shard)
     return torch.where(t > 0.0, sampled, greedy)
 
 
@@ -237,14 +271,15 @@ def prompt_lookup_draft(hist: torch.Tensor, hlen: torch.Tensor, *, k: int, n: in
 
 
 def spec_verify(ecfg: EngineConfig, logits: torch.Tensor, draft: torch.Tensor, gen: torch.Generator | None,
-                temp=None, top_p=None) -> tuple[torch.Tensor, torch.Tensor]:
+                temp=None, top_p=None, shard: tuple[int, int] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Verify drafts (B, k) against (B, k+1, V) logits; returns (emitted
     (B, k+1) int32, emit counts (B,) int32), JAX's ``Engine._spec_verify``:
     greedy rows accept the longest prefix matching the argmax, then emit the
     argmax correction; sampling rows accept draft x_j with probability
     p_j(x_j) under :func:`filtered_logits`, correct the first rejection by a
     draw from p_m without x_m, and earn a bonus draw from p_k when all are
-    accepted, so each emitted token is distributed as plain sampling's."""
+    accepted, so each emitted token is distributed as plain sampling's.
+    ``shard``: the rows are a data shard (:func:`_uniform`)."""
     b, k1, _ = logits.shape
     k = k1 - 1
     dev = logits.device
@@ -257,12 +292,12 @@ def spec_verify(ecfg: EngineConfig, logits: torch.Tensor, draft: torch.Tensor, g
         f = filtered_logits(ecfg, logits, t[:, None], None if top_p is None else top_p[:, None])
         probs = torch.softmax(f, dim=-1)
         p_draft = torch.gather(probs[:, :-1], 2, draft[:, :, None])[..., 0]  # (B, k)
-        u = torch.rand((b, k), generator=gen, device=dev, dtype=torch.float32)
+        u = _uniform((b, k), gen, dev, shard)
         ok = torch.where(t[:, None] > 0.0, u < p_draft, choice[:, :-1] == draft)
         m = torch.cumprod(ok.long(), dim=1).sum(dim=1)
         f_res = f.clone()
         f_res[:, :k].scatter_(2, draft[:, :, None], -torch.inf)  # the bonus row k stays whole
-        choice = torch.where(t[:, None] > 0.0, categorical(f_res, gen).long(), choice)
+        choice = torch.where(t[:, None] > 0.0, categorical(f_res, gen, shard).long(), choice)
     t_idx = torch.arange(k + 1, device=dev)[None, :]
     corr = torch.gather(choice, 1, m[:, None])
     dpad = torch.cat([draft, torch.zeros((b, 1), dtype=torch.long, device=dev)], dim=1)
@@ -299,25 +334,47 @@ class Engine:
     ``adapter_ids``: the name -> index map of ``models.lora.attach_multi_lora``
     when ``params`` carry per-request adapter stacks (``MultiLoRALinear``);
     requests then pick an adapter by name (``Request.adapter``).  Params and
-    ids travel together, as in the JAX engine."""
+    ids travel together, as in the JAX engine.
+
+    ``mesh``: a ``parallel.Mesh``; ``params`` are then this rank's shards
+    (``parallel.shard_params``), and every rank builds the engine and calls
+    ``submit``/``abort``/``step`` alike (``serve/multihost.py``).
+    ``max_batch`` and ``max_batch + prefix_store`` must divide over the data
+    axis."""
 
     def __init__(self, params: T.ModelParams, cfg: T.ModelConfig, ecfg: EngineConfig, on_token=None,
-                 adapter_ids: dict[str, int] | None = None):
-        self.params, self.cfg, self.ecfg, self.on_token = params, cfg, ecfg, on_token
+                 adapter_ids: dict[str, int] | None = None, mesh=None):
+        self.params, self.cfg, self.ecfg, self.on_token, self.mesh = params, cfg, ecfg, on_token, mesh
         self.adapter_ids = dict(adapter_ids) if adapter_ids else None
         self._mlora = self.adapter_ids is not None
         if self._mlora != T.has_multi_lora(params):
             raise ValueError("params and adapter_ids disagree: pass BOTH results of attach_multi_lora (params and "
                              "ids) or neither")
-        self.device = dev = params.embed.device
         b, ml = ecfg.max_batch, ecfg.max_len
+        # data replicas and this rank's index among them; its model group (None at tp = 1)
+        self._nd, self._di, self._group = 1, 0, None
+        self._cache_cfg = cfg  # the geometry of this rank's caches (its KV heads)
+        if mesh is not None:
+            if b % mesh.n_data:
+                raise ValueError(f"max_batch {b} must divide over data axis {mesh.n_data}")
+            if (b + ecfg.prefix_store) % mesh.n_data:
+                raise ValueError(f"max_batch + prefix_store ({b} + {ecfg.prefix_store}) must divide over data axis "
+                                 f"{mesh.n_data}")
+            if params.embed.device != mesh.device:
+                raise ValueError(f"params live on {params.embed.device}, the mesh's device is {mesh.device} "
+                                 "(parallel.shard_params)")
+            self._nd, self._di = mesh.n_data, mesh.data_index
+            self._group = mesh.model_group if mesh.n_model > 1 else None
+            self._cache_cfg = dataclasses.replace(cfg, n_kv_heads=cfg.n_kv_heads // mesh.n_model)
+        self.device = dev = params.embed.device
+        bl = b // self._nd  # this rank's decode slots
         self._kv_dtype = getattr(torch, ecfg.kv_dtype)
         # rings only when every multi-row cache write is chunk-aligned: chunked
         # prefill without speculation (spec writes k+1 rows anywhere)
         self._ring_chunk = (ecfg.prefill_chunk if ecfg.sliding_kv and ecfg.prefill_chunk and not ecfg.spec_tokens
                             and any(cfg.layer_sliding_window(i) is not None for i in range(cfg.n_layers)) else 0)
         # retired-prefix store rows live past the decode slots in the same cache tensors
-        self.cache = T.KVCache.zeros(cfg, b + ecfg.prefix_store, ml, dtype=self._kv_dtype,
+        self.cache = T.KVCache.zeros(self._cache_cfg, (b + ecfg.prefix_store) // self._nd, ml, dtype=self._kv_dtype,
                                      write_chunk=self._ring_chunk, device=dev)
         self._ring_min = self.cache.min_rows if self._ring_chunk else None
         self._store: list[dict] = []  # LRU of stored prefixes: dicts(row, tokens, aidx); index 0 = LRU
@@ -354,23 +411,23 @@ class Engine:
         self._slots_dirty = True  # active mask / temp / top_p / adapter changed: re-upload before the next tick
         self._hist_dirty = True  # slot set changed: rebuild the speculation history
         self.step_logits: torch.Tensor | None = None
-        # static device buffers of the decode programs (updated in place, never rebound)
-        self._tok = torch.zeros(b, dtype=torch.int32, device=dev)
-        self._active = torch.zeros(b, dtype=torch.bool, device=dev)
-        self._temp = torch.full((b,), ecfg.temperature, dtype=torch.float32, device=dev)
-        self._top_p = torch.full((b,), ecfg.top_p, dtype=torch.float32, device=dev)
-        self._aidx = torch.zeros(b, dtype=torch.int32, device=dev)
+        # static device buffers of the decode programs, over this rank's slots (updated in place, never rebound)
+        self._tok = torch.zeros(bl, dtype=torch.int32, device=dev)
+        self._active = torch.zeros(bl, dtype=torch.bool, device=dev)
+        self._temp = torch.full((bl,), ecfg.temperature, dtype=torch.float32, device=dev)
+        self._top_p = torch.full((bl,), ecfg.top_p, dtype=torch.float32, device=dev)
+        self._aidx = torch.zeros(bl, dtype=torch.int32, device=dev)
         steps = ecfg.inner_steps
-        self._out_tok = torch.zeros((steps, b), dtype=torch.int32, device=dev)
-        self._out_lp = torch.zeros((steps, b), dtype=torch.float32, device=dev)
+        self._out_tok = torch.zeros((steps, bl), dtype=torch.int32, device=dev)
+        self._out_lp = torch.zeros((steps, bl), dtype=torch.float32, device=dev)
         k1 = ecfg.spec_tokens + 1
         if ecfg.spec_tokens:
             # token history per slot, plus one sink column that takes the writes of rejected positions
-            self._hist = torch.zeros((b, ml + 2), dtype=torch.int32, device=dev)
-            self._hlen = torch.zeros(b, dtype=torch.int32, device=dev)
-            self._spec_tok = torch.zeros((steps, b, k1), dtype=torch.int32, device=dev)
-            self._spec_cnt = torch.zeros((steps, b), dtype=torch.int32, device=dev)
-            self._spec_lp = torch.zeros((steps, b, k1), dtype=torch.float32, device=dev)
+            self._hist = torch.zeros((bl, ml + 2), dtype=torch.int32, device=dev)
+            self._hlen = torch.zeros(bl, dtype=torch.int32, device=dev)
+            self._spec_tok = torch.zeros((steps, bl, k1), dtype=torch.int32, device=dev)
+            self._spec_cnt = torch.zeros((steps, bl), dtype=torch.int32, device=dev)
+            self._spec_lp = torch.zeros((steps, bl, k1), dtype=torch.float32, device=dev)
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(ecfg.seed)
         self._graphs: dict[tuple, _Graph] = {}
@@ -380,16 +437,47 @@ class Engine:
 
     def _forward(self, tokens: torch.Tensor, cache: T.KVCache, aidx: torch.Tensor | None, **kw):
         """``T.forward`` on the engine's params; ``aidx`` (B,) int32 reaches
-        the adapter stacks of a multi-LoRA engine and is dropped otherwise."""
-        return T.forward(self.params, self.cfg, tokens, cache, adapter_idx=aidx if self._mlora else None, **kw)
+        the adapter stacks of a multi-LoRA engine and is dropped otherwise.
+        With a mesh: this rank's shards, the logits gathered over the model
+        group to the full vocabulary."""
+        logits, cache = T.forward(self.params, self.cfg, tokens, cache, adapter_idx=aidx if self._mlora else None,
+                                  group=self._group, **kw)
+        if self._group is not None:
+            from ..parallel.tp import gather_vocab
+
+            logits = gather_vocab(logits, self.mesh)
+        return logits, cache
+
+    def _shard(self) -> tuple[int, int] | None:
+        """(data index, data replicas) of this rank's decode rows for the
+        sampling draws; None without data sharding."""
+        return (self._di, self._nd) if self._nd > 1 else None
+
+    def _mine(self, a):
+        """This rank's entries of a per-slot host array (slots i with
+        i % n_data == its data index, in local row order)."""
+        return a[self._di :: self._nd]
+
+    def _host_fetch(self, x: torch.Tensor, axis: int) -> np.ndarray:
+        """Device -> host for engine bookkeeping: ``x`` holds this rank's
+        decode rows along ``axis``; with data replicas their rows are
+        gathered over the data group and put back in global slot order, so
+        every rank sees every slot (the JAX engine's ``_host_fetch``)."""
+        if self._nd == 1:
+            return x.cpu().numpy()
+        from ..parallel.tp import all_gather
+
+        g = all_gather(x.unsqueeze(axis + 1), self.mesh.data_group, dim=axis + 1)  # (..., bl, n_data, ...)
+        return g.reshape(*x.shape[:axis], -1, *x.shape[axis + 1 :]).cpu().numpy()
 
     def _sub_cache(self, bp: int) -> T.KVCache:
-        """The first ``bp`` slots of the cache (views: writes land in place);
-        idle slots get length 0 so their write offset never creeps toward
-        max_len (their tokens are garbage the host ignores)."""
-        c = self.cache
-        return T.KVCache(k=[a[:bp] for a in c.k], v=[a[:bp] for a in c.v],
-                         length=torch.where(self._active[:bp], c.length[:bp], torch.zeros_like(c.length[:bp])))
+        """This rank's rows of the first ``bp`` slots of the cache (views:
+        writes land in place); idle slots get length 0 so their write offset
+        never creeps toward max_len (their tokens are garbage the host
+        ignores)."""
+        c, bl = self.cache, bp // self._nd
+        return T.KVCache(k=[a[:bl] for a in c.k], v=[a[:bl] for a in c.v],
+                         length=torch.where(self._active[:bl], c.length[:bl], torch.zeros_like(c.length[:bl])))
 
     @torch.no_grad()
     def _decode_fn(self, bp: int, n: int) -> None:
@@ -397,18 +485,19 @@ class Engine:
         reads the static tokens, mask, temp, top_p and cache; writes the
         tokens (and logprobs) of step j to row j of the output buffers and the
         new lengths into the cache in place."""
+        bl = bp // self._nd
         sub = self._sub_cache(bp)
-        tok, temp, top_p = self._tok[:bp], self._temp[:bp], self._top_p[:bp]
+        tok, temp, top_p = self._tok[:bl], self._temp[:bl], self._top_p[:bl]
         for j in range(n):
-            logits, sub = self._forward(tok[:, None], sub, self._aidx[:bp])
+            logits, sub = self._forward(tok[:, None], sub, self._aidx[:bl])
             lg = logits[:, -1]
-            tok = select(self.ecfg, lg, self._gen, temp, top_p)
-            self._out_tok[j, :bp].copy_(tok)
+            tok = select(self.ecfg, lg, self._gen, temp, top_p, self._shard())
+            self._out_tok[j, :bl].copy_(tok)
             if self.ecfg.logprobs:
-                self._out_lp[j, :bp].copy_(logprob_of(lg, tok))
+                self._out_lp[j, :bl].copy_(logprob_of(lg, tok))
             if self.step_logits is not None:
-                self.step_logits[j, :bp].copy_(lg)
-        self.cache.length[:bp].copy_(sub.length)
+                self.step_logits[j, :bl].copy_(lg)
+        self.cache.length[:bl].copy_(sub.length)
 
     @torch.no_grad()
     def _spec_fn(self, bp: int, s: int) -> None:
@@ -420,25 +509,26 @@ class Engine:
         the output buffers, and advances the history, lengths and cache in
         place."""
         k, n = self.ecfg.spec_tokens, self.ecfg.spec_ngram
+        bl = bp // self._nd
         sub = self._sub_cache(bp)
-        hist, hlen = self._hist[:bp], self._hlen[:bp]
+        hist, hlen = self._hist[:bl], self._hlen[:bl]
         h = hist.shape[1] - 1  # the last column is the sink
-        cur, temp, top_p = self._tok[:bp], self._temp[:bp], self._top_p[:bp]
+        cur, temp, top_p = self._tok[:bl], self._temp[:bl], self._top_p[:bl]
         t_idx = torch.arange(k + 1, dtype=torch.int32, device=self.device)[None, :]
         for si in range(s):
             draft = prompt_lookup_draft(hist[:, :h], hlen, k=k, n=n)
-            logits, sub = self._forward(torch.cat([cur[:, None], draft], dim=1), sub, self._aidx[:bp])
-            emitted, emit = spec_verify(self.ecfg, logits, draft, self._gen, temp, top_p)
+            logits, sub = self._forward(torch.cat([cur[:, None], draft], dim=1), sub, self._aidx[:bl])
+            emitted, emit = spec_verify(self.ecfg, logits, draft, self._gen, temp, top_p, self._shard())
             sub = T.KVCache(k=sub.k, v=sub.v, length=sub.length - (k + 1) + emit)
             pos = torch.where(t_idx < emit[:, None], torch.clamp(hlen[:, None] + t_idx, max=h), h)
             hist.scatter_(1, pos.long(), emitted)
             hlen.add_(emit)
             cur = torch.gather(emitted, 1, (emit - 1)[:, None].long())[:, 0]
-            self._spec_tok[si, :bp].copy_(emitted)
-            self._spec_cnt[si, :bp].copy_(emit)
+            self._spec_tok[si, :bl].copy_(emitted)
+            self._spec_cnt[si, :bl].copy_(emit)
             if self.ecfg.logprobs:
-                self._spec_lp[si, :bp].copy_(logprob_of(logits, emitted))
-        self.cache.length[:bp].copy_(sub.length)
+                self._spec_lp[si, :bl].copy_(logprob_of(logits, emitted))
+        self.cache.length[:bl].copy_(sub.length)
 
     def _program(self, kind: str, key: tuple) -> None:
         """Count ``key``'s first run in ``traces[kind]``."""
@@ -449,9 +539,9 @@ class Engine:
     def _run(self, key: tuple, fn) -> None:
         """Run device program ``fn`` (it reads and writes the static buffers
         only): on the card by replaying its CUDA graph, captured at first use;
-        on the CPU eagerly."""
+        on the CPU, and with a mesh, eagerly."""
         self._program("decode", key)
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.mesh is not None:
             fn()
             return
         g = self._graphs.get(key)
@@ -465,8 +555,10 @@ class Engine:
         state changes are undone: the lengths (and speculation history) are
         restored, and its writes past the lengths are overwritten by the
         replay before any query sees them.  All graphs share one memory pool.
-        A capture that fails raises; the engine never decodes eagerly on the
-        card."""
+        A capture that fails raises; without a mesh the engine never decodes
+        eagerly on the card.  With a mesh it decodes eagerly and captures
+        nothing: gloo collectives cannot be captured in a CUDA graph, and
+        capture over NCCL needs a card per rank (ROADMAP)."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._side = torch.cuda.Stream(self.device)
@@ -521,7 +613,7 @@ class Engine:
         Returns (first token, its logprob or None), on the device."""
         lp_pad = tokens.shape[1]
         self._program("prefill", ("prefill", lp_pad))
-        small = T.KVCache.zeros(self.cfg, 1, lp_pad, dtype=self._kv_dtype, device=self.device)
+        small = T.KVCache.zeros(self._cache_cfg, 1, lp_pad, dtype=self._kv_dtype, device=self.device)
         logits, small = self._forward(tokens, small, aidx, last_index=true_len - 1)
         self._splice_fn(small, slot, true_len)
         return self._first_token(logits, temp, top_p)
@@ -538,37 +630,72 @@ class Engine:
         logits, small = self._forward(tokens, small, aidx, last_index=last_index)
         return (*self._first_token(logits, temp, top_p), small)
 
+    def _row(self, row: int) -> tuple[int, int]:
+        """(data replica, local row) of global cache row ``row``."""
+        return row % self._nd, row // self._nd
+
     def _splice_fn(self, small: T.KVCache, slot: int, true_len: int) -> None:
         """Copy a completed prefill's KV rows into ``slot``, layer by layer:
         ``sm.shape[1]`` rows each (a ring layer of the small cache may hold
         fewer rows than the prompt's bucket).  Slot s holds the same position
         in both caches: either the small layer never wrapped, or it has the big
-        layer's ring size.  Rows past ``true_len`` are masked by kv_valid."""
+        layer's ring size.  Rows past ``true_len`` are masked by kv_valid.
+        With data replicas only the slot's owner writes (every replica ran
+        the prefill alike)."""
+        d, r = self._row(slot)
+        if d != self._di:
+            return
         for big, sm in zip(self.cache.k + self.cache.v, small.k + small.v):
-            big[slot, : sm.shape[1]].copy_(sm[0])
-        self.cache.length[slot] = true_len
+            big[r, : sm.shape[1]].copy_(sm[0])
+        self.cache.length[r] = true_len
+
+    def _bcast_row(self, row: int, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+        """``tensors``, as the owner of global row ``row`` holds them,
+        broadcast over the data group to every replica (the owner's own
+        tensors are returned as they are; the others receive into fresh
+        ones)."""
+        from ..parallel.tp import broadcast_
+
+        d = self._row(row)[0]
+        if d != self._di:
+            tensors = [torch.empty_like(t) for t in tensors]
+        return [broadcast_(t.contiguous(), self.mesh.data_rank(d), self.mesh.data_group) for t in tensors]
 
     def _move_fn(self, src: int, dst: int) -> None:
         """Relocate one cache row's KV and length ``src`` -> ``dst`` (batch
         compaction, the prefix store): one row copy per layer; the src rows
-        are left stale."""
-        for a in self.cache.k + self.cache.v:
-            a[dst].copy_(a[src])
-        self.cache.length[dst] = self.cache.length[src]
+        are left stale.  Across data replicas the row is broadcast from its
+        owner and the destination's owner writes it."""
+        (ds, rs), (dd, rd) = self._row(src), self._row(dst)
+        c = self.cache
+        if ds == dd:
+            if ds == self._di:
+                for a in c.k + c.v:
+                    a[rd].copy_(a[rs])
+                c.length[rd] = c.length[rs]
+            return
+        got = self._bcast_row(src, [a[rs] for a in c.k + c.v] + [c.length[rs : rs + 1]])
+        if dd == self._di:
+            for a, t in zip(c.k + c.v, got):
+                a[rd].copy_(t)
+            c.length[rd] = got[-1][0]
 
     def _fork_fn(self, src: int, length: int, lp_pad: int) -> T.KVCache:
         """A private batch-1 cache for a prompt of bucket ``lp_pad`` holding
         row ``src``'s leading KV rows, write offset ``length`` (prefix
         caching): rows [0, length) are the donor's shared-prefix KV, rows
         beyond are garbage the suffix chunks overwrite or kv_valid masks.
-        Per layer the copy is the small cache's row count for this bucket."""
+        Per layer the copy is the small cache's row count for this bucket.
+        With data replicas the donor's owner broadcasts it to every replica
+        (the suffix prefill runs alike on all of them)."""
         self._program("fork", ("fork", lp_pad))
-        ks, vs = [], []
-        for i in range(self.cfg.n_layers):
-            r = T.ring_rows(lp_pad, self.cfg.layer_sliding_window(i), self._ring_chunk)
-            ks.append(self.cache.k[i][src : src + 1, :r].clone())
-            vs.append(self.cache.v[i][src : src + 1, :r].clone())
-        return T.KVCache(k=ks, v=vs, length=torch.tensor([length], dtype=torch.int32, device=self.device))
+        _, r = self._row(src)
+        n = self.cfg.n_layers
+        rows = [T.ring_rows(lp_pad, self.cfg.layer_sliding_window(i), self._ring_chunk) for i in range(n)]
+        parts = [a[r : r + 1, :rows[i % n]].clone() for i, a in enumerate(self.cache.k + self.cache.v)]
+        if self._nd > 1:
+            parts = self._bcast_row(src, parts)
+        return T.KVCache(k=parts[:n], v=parts[n:], length=torch.tensor([length], dtype=torch.int32, device=self.device))
 
     # -- prefix cache --------------------------------------------------------
 
@@ -649,8 +776,10 @@ class Engine:
     # -- batch buckets -------------------------------------------------------
 
     def _batch_bucket(self, need: int) -> int:
-        """Smallest power of two >= ``need``, at most max_batch."""
-        b = 1
+        """Smallest power of two times the data-axis size >= ``need``, at most
+        max_batch (slots shard over data, so a bucket splits evenly over the
+        replicas)."""
+        b = self._nd
         while b < need:
             b *= 2
         return min(b, self.ecfg.max_batch)
@@ -658,7 +787,7 @@ class Engine:
     def _batch_buckets(self) -> list[int]:
         if not self.ecfg.batch_buckets:
             return [self.ecfg.max_batch]
-        out, b = [], 1
+        out, b = [], self._nd
         while b < self.ecfg.max_batch:
             out.append(b)
             b *= 2
@@ -829,7 +958,7 @@ class Engine:
                 log.debug("admit(prefix) uid=%d donor=%d reused=%d/%d", req.uid, dslot, done, len(req.prompt))
             else:
                 # the small cache covers the whole bucket (ring layers keep fewer rows)
-                small = T.KVCache.zeros(self.cfg, 1, lp_pad, dtype=self._kv_dtype, write_chunk=self._ring_chunk,
+                small = T.KVCache.zeros(self._cache_cfg, 1, lp_pad, dtype=self._kv_dtype, write_chunk=self._ring_chunk,
                                         device=self.device)
             self._pf = dict(req=req, slot=slots[0], small=small, done=done, lp_pad=lp_pad, rows=rows)
         pf = self._pf
@@ -864,16 +993,16 @@ class Engine:
         self._hist_dirty = True
 
     def _upload_slots(self, active: list[int]) -> None:
-        """The active mask, temperatures, top_p and adapter indices into their
-        static buffers (only when the slot set or a slot's values changed)."""
+        """The active mask, temperatures, top_p and adapter indices of this
+        rank's slots into their static buffers (only when the slot set or a
+        slot's values changed)."""
         if not self._slots_dirty:
             return
         mask = np.zeros(self.ecfg.max_batch, bool)
         mask[active] = True
-        self._active.copy_(torch.from_numpy(mask))
-        self._temp.copy_(torch.from_numpy(self.slot_temp))
-        self._top_p.copy_(torch.from_numpy(self.slot_tp))
-        self._aidx.copy_(torch.from_numpy(self.slot_aidx))
+        for buf, a in ((self._active, mask), (self._temp, self.slot_temp), (self._top_p, self.slot_tp),
+                       (self._aidx, self.slot_aidx)):
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(self._mine(a))))
         self._slots_dirty = False
 
     def _upload_hist(self, active: list[int]) -> None:
@@ -881,14 +1010,14 @@ class Engine:
         (only when the slot set changed)."""
         if not self._hist_dirty:
             return
-        hist = np.zeros(tuple(self._hist.shape), np.int32)
+        hist = np.zeros((self.ecfg.max_batch, self._hist.shape[1]), np.int32)
         hlen = np.zeros(self.ecfg.max_batch, np.int32)
         for i in active:
             seq = self.slot_req[i].prompt + self.slot_tokens[i]
             hist[i, : len(seq)] = seq
             hlen[i] = len(seq)
-        self._hist.copy_(torch.from_numpy(hist))
-        self._hlen.copy_(torch.from_numpy(hlen))
+        self._hist.copy_(torch.from_numpy(np.ascontiguousarray(self._mine(hist))))
+        self._hlen.copy_(torch.from_numpy(np.ascontiguousarray(self._mine(hlen))))
         self._hist_dirty = False
 
     def step(self) -> int:
@@ -927,7 +1056,8 @@ class Engine:
         bp = self._batch_bucket(max(active) + 1) if self.ecfg.batch_buckets else self.ecfg.max_batch
         self._last_decode_batch = bp
         self._upload_slots(active)
-        self._tok[:bp].copy_(torch.from_numpy(self.slot_cur[:bp].astype(np.int32)))
+        bl = bp // self._nd
+        self._tok[:bl].copy_(torch.from_numpy(self._mine(self.slot_cur[:bp]).astype(np.int32)))
         k = self.ecfg.spec_tokens
         lps = None
         if k and cap >= k + 1:
@@ -938,11 +1068,11 @@ class Engine:
                 s *= 2
             self._upload_hist(active)
             self._run(("spec", bp, s, self.step_logits is not None), lambda: self._spec_fn(bp, s))
-            toks3 = self._spec_tok[:s, :bp].cpu().numpy()  # the tick's host fetch
-            cnts = self._spec_cnt[:s, :bp].cpu().numpy()
+            toks3 = self._host_fetch(self._spec_tok[:s, :bl], 1)  # the tick's host fetch
+            cnts = self._host_fetch(self._spec_cnt[:s, :bl], 1)
             per_slot = {i: [int(t) for si in range(s) for t in toks3[si, i, : cnts[si, i]]] for i in active}
             if self.ecfg.logprobs:
-                lps3 = self._spec_lp[:s, :bp].cpu().numpy()
+                lps3 = self._host_fetch(self._spec_lp[:s, :bl], 1)
                 lps = {i: [float(x) for si in range(s) for x in lps3[si, i, : cnts[si, i]]] for i in active}
             emitted = sum(len(v) for v in per_slot.values())
             self._spec_emitted += emitted
@@ -951,10 +1081,10 @@ class Engine:
             self._steps += s
         else:
             self._run(("decode", bp, n, self.step_logits is not None), lambda: self._decode_fn(bp, n))
-            toks = self._out_tok[:n, :bp].cpu().numpy()  # the tick's host fetch
+            toks = self._host_fetch(self._out_tok[:n, :bl], 1)  # the tick's host fetch
             per_slot = {i: [int(t) for t in toks[:, i]] for i in active}
             if self.ecfg.logprobs:
-                lpn = self._out_lp[:n, :bp].cpu().numpy()
+                lpn = self._host_fetch(self._out_lp[:n, :bl], 1)
                 lps = {i: [float(x) for x in lpn[:, i]] for i in active}
             self.step_times.append((time.perf_counter() - t_tick) / n)
             self._steps += n
@@ -985,6 +1115,7 @@ class Engine:
         of every power-of-two depth <= inner_steps (and every speculation
         depth s) for every batch bucket, captured as CUDA graphs on the card.
         The engine must be idle: the runs scribble on slot 0 and idle slots.
+        With a mesh every rank warms up alike (its runs are collective).
         Returns the trace counters (JAX's ``Engine.warmup``)."""
         if any(r is not None for r in self.slot_req) or self._pf is not None:
             raise RuntimeError("warmup() must run before serving (cache is scribbled)")
@@ -1000,7 +1131,7 @@ class Engine:
         c = self.ecfg.prefill_chunk
         for lp_pad in buckets:
             if c:
-                small = T.KVCache.zeros(self.cfg, 1, lp_pad, dtype=self._kv_dtype, write_chunk=self._ring_chunk,
+                small = T.KVCache.zeros(self._cache_cfg, 1, lp_pad, dtype=self._kv_dtype, write_chunk=self._ring_chunk,
                                         device=dev)
                 for lo in range(0, lp_pad, c):
                     hi = min(lo + c, lp_pad)
@@ -1059,7 +1190,7 @@ class Engine:
             prefix_hits=self._prefix_hits,
             prefix_tokens_reused=self._prefix_tokens,
             prefix_store_entries=len(self._store),
-            kv_cache_bytes=sum(a.numel() * a.element_size() for a in self.cache.k + self.cache.v),
+            kv_cache_bytes=sum(a.numel() * a.element_size() for a in self.cache.k + self.cache.v),  # this rank's
             mean_ttft_s=sum(c.ttft_s for c in done) / len(done) if done else 0.0,
             mean_tpot_s=(sum((c.total_s - c.ttft_s) / max(len(c.tokens) - 1, 1) for c in done) / len(done)
                          if done else 0.0),

@@ -7,6 +7,8 @@ built from random packed bytes made directly on the device from a seeded
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..models.linear import DenseLinear, QuantLinear
@@ -53,20 +55,30 @@ def synth_dense_linear(gen: torch.Generator, n_out: int, k_in: int, *, scale: fl
 
 
 def synth_params(cfg: ModelConfig, *, quantized: bool = True, seed: int = 0, tp: int = 1, layout: str = "pairk",
-                 fuse: bool = False, device=None) -> ModelParams:
+                 fuse: bool = False, device=None, mesh=None) -> ModelParams:
     """Random ModelParams, quantized FP4 or dense bf16, built on ``device``
     from ``seed``.  ``layout`` "pairk" (f32 scales) or "splitk" (FP4 codes,
     true absmax; wo, w_down and the experts' down packed with ``k_shards =
-    tp``, the row-parallel layout; ``tp`` sets nothing else, the port has no
-    tensor parallelism).  A mixture-of-experts config gets stacked experts
+    tp``, the row-parallel layout).  ``tp`` also interleaves the fused
+    columns per shard (``fuse_linears``), so the result shards over a
+    model axis of ``tp`` (``parallel.shard_params``).  A mixture-of-experts config gets stacked experts
     and a dense router of scale 1 (as the JAX package's ``synth_params``).
     Quantized, ``cfg.quantize_embed`` gives a :class:`QuantEmbedding` of
     uniform bytes, absmax in [0.5, 1.5) * 0.01 and the FP4 codebook, and
     ``cfg.quantize_lm_head`` (pair-K only) a quantized lm_head, as there;
     otherwise both are dense.  ``fuse`` fuses each pair-K layer as it is
     built, so the unfused and fused copies of only one layer coexist;
-    split-K layers are never fused."""
+    split-K layers are never fused.  ``mesh`` (a ``parallel.Mesh``, with
+    ``tp`` its model-axis width and ``device`` its device): this rank's
+    shard, each layer cut as soon as it is built (``parallel.tp.shard_layer``),
+    so the rank holds one full layer at most; the random stream, and so
+    every byte, is the unsharded build's."""
     device = resolve_device(device)
+    if mesh is not None:
+        from ..parallel.tp import shard_layer, shard_params
+
+        if tp != mesh.n_model or device != mesh.device:
+            raise ValueError(f"synth_params(mesh=) needs tp={mesh.n_model} and device={mesh.device}")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     kv_dim = cfg.n_kv_heads * cfg.head_dim
@@ -99,7 +111,8 @@ def synth_params(cfg: ModelConfig, *, quantized: bool = True, seed: int = 0, tp:
         else:
             lp.w_gate, lp.w_up = lin(cfg.ffn_dim, cfg.dim), lin(cfg.ffn_dim, cfg.dim)
             lp.w_down = lin(cfg.dim, cfg.ffn_dim, k_shards=tp)
-        layers.append(fuse_layer(lp) if fuse and quantized else lp)
+        lp = fuse_layer(lp, tp=tp) if fuse and quantized else lp
+        layers.append(lp if mesh is None else shard_layer(lp, mesh))
     if quantized and cfg.quantize_embed:
         embed = QuantEmbedding(
             packed=torch.randint(0, 256, (cfg.vocab_size, cfg.dim // 2), generator=gen, dtype=torch.uint8,
@@ -116,7 +129,10 @@ def synth_params(cfg: ModelConfig, *, quantized: bool = True, seed: int = 0, tp:
                                      device=device)
     else:
         lm_head = synth_dense_linear(gen, cfg.vocab_size, cfg.dim, device=device)
-    return ModelParams(embed=embed, layers=layers, final_norm=ones(cfg.dim), lm_head=lm_head)
+    params = ModelParams(embed=embed, layers=[], final_norm=ones(cfg.dim), lm_head=lm_head)
+    if mesh is not None:
+        params = shard_params(params, mesh)
+    return dataclasses.replace(params, layers=layers)
 
 
 def synth_attention(b: int, lq: int, lk: int, hq: int, hk: int, d: int, *, lens, q_offset=None, seed: int = 0,
