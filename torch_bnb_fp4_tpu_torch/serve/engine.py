@@ -80,6 +80,7 @@ import torch
 
 from ..models import transformer as T
 from ..ops import kernels as K
+from ..utils.profiling import span
 
 log = logging.getLogger("torch_bnb_fp4_tpu_torch.serve")
 
@@ -100,6 +101,9 @@ class Request:
     # LoRA adapter name (an engine built with attach_multi_lora's adapter_ids);
     # None = the base model
     adapter: str | None = None
+    # host clock (time.perf_counter) at which the request arrived, e.g. when a
+    # server received it; None = when submit() takes it
+    arrival: float | None = None
 
 
 @dataclasses.dataclass
@@ -108,8 +112,9 @@ class Completion:
     tokens: list[int]
     prompt_len: int
     finish_reason: str  # "eos" | "stop" | "length" | "abort"
-    ttft_s: float = 0.0  # submit -> first token (queue wait + prefill), host clock
-    total_s: float = 0.0  # submit -> completion
+    ttft_s: float = 0.0  # arrival -> first token (queue wait + prefill), host clock
+    total_s: float = 0.0  # arrival -> completion
+    queue_s: float = 0.0  # arrival -> admission (taken off the queue), or -> abort while queued
     # per-token log_softmax of the raw logits (EngineConfig.logprobs only)
     logprobs: list[float] | None = None
 
@@ -331,6 +336,17 @@ class Engine:
     diagnostic that works under graph replay, where a wrapper around the
     forward runs only at capture.
 
+    ``last_prefill``: the last tick's prefill passes, one
+    ``(uid, rows, cached, real)`` each: the rows the pass ran (the prompt's
+    32-row bucket, a chunk, or a prefix-cache suffix chunk), the positions
+    already cached before it, and the prompt tokens among its rows.
+
+    While a ``torch.profiler`` records, :meth:`step` marks its phases as
+    ``engine.admit`` (holding one ``engine.prefill`` per prefill pass, through
+    :meth:`_bind`'s host fetch of the first token it yields), ``engine.retire``,
+    ``engine.decode``, ``engine.fetch`` and ``engine.deliver``
+    (``utils.profiling.span``).
+
     ``adapter_ids``: the name -> index map of ``models.lora.attach_multi_lora``
     when ``params`` carry per-request adapter stacks (``MultiLoRALinear``);
     requests then pick an adapter by name (``Request.adapter``).  Params and
@@ -387,7 +403,8 @@ class Engine:
         self.slot_temp = np.full(b, ecfg.temperature, np.float32)
         self.slot_tp = np.full(b, ecfg.top_p, np.float32)
         self.slot_aidx = np.zeros(b, np.int32)  # per-slot adapter index (0 = the base model)
-        self._submit_t: dict[int, float] = {}
+        self._arrival: dict[int, float] = {}  # uid -> host clock of arrival, until completion
+        self._queue_s: dict[int, float] = {}  # uid -> arrival to admission, from admission to completion
         self.pending: deque[Request] = deque()
         self.completions: list[Completion] = []
         self._completed = 0
@@ -407,6 +424,7 @@ class Engine:
         self._prefix_tokens = 0
         self._last_decode_batch = b
         self.last_decode_steps = 0
+        self.last_prefill: list[tuple[int, int, int, int]] = []
         self._pf: dict | None = None  # in-flight chunked admission
         self._slots_dirty = True  # active mask / temp / top_p / adapter changed: re-upload before the next tick
         self._hist_dirty = True  # slot set changed: rebuild the speculation history
@@ -846,7 +864,7 @@ class Engine:
             known = sorted(self.adapter_ids) if self.adapter_ids else []
             raise ValueError(f"unknown adapter {req.adapter!r} (engine has {known}); build the engine with "
                              "attach_multi_lora's adapter_ids")
-        self._submit_t[req.uid] = time.perf_counter()
+        self._arrival[req.uid] = time.perf_counter() if req.arrival is None else req.arrival
         self.pending.append(req)
 
     def abort(self, uid: int) -> bool:
@@ -872,10 +890,17 @@ class Engine:
         return False
 
     def _complete_empty(self, req: Request) -> None:
-        t = self._submit_t.pop(req.uid, time.perf_counter())
+        now = time.perf_counter()
+        t = self._arrival.pop(req.uid, now)
         self._completed += 1
         self.completions.append(Completion(uid=req.uid, tokens=[], prompt_len=len(req.prompt), finish_reason="abort",
-                                           ttft_s=0.0, total_s=time.perf_counter() - t))
+                                           ttft_s=0.0, total_s=now - t, queue_s=self._queue_s.pop(req.uid, now - t)))
+
+    def _dequeue(self) -> Request:
+        """Take the next request off the queue, recording its wait."""
+        req = self.pending.popleft()
+        self._queue_s[req.uid] = time.perf_counter() - self._arrival[req.uid]
+        return req
 
     def _free_slots(self) -> list[int]:
         return [i for i, r in enumerate(self.slot_req) if r is None]
@@ -909,7 +934,7 @@ class Engine:
         for slot in self._free_slots():
             if not self.pending or (self.ecfg.admit_budget and admitted >= self.ecfg.admit_budget):
                 break
-            req = self.pending.popleft()
+            req = self._dequeue()
             lp = len(req.prompt)
             lp_pad = self._bucket(lp)
             rows = self._row_tensors(req, slot)
@@ -922,16 +947,22 @@ class Engine:
                 lo = reuse
                 while lo < lp:
                     hi = min(lo + 32, lp_pad)
-                    first, lp0, small = self._chunk_fn(self._chunk_tokens(req.prompt, lo, hi), small,
-                                                       min(lp, hi) - 1 - lo, lp_pad, *rows)
+                    with span("engine.prefill"):
+                        first, lp0, small = self._chunk_fn(self._chunk_tokens(req.prompt, lo, hi), small,
+                                                           min(lp, hi) - 1 - lo, lp_pad, *rows)
+                        self.last_prefill.append((req.uid, hi - lo, lo, min(lp, hi) - lo))
+                        if hi >= lp:
+                            self._splice_fn(small, slot, lp)
+                            self._bind(slot, req, first, lp0)
                     lo = hi
-                self._splice_fn(small, slot, lp)
                 self._prefix_hits += 1
                 self._prefix_tokens += reuse
                 log.debug("admit(prefix) uid=%d slot=%d donor=%d reused=%d/%d", req.uid, slot, dslot, reuse, lp)
             else:
-                first, lp0 = self._prefill_fn(self._chunk_tokens(req.prompt, 0, lp_pad), slot, lp, *rows)
-            self._bind(slot, req, first, lp0)
+                with span("engine.prefill"):
+                    first, lp0 = self._prefill_fn(self._chunk_tokens(req.prompt, 0, lp_pad), slot, lp, *rows)
+                    self.last_prefill.append((req.uid, lp_pad, 0, lp))
+                    self._bind(slot, req, first, lp0)
             admitted += 1
             log.debug("admit uid=%d slot=%d prompt_len=%d", req.uid, slot, lp)
 
@@ -943,7 +974,7 @@ class Engine:
             slots = self._free_slots()
             if not self.pending or not slots:
                 return
-            req = self.pending.popleft()
+            req = self._dequeue()
             lp_pad = self._bucket(len(req.prompt))
             done = 0
             rows = self._row_tensors(req, slots[0])
@@ -965,13 +996,15 @@ class Engine:
         req, lp = pf["req"], len(pf["req"].prompt)
         lo = pf["done"]
         hi = min(lo + c, pf["lp_pad"])
-        first, lp0, pf["small"] = self._chunk_fn(self._chunk_tokens(req.prompt, lo, hi), pf["small"],
-                                                 min(lp, hi) - 1 - lo, pf["lp_pad"], *pf["rows"])
-        pf["done"] = hi
-        if hi < lp:
-            return  # more chunks to go; decode proceeds this tick
-        self._splice_fn(pf["small"], pf["slot"], lp)
-        self._bind(pf["slot"], req, first, lp0)
+        with span("engine.prefill"):
+            first, lp0, pf["small"] = self._chunk_fn(self._chunk_tokens(req.prompt, lo, hi), pf["small"],
+                                                     min(lp, hi) - 1 - lo, pf["lp_pad"], *pf["rows"])
+            self.last_prefill.append((req.uid, hi - lo, lo, min(lp, hi) - lo))
+            pf["done"] = hi
+            if hi < lp:
+                return  # more chunks to go; decode proceeds this tick
+            self._splice_fn(pf["small"], pf["slot"], lp)
+            self._bind(pf["slot"], req, first, lp0)
         log.debug("admit(chunked) uid=%d slot=%d prompt_len=%d chunks=%d", req.uid, pf["slot"], lp, -(-lp // c))
         self._pf = None
 
@@ -980,11 +1013,11 @@ class Engine:
         if self.ecfg.prefix_store:
             self._store_prefix(slot)
         now = time.perf_counter()
-        t_sub = self._submit_t.pop(req.uid, now)
+        t_arr = self._arrival.pop(req.uid, now)
         self._completed += 1
         self.completions.append(Completion(
             uid=req.uid, tokens=self.slot_tokens[slot], prompt_len=len(req.prompt), finish_reason=reason,
-            ttft_s=self.slot_t0[slot] - t_sub, total_s=now - t_sub,
+            ttft_s=self.slot_t0[slot] - t_arr, total_s=now - t_arr, queue_s=self._queue_s.pop(req.uid, 0.0),
             logprobs=self.slot_lps[slot] if self.ecfg.logprobs else None))
         self.slot_req[slot] = None
         self.slot_tokens[slot] = []
@@ -1026,83 +1059,94 @@ class Engine:
         the active slot count."""
         t_tick = time.perf_counter()
         self.last_decode_steps = 0
-        if self.ecfg.prefill_chunk:
-            self._admit_chunked()
-        else:
-            self._admit()
-        for i, req in enumerate(self.slot_req):
-            if req is None:
-                continue
-            toks = self.slot_tokens[i]
-            if req.eos_id is not None and toks and toks[-1] == req.eos_id:
-                self._retire(i, "eos")
-            elif req.stop_ids and toks and toks[-1] in req.stop_ids:
-                self._retire(i, "stop")
-            elif len(toks) >= req.max_new_tokens or len(req.prompt) + len(toks) >= self.ecfg.max_len:
-                self._retire(i, "length")
+        self.last_prefill = []
+        with span("engine.admit"):
+            if self.ecfg.prefill_chunk:
+                self._admit_chunked()
+            else:
+                self._admit()
+        with span("engine.retire"):
+            for i, req in enumerate(self.slot_req):
+                if req is None:
+                    continue
+                toks = self.slot_tokens[i]
+                if req.eos_id is not None and toks and toks[-1] == req.eos_id:
+                    self._retire(i, "eos")
+                elif req.stop_ids and toks and toks[-1] in req.stop_ids:
+                    self._retire(i, "stop")
+                elif len(toks) >= req.max_new_tokens or len(req.prompt) + len(toks) >= self.ecfg.max_len:
+                    self._retire(i, "length")
         if not any(r is not None for r in self.slot_req):
             return 0
-        if self.ecfg.batch_buckets:
-            self._compact()
-        active = [i for i, r in enumerate(self.slot_req) if r is not None]
-        # inner depth: bounded by the tightest remaining cache capacity only
-        # (a slot's own budget does not shrink it: tokens past it are dropped
-        # below), bucketed to a power of two
-        cap = min(self.ecfg.max_len - (len(self.slot_req[i].prompt) + len(self.slot_tokens[i])) for i in active)
-        budget = min(self.ecfg.inner_steps, cap)
-        n = 1
-        while 2 * n <= budget:
-            n *= 2
-        bp = self._batch_bucket(max(active) + 1) if self.ecfg.batch_buckets else self.ecfg.max_batch
-        self._last_decode_batch = bp
-        self._upload_slots(active)
-        bl = bp // self._nd
-        self._tok[:bl].copy_(torch.from_numpy(self._mine(self.slot_cur[:bp]).astype(np.int32)))
         k = self.ecfg.spec_tokens
-        lps = None
-        if k and cap >= k + 1:
-            # speculative path: s verify forwards per tick, each emitting
-            # 1..k+1 tokens per slot; worst-case growth s*(k+1) fits capacity
-            s = 1
-            while 2 * s <= self.ecfg.inner_steps and 2 * s * (k + 1) <= cap:
-                s *= 2
-            self._upload_hist(active)
-            self._run(("spec", bp, s, self.step_logits is not None), lambda: self._spec_fn(bp, s))
-            toks3 = self._host_fetch(self._spec_tok[:s, :bl], 1)  # the tick's host fetch
-            cnts = self._host_fetch(self._spec_cnt[:s, :bl], 1)
-            per_slot = {i: [int(t) for si in range(s) for t in toks3[si, i, : cnts[si, i]]] for i in active}
-            if self.ecfg.logprobs:
-                lps3 = self._host_fetch(self._spec_lp[:s, :bl], 1)
-                lps = {i: [float(x) for si in range(s) for x in lps3[si, i, : cnts[si, i]]] for i in active}
-            emitted = sum(len(v) for v in per_slot.values())
-            self._spec_emitted += emitted
-            self._spec_slot_forwards += s * len(active)
-            self.step_times.append((time.perf_counter() - t_tick) / max(emitted / len(active), 1.0))
-            self._steps += s
-        else:
-            self._run(("decode", bp, n, self.step_logits is not None), lambda: self._decode_fn(bp, n))
-            toks = self._host_fetch(self._out_tok[:n, :bl], 1)  # the tick's host fetch
-            per_slot = {i: [int(t) for t in toks[:, i]] for i in active}
-            if self.ecfg.logprobs:
-                lpn = self._host_fetch(self._out_lp[:n, :bl], 1)
-                lps = {i: [float(x) for x in lpn[:, i]] for i in active}
-            self.step_times.append((time.perf_counter() - t_tick) / n)
-            self._steps += n
-            self.last_decode_steps = n
-        for i in active:
-            req = self.slot_req[i]
-            for j, t in enumerate(per_slot[i]):
-                self.slot_tokens[i].append(t)
-                if lps is not None:
-                    self.slot_lps[i].append(lps[i][j])
-                self._tokens_out += 1
-                if self.on_token is not None:
-                    self.on_token(req.uid, t)
-                if (req.eos_id is not None and t == req.eos_id) or (req.stop_ids and t in req.stop_ids):
-                    break  # tokens decoded past EOS/stop are dropped
-                if len(self.slot_tokens[i]) >= req.max_new_tokens:
-                    break  # tokens past the request budget are dropped too
-            self.slot_cur[i] = self.slot_tokens[i][-1]
+        with span("engine.decode"):
+            if self.ecfg.batch_buckets:
+                self._compact()
+            active = [i for i, r in enumerate(self.slot_req) if r is not None]
+            # inner depth: bounded by the tightest remaining cache capacity only
+            # (a slot's own budget does not shrink it: tokens past it are dropped
+            # below), bucketed to a power of two
+            cap = min(self.ecfg.max_len - (len(self.slot_req[i].prompt) + len(self.slot_tokens[i])) for i in active)
+            budget = min(self.ecfg.inner_steps, cap)
+            n = 1
+            while 2 * n <= budget:
+                n *= 2
+            bp = self._batch_bucket(max(active) + 1) if self.ecfg.batch_buckets else self.ecfg.max_batch
+            self._last_decode_batch = bp
+            self._upload_slots(active)
+            bl = bp // self._nd
+            self._tok[:bl].copy_(torch.from_numpy(self._mine(self.slot_cur[:bp]).astype(np.int32)))
+            spec = bool(k) and cap >= k + 1
+            if spec:
+                # speculative path: s verify forwards per tick, each emitting
+                # 1..k+1 tokens per slot; worst-case growth s*(k+1) fits capacity
+                s = 1
+                while 2 * s <= self.ecfg.inner_steps and 2 * s * (k + 1) <= cap:
+                    s *= 2
+                self._upload_hist(active)
+                self._run(("spec", bp, s, self.step_logits is not None), lambda: self._spec_fn(bp, s))
+            else:
+                self._run(("decode", bp, n, self.step_logits is not None), lambda: self._decode_fn(bp, n))
+        with span("engine.fetch"):  # the tick's host fetch
+            if spec:
+                toks = self._host_fetch(self._spec_tok[:s, :bl], 1)
+                cnts = self._host_fetch(self._spec_cnt[:s, :bl], 1)
+                lpf = self._host_fetch(self._spec_lp[:s, :bl], 1) if self.ecfg.logprobs else None
+            else:
+                toks = self._host_fetch(self._out_tok[:n, :bl], 1)
+                lpf = self._host_fetch(self._out_lp[:n, :bl], 1) if self.ecfg.logprobs else None
+        with span("engine.deliver"):
+            lps = None
+            if spec:
+                per_slot = {i: [int(t) for si in range(s) for t in toks[si, i, : cnts[si, i]]] for i in active}
+                if lpf is not None:
+                    lps = {i: [float(x) for si in range(s) for x in lpf[si, i, : cnts[si, i]]] for i in active}
+                emitted = sum(len(v) for v in per_slot.values())
+                self._spec_emitted += emitted
+                self._spec_slot_forwards += s * len(active)
+                self.step_times.append((time.perf_counter() - t_tick) / max(emitted / len(active), 1.0))
+                self._steps += s
+            else:
+                per_slot = {i: [int(t) for t in toks[:, i]] for i in active}
+                if lpf is not None:
+                    lps = {i: [float(x) for x in lpf[:, i]] for i in active}
+                self.step_times.append((time.perf_counter() - t_tick) / n)
+                self._steps += n
+                self.last_decode_steps = n
+            for i in active:
+                req = self.slot_req[i]
+                for j, t in enumerate(per_slot[i]):
+                    self.slot_tokens[i].append(t)
+                    if lps is not None:
+                        self.slot_lps[i].append(lps[i][j])
+                    self._tokens_out += 1
+                    if self.on_token is not None:
+                        self.on_token(req.uid, t)
+                    if (req.eos_id is not None and t == req.eos_id) or (req.stop_ids and t in req.stop_ids):
+                        break  # tokens decoded past EOS/stop are dropped
+                    if len(self.slot_tokens[i]) >= req.max_new_tokens:
+                        break  # tokens past the request budget are dropped too
+                self.slot_cur[i] = self.slot_tokens[i][-1]
         return len(active)
 
     @torch.no_grad()

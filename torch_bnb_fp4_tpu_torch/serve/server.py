@@ -43,6 +43,7 @@ import json
 import logging
 import queue
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
@@ -104,7 +105,10 @@ class EngineServer:
     # -- engine thread -----------------------------------------------------
 
     def _submit(self, body: dict, stream: bool) -> tuple[int, _Pending]:
-        """Handler-thread side: validate, register a pending slot, enqueue."""
+        """Handler-thread side: validate, register a pending slot, enqueue.
+        The request's ``arrival`` is now, so its TTFT counts the wait for the
+        engine tick that is running."""
+        arrival = time.perf_counter()
         prompt = body.get("prompt")
         if prompt is None and "text" in body:
             if self.tokenizer is None:
@@ -128,7 +132,7 @@ class EngineServer:
             eos_id = getattr(self.tokenizer, "eos_token_id", None)
         req = Request(uid=uid, prompt=prompt, max_new_tokens=int(body.get("max_tokens", 64)), eos_id=eos_id,
                       stop_ids=stop_ids, temperature=body.get("temperature"), top_p=body.get("top_p"),
-                      adapter=body.get("adapter"))
+                      adapter=body.get("adapter"), arrival=arrival)
         self._subq.put(req)
         return uid, p
 

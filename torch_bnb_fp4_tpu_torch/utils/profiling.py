@@ -3,7 +3,7 @@
 Counterpart of ``torch_bnb_fp4_tpu/utils/profiling.py``: ``time_fn`` times
 on the card with CUDA events (PyTorch returns before the device finishes, so
 a host clock would time the enqueue), ``trace`` records a ``torch.profiler``
-trace, ``calibrate_rtt`` measures a host-device round trip, ``detect_chip``
+trace, ``span`` names a stretch of host code in such a trace, ``calibrate_rtt`` measures a host-device round trip, ``detect_chip``
 names the card, and the rooflines use the H100 SXM's published dense peaks.
 A card set below its 700 W limit runs slower than these peaks; report its
 ``power.limit`` beside any share of them.
@@ -27,6 +27,9 @@ H100_BF16_FLOPS = 989e12
 H100_INT8_OPS = 1979e12
 H100_F32_FLOPS = 67e12  # CUDA cores, outside the tensor cores
 
+_profiling = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
 
 @contextlib.contextmanager
 def trace(log_dir: str | None = None):
@@ -42,6 +45,14 @@ def trace(log_dir: str | None = None):
     with profile(activities=acts) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def span(name: str):
+    """A context naming a stretch of host code in the ``torch.profiler``
+    trace being recorded (a ``record_function`` range, on the clock of the
+    trace's CUDA kernels); with no profiler recording, one shared no-op
+    context, so a span off costs one flag check."""
+    return torch.profiler.record_function(name) if _profiling() else _OFF
 
 
 def calibrate_rtt(device=None) -> float:
