@@ -5,6 +5,9 @@ CUDA-graph replay (as chip_smoke.py times them):
   * K7 (csrc/flash_attention.cu) at phase 3b's cases (a)-(e), on the route a
     caller gets and at every key split from 1 to 8 (the sweep behind
     ops/attention.py::kernel_split);
+  * K10 (csrc/decode_attention.cu) at phase 3f's cases, on the route a
+    caller gets and at every range length of ops/attention.py::RANGE_ROWS
+    (the sweep behind decode_range_rows);
   * K2 and K3 (csrc/matmul_pk.cu, matmul_pk_minner.cu) at phase 3's
     instances, per Mistral-7B layer (the fused or unfused matmuls of the run
     that makes each instance), and K8's K2/K3 forms at phase 3d's, per expert
@@ -56,6 +59,23 @@ def bench_k7(cases, A, K, P, synth_attention, dev, sweep):
             line += "   " + " ".join(f"{t:.1f}{'*' if s == chosen else ''}" for s, t in zip(SPLITS, times))
         print(line)
         del ops
+
+
+def bench_k10(cases, A, K, P, dev, sweep):
+    print("K10 case   us (route, graph)  TB/s of walked K/V" +
+          ("   us at range rows " + "/".join(map(str, A.RANGE_ROWS)) + " (* the route's)" if sweep else ""))
+    for case in cases.DECODE_CASES:
+        name, _what, b, rows, _hq, hk, _d, _lens, window = case
+        q, k, v, keys, _pos, walked, _visible = cases.decode_operands(case, dev)
+        us = P.time_graph(lambda: A.decode_attention(q, k, v, keys, window), rep=20) * 1e6
+        line = f"  {name:9} {us:12.1f} {walked / (us * 1e-6) / 1e12:12.2f}"
+        if sweep:
+            chosen = A.decode_range_rows(b, rows, hk, K._sm_count(dev))
+            times = [P.time_graph(lambda r=r: A._decode_attention(q, k, v, keys, window, range_rows=r), rep=20) * 1e6
+                     for r in A.RANGE_ROWS]
+            line += "   " + " ".join(f"{t:.1f}{'*' if r == chosen else ''}" for r, t in zip(A.RANGE_ROWS, times))
+        print(line)
+        del q, k, v, keys
 
 
 def _operands(m, k, n, copies, dev, experts=None):
@@ -202,6 +222,8 @@ def main() -> int:
     dev = torch.device("cuda")
     sweep = root == REPO
     bench_k7(cases, A, K, P, synth_attention, dev, sweep)
+    if hasattr(A, "decode_attention"):  # a package from before K10 has none
+        bench_k10(cases, A, K, P, dev, sweep)
     bench_pk(cases, K, P, dev, sweep)
     bench_k5_k9b(cases, K, P, dev)
     if sweep:

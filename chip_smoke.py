@@ -39,6 +39,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      beside a bf16 q); the fp8 KV write cast (kv_cast) of all 65536 bf16 bit
      patterns, the same bytes on the card as on the CPU; then a dense-vs-K7
      grid of Lq x Lk at the Mistral heads;
+  3f. K10 (decode attention, one query row per slot) against its plain
+     version with the kernel's key ranges, every slot within one bf16 ulp of
+     its rows' largest |o|, at the chat cell's shape (32 slots x 3072 rows,
+     Mistral heads, lengths drawn as chat prompts, and every slot full),
+     longdoc's (4 slots on wrapped 4352-row rings, window 4096) and batch 1
+     (an 8192-row cache); kernel time, bound (live K/V bytes plus q and out),
+     plain time, the dense route and one scaled_dot_product_attention call
+     (the yardstick, replayed), the range count; phase 5 then serves 3
+     requests through a warmed-up engine, K10 launching 32 times per decode
+     step;
   4. a 2-layer model at full Mistral-7B width from seeded weights, on the
      card (kernels) and on the CPU (plain versions): 300- and 1024-token
      prompts (the 1024 one takes the flash route: K7 on the card, its plain
@@ -310,6 +320,107 @@ FLASH_CASES = (
     ("e", "masked rows: 512 x 2048 Mistral heads, the first 64 queries before every key",
      1, 512, 2048, 32, 8, 128, 2048, -64, None, None, None),
 )
+
+# phase 3f: K10's shapes (case, what, B, rows, Hq, Hk, D, lens, window); lens None: drawn as the chat
+# traffic's prompt lengths (lognormal, median 1020, sigma 0.5, clipped to 32-2560; the benchmark's chat cell)
+DECODE_CASES = (
+    ("chat", "chat: 32 slots x 3072 rows, lengths drawn as chat prompts, Mistral heads, window 4096",
+     32, 3072, 32, 8, 128, None, 4096),
+    ("chat_full", "chat: 32 slots x 3072 rows, every slot full", 32, 3072, 32, 8, 128, 3072, 4096),
+    ("longdoc", "longdoc: 4 slots on 4352-row rings of 4608-6144 positions, window 4096",
+     4, 4352, 32, 8, 128, [4608, 5120, 5632, 6144], 4096),
+    ("batch1", "batch 1: one full 8192-row cache, window 4096", 1, 8192, 32, 8, 128, 8192, 4096),
+)
+CHAT_PROMPT = (1020, 0.5, 32, 2560)  # median, sigma, min, max
+
+
+def decode_lens(b: int, seed: int) -> list:
+    """``b`` slot lengths drawn as the chat traffic's prompts (CHAT_PROMPT)."""
+    import numpy as np
+
+    median, sigma, lo, hi = CHAT_PROMPT
+    x = np.random.default_rng(seed).lognormal(np.log(median), sigma, b)
+    return np.clip(np.round(x), lo, hi).astype(int).tolist()
+
+
+def row_ulps(got, want):
+    """Per slot, the worst |got - want| in bf16 ulps of the largest |want| of
+    the element's (slot, head) row: (B,) floats."""
+    import torch
+
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().amax(-1, keepdim=True).clamp_min(2.0**-126))) - 7)
+    return ((got.float() - w).abs() / ulp).flatten(1).amax(1)
+
+
+def decode_operands(case, dev) -> tuple:
+    """Operands of one DECODE_CASES entry, the same for phase 3f and
+    ``benchmarks_torch/hopper_bench.py``: (q, k, v, keys, (q_positions,
+    kv_valid, kv_positions), walked bytes, visible bytes).  K10 walks
+    each slot's rows below min(len, rows); of those a query sees min(len,
+    rows, window), whose K/V bytes are the bound's."""
+    from torch_bnb_fp4_tpu_torch.ops import attention as A
+    from torch_bnb_fp4_tpu_torch.utils.synth import synth_attention
+
+    _case, _what, b, rows, hq, hk, d, lens, window = case
+    lens = decode_lens(b, seed=rows + b) if lens is None else [lens] * b if isinstance(lens, int) else lens
+    q, k, v, qpos, valid, kpos = synth_attention(b, 1, rows, hq, hk, d, lens=lens, seed=rows + d, device=dev)
+    keys = A.decode_keys(qpos, valid, kpos)
+    row_bytes = hk * d * k.element_size() * 2  # K and V
+    walked = sum(min(n, rows) for n in lens) * row_bytes
+    visible = sum(min(n, rows, window or n) for n in lens) * row_bytes
+    return q, k, v, keys, (qpos, valid, kpos), walked, visible
+
+
+def phase3f(dev) -> dict:
+    """K10 (decode attention) at DECODE_CASES against its plain version with
+    the kernel's ranges, slot by slot within one bf16 ulp of each row's
+    largest |o|; kernel time (CUDA-graph replay), its bound (the visible K/V
+    bytes plus q and out at 3.35 TB/s), the plain version's time, the dense
+    route's and one scaled_dot_product_attention call's (the yardstick,
+    timed only, replayed).  Returns case -> row."""
+    import torch
+    import torch.nn.functional as F
+
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+    from torch_bnb_fp4_tpu_torch.ops import attention as A
+    from torch_bnb_fp4_tpu_torch.ops import kernels as K
+    from torch_bnb_fp4_tpu_torch.utils import profiling as P
+
+    print("[3f] case       us     bound_us  walked_GB  visible_GB  plain_ms  dense_us   sdpa_us  ranges  worst slot "
+          "ulps  (us, sdpa_us: CUDA-graph replay; bound: visible rows)")
+    out = {}
+    for case in DECODE_CASES:
+        name, what, b, rows, _hq, hk, _d, _lens, window = case
+        q, k, v, keys, (qpos, valid, kpos), walked, visible = decode_operands(case, dev)
+        before = K.launch_counts()["decode_attention"]
+        got = A.decode_attention(q, k, v, keys, window)
+        check(K.launch_counts()["decode_attention"] == before + 1, f"K10 {name}: the kernel did not launch")
+        r = A.decode_range_rows(b, rows, hk, K._sm_count(dev))
+        plain = lambda: A.decode_attention_plain(q, k, v, keys, window, range_rows=r)  # noqa: E731
+        want = plain()
+        torch.cuda.synchronize()
+        ulps = row_ulps(got, want)
+        check(bool(torch.isfinite(got).all()) and got.dtype == torch.bfloat16, f"K10 {name}: non-finite or not bf16")
+        check(bool((ulps <= 1.0001).all()), f"K10 {name}: slots off by more than one bf16 ulp: {ulps.tolist()}")
+        ms = P.time_graph(lambda: A.decode_attention(q, k, v, keys, window), rep=20) * 1e3
+        plain_ms = P.time_fn(plain, rep=3, warmup=1) * 1e3
+        mask = T.attention_mask(qpos, kpos, valid, window)
+        dense_ms = P.time_fn(lambda: T._attention_chunked(q, k, v, ~mask), rep=3, warmup=1) * 1e3
+        sdpa_ms = P.time_graph(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask[:, 0], enable_gqa=True),
+            rep=20) * 1e3
+        bound_ms = (visible + 2 * q.numel() * q.element_size()) / P.H100_HBM_BYTES_PER_S * 1e3
+        out[name] = dict(what=what, ms=ms, bound_ms=bound_ms, walked_bytes=walked, visible_bytes=visible,
+                         plain_ms=plain_ms, dense_ms=dense_ms, library_ms=sdpa_ms, range_rows=r,
+                         ranges=-(-rows // r), worst_ulps=ulps.max().item(),
+                         slot_ulps=[round(u, 3) for u in ulps.tolist()])
+        print(f"     {name:9} {ms * 1e3:8.1f} {bound_ms * 1e3:9.1f} {walked / 1e9:10.3f} {visible / 1e9:11.3f} "
+              f"{plain_ms:9.2f} {dense_ms * 1e3:9.1f} {sdpa_ms * 1e3:9.1f}  {-(-rows // r):2} x {r:4}  "
+              f"{ulps.max().item():.3f}   {what}; {walked / (ms * 1e-3) / 1e12:.2f} TB/s of walked K/V")
+        del q, k, v, got, want, mask, keys
+        torch.cuda.empty_cache()
+    return out
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2345,6 +2456,9 @@ def main() -> int:
     del q, k, v, blocked
     torch.cuda.empty_cache()
 
+    # -- phase 3f: K10 decode attention -------------------------------------------------------------
+    decode_rows = phase3f(dev)
+
     # -- phase 3c: K6 and K5, the int8 prefill shadow -----------------------------------------
     print("[3c] kernel  out   shape          M     us        bound_us  by          plain_ms   bf16_matmul_us  "
           "int_mm_us   max_abs_err   (us: CUDA-graph replay)")
@@ -2634,12 +2748,16 @@ def main() -> int:
     reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS) for i, p in enumerate(prompts)]
     ecfg = EngineConfig(max_batch=8, max_len=1024, inner_steps=8)
     eng = Engine(params, cfg, ecfg)
+    # every decode graph captured before the counts start: the run's decode steps are all replays, each of
+    # which counts its captured launches (a capture's eager run would count launches of no decode step)
+    eng.warmup(prompt_lens=PROMPTS)
 
     K.reset_launch_counts()
     t0 = time.perf_counter()
     res = eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    k10_launches = K.launch_counts()["decode_attention"]
     gen_out = T.generate(params, cfg, torch.tensor([prompts[0]], dtype=torch.int32, device=dev), NEW_TOKENS)
     torch.cuda.synchronize()
     launches = K.launch_counts()
@@ -2651,8 +2769,16 @@ def main() -> int:
         check(len(c.tokens) == NEW_TOKENS and c.finish_reason == "length", f"request {r.uid}: {c}")
         check(all(0 <= t < cfg.vocab_size for t in c.tokens), f"request {r.uid}: token out of range")
     check(tuple(gen_out.shape) == (1, NEW_TOKENS), "generate shape")
-    for name in ("matmul_pk", "matmul_pk_minner", "matmul_pk_w4a8"):
+    for name in ("matmul_pk", "matmul_pk_minner", "matmul_pk_w4a8", "decode_attention"):
         check(launches[name] > 0, f"main path never launched {name}")
+    check(st["decode_steps"] > 0 and k10_launches == cfg.n_layers * st["decode_steps"],
+          f"K10: {k10_launches} launches over the engine's {st['decode_steps']} decode steps, not {cfg.n_layers} "
+          f"per step")
+    # generate's NEW_TOKENS - 1 eager decode steps; its prefill (Lq > 1) takes another route
+    check(launches["decode_attention"] - k10_launches == cfg.n_layers * (NEW_TOKENS - 1),
+          f"K10: {launches['decode_attention'] - k10_launches} launches in generate's {NEW_TOKENS - 1} decode steps")
+    print(f"[5] K10 in the engine run: {k10_launches} launches over {st['decode_steps']} decode steps = "
+          f"{k10_launches // st['decode_steps']} per step ({cfg.n_layers} layers)")
     print(f"[5] engine served {len(res)} requests (prompts {PROMPTS}, {NEW_TOKENS} new tokens each) in "
           f"{wall:.2f} s: {st['tok_per_s']:.1f} tok/s, mean TTFT {st['mean_ttft_s'] * 1e3:.1f} ms, "
           f"decode {st['step_p50_s'] * 1e3:.2f} ms/step p50 (batch {st['decode_batch']}), "
@@ -3641,6 +3767,15 @@ def main() -> int:
             launches=counts["flash_attention"], max_abs_err=fr["max_abs_err"], row_err=fr["row_err"], ms=fr["ms"],
             plain_ms=fr["plain_ms"], bound_ms=fr["bound_ms"], bound_by=fr["bound_by"], library_ms=fr["library_ms"],
             library_eager_ms=fr["library_eager_ms"], dense_path_ms=fr["dense_ms"], split=fr["split"]))
+    # K10 at the cells' shapes (phase 3f); launches of phase 5's engine run (one per layer and decode step)
+    for case in ("chat", "longdoc", "batch1"):
+        dr = decode_rows[case]
+        kernels_json.append(dict(
+            name=f"K10 decode_attention ({dr['what']}; launches of phase 5's engine run)", route="cuda",
+            source="torch_bnb_fp4_tpu_torch/csrc/decode_attention.cu", replaces=None, launches=k10_launches,
+            max_abs_err=None, worst_ulps=dr["worst_ulps"], ms=dr["ms"], plain_ms=dr["plain_ms"],
+            bound_ms=dr["bound_ms"], bound_by="bytes", library_ms=dr["library_ms"], dense_path_ms=dr["dense_ms"],
+            range_rows=dr["range_rows"], ranges=dr["ranges"]))
     # only the instances phase 7 runs (unfused; K6 at f32 out); the fused K5/K6 instances of phase 3c are
     # yardsticks that no served run launches, printed above and left out of the table
     for key, tot in shadow_rows.items():

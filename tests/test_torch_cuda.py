@@ -18,7 +18,9 @@ plain version.  K6 and the int8 shadow built on the card:
 bit-exact with the plain versions on the CPU.  K7 against its
 plain version with the kernel's key blocks: |do| <= 2^-7 * max|o_plain| of
 its (query, head) row (bf16 output rounding, and the bf16 rounding of p after
-exp and summation orders that differ).
+exp and summation orders that differ).  K10 against its plain version with
+the kernel's key ranges: one bf16 ulp of max|o_plain| of its (slot, head)
+row (p stays f32 on both sides; only the order of the f32 sums differs).
 """
 
 import numpy as np
@@ -653,6 +655,108 @@ def test_k7_reads_strided_q(dev):
         A.flash_attention(q, k, v, qpos, valid, kpos, block_k=128)
 
 
+# K10 (decode attention): (B, rows, Hq, Hk, D, lens, window, softcap, scale, K/V dtype)
+DECODE_CASES = {
+    "mistral_mixed_lengths": (6, 1100, 32, 8, 128, [1, 63, 64, 65, 700, 1100], 4096, None, None, "bf16"),
+    "mistral_ring_window": (3, 1088, 32, 8, 128, [2500, 2537, 1093], 1000, None, None, "bf16"),
+    "gemma2_softcap": (3, 700, 16, 8, 256, [700, 350, 2], 300, 50.0, 1.0 / 16, "bf16"),
+    "gemma_group_1": (2, 600, 16, 16, 256, [600, 129], None, None, None, "bf16"),
+    "tinyllama_group_8": (4, 520, 32, 4, 64, [520, 1, 300, 257], None, None, None, "bf16"),
+    "qwen2_group_7": (2, 800, 28, 4, 128, [800, 555], None, None, None, "bf16"),
+    "fp8_kv": (4, 1100, 32, 8, 128, [1100, 2, 640, 1300], 1000, None, None, "e4m3"),
+    "fp8_kv_d64": (2, 300, 16, 2, 64, [300, 77], None, None, None, "e4m3"),
+}
+
+
+def _decode_ops(dev, name, seed=0):
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+    from torch_bnb_fp4_tpu_torch.ops import attention as A
+    from torch_bnb_fp4_tpu_torch.utils.synth import synth_attention
+
+    b, rows, hq, hk, d, lens, window, cap, scale, kv = DECODE_CASES[name]
+    q, k, v, qpos, valid, kpos = synth_attention(b, 1, rows, hq, hk, d, lens=lens, seed=rows + seed, device=dev)
+    if kv == "e4m3":
+        k, v = T.kv_cast(k, torch.float8_e4m3fn), T.kv_cast(v, torch.float8_e4m3fn)
+    return q, k, v, A.decode_keys(qpos, valid, kpos), window, cap, scale
+
+
+def _k10_close(got, want):
+    """Every element within one bf16 ulp of the largest |o| of its (slot,
+    head) row: both round the same f32 sums, taken in another order."""
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().amax(-1, keepdim=True).clamp_min(2.0**-126))) - 7)
+    assert torch.isfinite(got).all() and got.dtype == torch.bfloat16
+    assert bool(((got.float() - w).abs() <= ulp * 1.0001).all()), ((got.float() - w).abs() / ulp).max().item()
+
+
+@pytest.mark.parametrize("name", list(DECODE_CASES))
+def test_k10_vs_plain(dev, name):
+    """K10 on the route (its range length from the shape), then at every range
+    length, against its plain version with the same ranges."""
+    from torch_bnb_fp4_tpu_torch.ops import attention as A
+
+    q, k, v, keys, window, cap, scale = _decode_ops(dev, name)
+    before = K.launch_counts()["decode_attention"]
+    got = A.decode_attention(q, k, v, keys, window, scale, cap)
+    assert K.launch_counts()["decode_attention"] == before + 1
+    r = A.decode_range_rows(q.shape[0], k.shape[1], k.shape[2], K._sm_count(dev))
+    _k10_close(got, A.decode_attention_plain(q, k, v, keys, window, scale, cap, range_rows=r))
+    for r in A.RANGE_ROWS + (64,):
+        got = A._decode_attention(q, k, v, keys, window, scale, cap, range_rows=r)
+        _k10_close(got, A.decode_attention_plain(q, k, v, keys, window, scale, cap, range_rows=r))
+        assert torch.equal(got, A._decode_attention(q, k, v, keys, window, scale, cap, range_rows=r))  # no atomics
+
+
+def test_k10_never_reads_past_a_slot_length(dev):
+    """Rows past each slot's length hold NaN: bit-identical, finite output.
+    Slot 0's live rows altered: only slot 0 moves."""
+    from torch_bnb_fp4_tpu_torch.ops import attention as A
+
+    q, k, v, keys, window, cap, scale = _decode_ops(dev, "mistral_mixed_lengths")
+    lens = DECODE_CASES["mistral_mixed_lengths"][5]
+    kp, vp = k.clone(), v.clone()
+    for i, n in enumerate(lens):
+        kp[i, n:] = float("nan")
+        vp[i, n:] = float("nan")
+    for r in A.RANGE_ROWS:
+        clean = A._decode_attention(q, k, v, keys, window, range_rows=r)
+        assert torch.equal(A._decode_attention(q, kp, vp, keys, window, range_rows=r), clean)
+        k2, v2 = k.clone(), v.clone()
+        k2[0, : lens[0]], v2[0, : lens[0]] = -k2[0, : lens[0]], v2[0, : lens[0]] + 1
+        moved = A._decode_attention(q, k2, v2, keys, window, range_rows=r)
+        assert torch.equal(moved[1:], clean[1:]) and not torch.equal(moved[0], clean[0])
+
+
+def test_k10_one_graph_serves_every_length_mix(dev):
+    """Captured once, replayed after the lengths (keys) change in place: the
+    replay equals an eager call on the new lengths; q read through its
+    strides (a head slice of a fused q|k tensor)."""
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+    from torch_bnb_fp4_tpu_torch.ops import attention as A
+
+    q, k, v, keys, window, _, _ = _decode_ops(dev, "mistral_mixed_lengths")
+    qv = torch.split(torch.cat([q, torch.zeros_like(q[:, :, :8])], dim=2), [32, 8], dim=2)[0]
+    assert not qv.is_contiguous()
+    torch.testing.assert_close(A.decode_attention(qv, k, v, keys, window), A.decode_attention(q, k, v, keys, window),
+                               rtol=0, atol=0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        A.decode_attention(qv, k, v, keys, window)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = A.decode_attention(qv, k, v, keys, window)
+    new_len = torch.tensor([1100, 3, 500, 64, 1, 999], dtype=torch.int32, device=dev)
+    kpos, valid = T.kv_slot_positions(new_len, k.shape[1])
+    fresh = A.decode_keys((new_len - 1)[:, None], valid, kpos)
+    for name in ("q_positions", "key_positions", "live"):
+        getattr(keys, name).copy_(getattr(fresh, name))
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, A.decode_attention(q, k, v, fresh, window), rtol=0, atol=0)
+
+
 def _splitk_operands(m, k, n, dev, seed=0, x_dtype=torch.bfloat16):
     """Random split-K operands: uniform bytes, true absmax halves in [0.5, 1.5)
     * 0.01, a bias."""
@@ -855,6 +959,28 @@ def test_graphed_engine_equals_eager_generate(dev, mode):
         assert all(a.dtype == torch.float8_e4m3fn for a in eng.cache.k + eng.cache.v)
     if mode == "spec":
         assert eng.stats()["spec_tokens_per_forward"] >= 1.0
+
+
+@pytest.mark.parametrize("kv_dtype", ["float16", "float32"])
+def test_graphed_engine_on_another_kv_dtype_decodes_densely(dev, kv_dtype):
+    """A cache in a float dtype that K10 does not read (it takes bf16 and
+    e4m3) decodes through the dense route on the card: no K10 launch and
+    every request served."""
+    from torch_bnb_fp4_tpu_torch.models import transformer as T
+    from torch_bnb_fp4_tpu_torch.serve import Engine, EngineConfig, Request
+    from torch_bnb_fp4_tpu_torch.utils.synth import synth_params
+
+    cfg = T.ModelConfig.tiny_test(n_layers=2)
+    params = synth_params(cfg, seed=5, fuse=True, device=dev)
+    g = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in (32, 64)]
+    eng = Engine(params, cfg, EngineConfig(max_batch=2, max_len=128, inner_steps=4, kv_dtype=kv_dtype))
+    eng.warmup(max_prompt_len=64)
+    K.reset_launch_counts()
+    res = eng.run([Request(uid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)])
+    assert K.launch_counts()["decode_attention"] == 0 and eng.stats()["decode_steps"] > 0
+    assert all(a.dtype == getattr(torch, kv_dtype) for a in eng.cache.k + eng.cache.v)
+    assert sorted(res) == [0, 1] and all(len(c.tokens) == 8 for c in res.values())
 
 
 @pytest.mark.parametrize("m", [1, 64, 256])

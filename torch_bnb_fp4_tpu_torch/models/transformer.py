@@ -7,10 +7,13 @@ returns a fresh cache; here the returned ``KVCache`` shares the per-layer
 tensors with the one passed in and only ``length`` is new).
 
 Sliding-window layers may keep rolling rings of ``ring_rows`` rows
-(``KVCache.zeros(write_chunk > 0)``).  Attention takes the flash route (K7,
-``ops/attention.py``) at Lq * Lk >= ``_FLASH_MIN_CELLS`` with Lq >= 128, on
-either device: the card runs the CUDA kernel and the CPU its plain version.
-Shorter shapes take the dense, query-chunked path.
+(``KVCache.zeros(write_chunk > 0)``).  A one-row query (decode) takes K10
+(``decode_attention``, ``ops/attention.py``) when its head dim is one of
+``HEAD_DIMS``, at most 8 query heads share a kv head and the cache is bf16
+or ``float8_e4m3fn`` (``decode_fits``); attention takes the
+flash route (K7) at Lq * Lk >= ``_FLASH_MIN_CELLS`` with Lq >= 128; on
+either device the card runs the CUDA kernel and the CPU its plain version.
+Other shapes take the dense, query-chunked path.
 
 Mixture-of-experts layers (Mixtral) keep their experts STACKED
 (:class:`MoEParams`); :func:`moe_forward` routes on the device and runs each
@@ -46,7 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import kernels as K
-from ..ops.attention import flash_attention
+from ..ops.attention import decode_attention, decode_fits, decode_keys, flash_attention
 from ..utils.device import resolve_device
 from .linear import (DenseLinear, MultiLoRALinear, QuantLinear, apply_expert_linear, dense_linear, fuse_linears,
                      quantize_linear)
@@ -457,11 +460,16 @@ def attention_mask(q_positions, kv_positions, kv_valid, sliding_window):
     return mask
 
 
-def _attention_route(q_positions, kv_positions, kv_valid, sliding_window):
+def _attention_route(q_positions, kv_positions, kv_valid, sliding_window, head_dim, group, kv_dtype):
     """Causal GQA attention over one (cache rows, window), routed once by
-    shape: long shapes (:func:`_use_flash`) go to ``flash_attention`` (K7),
-    the others to the dense route over the mask built here.  Returns
-    ``attend(q, k, v, scale, logit_softcap)``."""
+    shape and K/V dtype: a one-row query whose head dim, group size (query
+    heads per kv head) and K/V dtype K10 takes (``decode_fits``) goes to
+    ``decode_attention``, long shapes (:func:`_use_flash`) to
+    ``flash_attention`` (K7), the others to the dense route over the mask
+    built here.  Returns ``attend(q, k, v, scale, logit_softcap)``."""
+    if q_positions.shape[1] == 1 and decode_fits(head_dim, group, kv_dtype):
+        keys = decode_keys(q_positions, kv_valid, kv_positions)
+        return lambda q, k, v, scale, cap: decode_attention(q, k, v, keys, sliding_window, scale, cap)
     if _use_flash(q_positions.shape[1], kv_positions.shape[1]):
         return lambda q, k, v, scale, cap: flash_attention(q, k, v, q_positions, kv_valid, kv_positions,
                                                            sliding_window, scale, cap)
@@ -741,7 +749,8 @@ def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor, cache: 
             ctx.write_rows[rows] = start[:, None] + torch.arange(l, device=dev)[None, :]
             kv_pos[rows] = kv_slot_positions(new_len, rows)
         if (rows, window) not in ctx.attend:
-            ctx.attend[(rows, window)] = _attention_route(positions, *kv_pos[rows], window)
+            ctx.attend[(rows, window)] = _attention_route(positions, *kv_pos[rows], window, cfg.head_dim,
+                                                          cfg.n_heads // cfg.n_kv_heads, cache.k[i].dtype)
 
     for i, lp in enumerate(params.layers):
         x = _layer_forward(lp, cfg, x, cache.k[i], cache.v[i], ctx, layer_idx=i, adapter_idx=adapter_idx,
@@ -975,7 +984,8 @@ def reference_forward(cfg: ModelConfig, weights: dict[str, np.ndarray], tokens, 
             k = rms_norm(k, bf16(p + "self_attn.k_norm.weight"), cfg.rms_eps, cfg.norm_offset)
         q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
         k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-        attend = _attention_route(positions, positions, kv_valid, cfg.layer_sliding_window(i))
+        attend = _attention_route(positions, positions, kv_valid, cfg.layer_sliding_window(i), cfg.head_dim,
+                                  cfg.n_heads // cfg.n_kv_heads, k.dtype)
         attn = attend(q, k, v, _attn_scale(cfg), cfg.attn_logit_softcap)
         y = lin(p + "self_attn.o_proj.weight", attn.reshape(b, l, cfg.q_dim))
         if pan is not None:

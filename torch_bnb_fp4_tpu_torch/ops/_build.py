@@ -22,7 +22,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("decode_pairs.cu", "matmul_pk.cu", "matmul_pk_minner.cu", "matmul_pk_w4a8.cu", "flash_attention.cu",
-           "matmul_w8.cu", "dequant_pk.cu", "dequant_splitk.cu", "matmul_splitk.cu")
+           "matmul_w8.cu", "dequant_pk.cu", "dequant_splitk.cu", "matmul_splitk.cu", "decode_attention.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -48,6 +48,7 @@ SIGNATURES = {
     "dequant_splitk.cu": ("pk_dequant_splitk", [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "matmul_splitk.cu": ("pk_matmul_splitk", [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                               _I, _P]),
+    "decode_attention.cu": ("pk_decode_attention", [_P] * 9 + [_I] * 8 + [_I64] * 8 + [_F, _F, _I, _I, _I, _I, _P]),
 }
 # other C functions a source exports: name -> (source, argtypes)
 QUERIES = {"pk_matmul_pk_w4a8_regs": ("matmul_pk_w4a8.cu", [_I]), "pk_matmul_pk_smem": ("matmul_pk.cu", [_I]),

@@ -1,4 +1,5 @@
-"""K7: causal GQA flash attention (online softmax) over per-slot key positions.
+"""K7: causal GQA flash attention (online softmax) over per-slot key positions;
+K10: decode attention, one query row per slot.
 
 Counterpart of ``torch_bnb_fp4_tpu/ops/attention.py``.  The mask comes from
 ARBITRARY per-slot key positions (``kv_positions``), validity (``kv_valid``),
@@ -22,11 +23,21 @@ contiguous ranges (:func:`kernel_split`) whose partial results a second
 kernel merges in split order.  :func:`flash_attention_plain` takes the
 kernel's blocks and, when asked, its split, which fixes where the probability
 tile is rounded to bf16; a CPU call runs it unsplit, the JAX recurrence.
+
+``decode_attention`` (K10, ``csrc/decode_attention.cu``) is the dense route
+for a one-row query (the JAX package's plain-jnp decode attention), with the
+mask built once per forward (:func:`decode_keys`): it reads K and V as
+stored, only below each slot's last valid row, and keeps P in f32.  It
+replaces no Pallas kernel; the same device rule holds, with
+:func:`decode_attention_plain` on the CPU.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+import torch.nn.functional as F
 
 from . import _build
 from .kernels import LAUNCHES, _check_status, _sm_count, _stream
@@ -247,4 +258,201 @@ def _flash_attention(q, k, v, q_positions, kv_valid, kv_positions, sliding_windo
         b, lq, lk, hq, hk, d, kbq, split, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], scale,
         0.0 if logit_softcap is None else float(logit_softcap), int(logit_softcap is not None),
         0 if sliding_window is None else int(sliding_window), int(sliding_window is not None), int(fp8), _stream(q)))
+    return out
+
+
+# --- K10: decode attention (Lq = 1) -------------------------------------------------------------
+
+DECODE_TILE = 64  # key rows per stage of the CUDA kernel
+RANGE_ROWS = (256, 512, 1024)  # the key-range lengths the wrapper picks among (decode_range_rows)
+MAX_GROUP = 8  # query heads per kv head the kernel takes
+# blocks per SM the grid should hold: two waves of the three blocks an SM keeps resident at D = 128 (swept on
+# an H100 from 1 to 64 slots of 1024-8192 rows, full and with chat-drawn lengths: PERF.md)
+DECODE_BLOCKS_PER_SM = 6
+DECODE_KV_DTYPES = (torch.bfloat16, torch.float8_e4m3fn)  # the K/V dtypes K10 reads as stored
+KEY_NONE = 2**31 - 1  # the key position of a row that holds nothing: no query sees it
+
+
+class DecodeKeys(NamedTuple):
+    """What K10 needs of one cache's key positions, built once per forward
+    (:func:`decode_keys`) and shared by every layer over that cache."""
+
+    q_positions: torch.Tensor  # (B,) int32
+    key_positions: torch.Tensor  # (B, rows rounded up to DECODE_TILE) int32: KEY_NONE where invalid or padding
+    live: torch.Tensor  # (B,) int32 in [1, rows]: 1 + the last valid row; rows at or past it are never read
+
+
+def decode_keys(q_positions, kv_valid, kv_positions) -> DecodeKeys:
+    """:class:`DecodeKeys` of a one-row query at ``q_positions`` (B, 1) over
+    a cache whose rows hold ``kv_positions`` where ``kv_valid`` (each (B,
+    rows)).  ``live`` is at least 1, so every slot reads its row 0; an idle
+    slot of the engine (length 0 -> 1) reads that row alone."""
+    if q_positions.ndim != 2 or q_positions.shape[1] != 1 or q_positions.dtype != torch.int32:
+        raise ValueError(f"q_positions must be int32 (B, 1), got {q_positions.dtype} {tuple(q_positions.shape)}")
+    b, rows = kv_positions.shape
+    if tuple(kv_valid.shape) != (b, rows) or kv_valid.dtype != torch.bool or kv_positions.dtype != torch.int32 or \
+            q_positions.shape[0] != b:
+        raise ValueError(f"kv_valid bool and kv_positions int32 (B, rows) expected beside q_positions (B, 1), got "
+                         f"{kv_valid.dtype} {tuple(kv_valid.shape)}, {kv_positions.dtype} {tuple(kv_positions.shape)}")
+    pad = -(-rows // DECODE_TILE) * DECODE_TILE - rows
+    key = F.pad(torch.where(kv_valid, kv_positions, KEY_NONE), (0, pad), value=KEY_NONE)
+    row1 = torch.arange(1, rows + 1, dtype=torch.int32, device=kv_valid.device)
+    live = torch.where(kv_valid, row1, 1).amax(dim=1)
+    return DecodeKeys(q_positions[:, 0].contiguous(), key, live)
+
+
+def decode_fits(head_dim: int, group: int, kv_dtype: torch.dtype) -> bool:
+    """Whether K10 takes a one-row query at this head dim, group size (query
+    heads per kv head) and K/V dtype (bf16 or ``float8_e4m3fn``; the model's
+    queries are bf16): the route's choice, by shape and dtype."""
+    return head_dim in HEAD_DIMS and 1 <= group <= MAX_GROUP and kv_dtype in DECODE_KV_DTYPES
+
+
+def decode_range_rows(b: int, rows: int, hk: int, sms: int) -> int:
+    """Key rows per range of the kernel's grid for B slots of ``rows`` rows
+    over Hk kv heads on a card with ``sms`` SMs: the longest of
+    ``RANGE_ROWS`` whose grid (B * Hk * ranges) holds ``DECODE_BLOCKS_PER_SM``
+    blocks per SM, else the shortest.  The grid is fixed by the shape, but
+    a block past its slot's live rows exits at once, so the grid must hold
+    enough blocks for the live ones to spread over the card whatever the
+    lengths (``benchmarks_torch/hopper_bench.py`` times every range length)."""
+    for r in sorted(RANGE_ROWS, reverse=True):
+        if b * hk * -(-rows // r) >= DECODE_BLOCKS_PER_SM * sms:
+            return r
+    return min(RANGE_ROWS)
+
+
+def _check_decode_operands(q, k, v, keys: DecodeKeys) -> None:
+    """What both routes need: a one-row q (B, 1, Hq, D), k and v (B, rows,
+    Hk, D) alike, GQA head counts, a float q and float or e4m3 K/V, keys of
+    this batch and cache, one device."""
+    if q.ndim != 4 or q.shape[1] != 1 or k.ndim != 4 or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"q (B, 1, Hq, D) and k, v (B, rows, Hk, D) expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, hq, d = q.shape
+    _, rows, hk, dk = k.shape
+    if k.shape[0] != b or dk != d:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ in batch or head dim")
+    if hq % hk:
+        raise ValueError(f"Hq={hq} must be a multiple of Hk={hk}")
+    if not q.dtype.is_floating_point or k.dtype != v.dtype or not (k.dtype.is_floating_point or
+                                                                   k.dtype == torch.float8_e4m3fn):
+        raise ValueError(f"q must be a float and k, v one float or float8_e4m3fn dtype; got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    rows_pad = -(-rows // DECODE_TILE) * DECODE_TILE
+    for name, t, shape in (("q_positions", keys.q_positions, (b,)), ("key_positions", keys.key_positions,
+                                                                     (b, rows_pad)), ("live", keys.live, (b,))):
+        if tuple(t.shape) != shape or t.dtype != torch.int32:
+            raise ValueError(f"keys.{name} must be int32 {shape}, got {t.dtype} {tuple(t.shape)}")
+    for name, t in (("k", k), ("v", v), ("q_positions", keys.q_positions), ("key_positions", keys.key_positions),
+                    ("live", keys.live)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+
+
+def decode_attention_plain(q, k, v, keys: DecodeKeys, sliding_window=None, scale=None, logit_softcap=None, *,
+                           range_rows=None):
+    """K10's function in torch ops, the dense route's for Lq = 1: s = (q .
+    k) in f32 from the inputs' values, times ``scale``, softcapped, -1e30
+    where the key is not visible; rows at or past ``keys.live`` are never read
+    (zero, and out of every sum).  With ``range_rows`` None this is the dense
+    route's own sequence of ops (softmax, then P V in f32).  Else the rows are
+    cut into ranges of ``range_rows``, as the kernel cuts them: range z takes
+    a softmax of its own (max m_z, sum l_z) and its P V, acc_z; the ranges
+    that hold live rows merge in order with weights l_z e^(m_z - M) / sum of
+    them (M = max m_z).  Cast to q's dtype."""
+    _check_decode_operands(q, k, v, keys)
+    b, _, hq, d = q.shape
+    rows, hk = k.shape[1], k.shape[2]
+    g = hq // hk
+    scale = float(d) ** -0.5 if scale is None else scale
+    walked = torch.arange(rows, device=q.device)[None, :] < keys.live[:, None]  # (B, rows)
+    kpos, qpos = keys.key_positions[:, :rows], keys.q_positions[:, None]
+    seen = walked & (kpos <= qpos)
+    if sliding_window is not None:
+        seen = seen & (kpos > qpos - sliding_window)
+    kf = torch.where(walked[:, :, None, None], k.float(), 0.0)
+    vf = torch.where(walked[:, :, None, None], v.float(), 0.0)
+    s = torch.einsum("blhgd,bshd->bhgls", q.reshape(b, 1, hk, g, d).float(), kf) * scale  # (B, Hk, G, 1, rows)
+    if logit_softcap is not None:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    s = torch.where(seen[:, None, None, None, :], s, _NEG)
+    if range_rows is None:
+        out = torch.einsum("bhgls,bshd->blhgd", torch.softmax(s, dim=-1), vf)
+        return out.reshape(b, 1, hq, d).to(q.dtype)
+    if range_rows < 1:
+        raise ValueError(f"range_rows must be positive, got {range_rows}")
+    n = -(-rows // range_rows)
+    zone = torch.arange(rows, device=q.device)[None, :] // range_rows == torch.arange(n, device=q.device)[:, None]
+    sz = torch.where(zone, s, -torch.inf)  # (B, Hk, G, n, rows): range z's rows only
+    acc = torch.einsum("bhgls,bshd->blhgd", torch.softmax(sz, dim=-1), vf)  # (B, n, Hk, G, D)
+    m = sz.amax(dim=-1, keepdim=True)  # (B, Hk, G, n, 1)
+    l = torch.where(zone & walked[:, None, None, None, :], torch.exp(s - m), 0.0).sum(dim=-1)  # 0 past live
+    e = torch.exp(m[..., 0] - torch.where(l > 0, m[..., 0], -torch.inf).amax(dim=-1, keepdim=True))
+    w = l * e / (l * e).sum(dim=-1, keepdim=True)  # (B, Hk, G, n): range 0 always holds a live row
+    out = (acc * w.permute(0, 3, 1, 2)[..., None]).sum(dim=1)  # (B, Hk, G, D)
+    return out.reshape(b, 1, hq, d).to(q.dtype)
+
+
+def _check_cuda_decode_operands(q, k, v, keys: DecodeKeys) -> None:
+    """What the CUDA kernel assumes on top of :func:`_check_decode_operands`:
+    bf16 q with bf16 or e4m3 K/V, a head dim and group size it is built for
+    (:func:`decode_fits`), 16-byte aligned rows and strides, contiguous keys."""
+    d, hq, hk = q.shape[3], q.shape[2], k.shape[2]
+    if q.dtype != torch.bfloat16 or k.dtype not in DECODE_KV_DTYPES:
+        raise ValueError(f"the CUDA decode kernel takes a bf16 q and bf16 or float8_e4m3fn K/V, got {q.dtype}, "
+                         f"{k.dtype}")
+    if not decode_fits(d, hq // hk, k.dtype):
+        raise ValueError(f"the CUDA decode kernel is built for head dims {HEAD_DIMS} and at most {MAX_GROUP} query "
+                         f"heads per kv head, got D={d}, {hq // hk}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(s * t.element_size() % 16 for s in t.stride()[:3]):
+            raise ValueError(f"{name} must be contiguous in its head dim, 16-byte aligned, with strides that are "
+                             f"multiples of 16 bytes")
+    for name, t in keys._asdict().items():
+        if not t.is_contiguous():
+            raise ValueError(f"keys.{name} must be contiguous")
+
+
+def decode_attention(q, k, v, keys: DecodeKeys, sliding_window=None, scale=None, logit_softcap=None):
+    """Attention of one query row per slot, q (B, 1, Hq, D), over its cache k
+    and v (B, rows, Hk, D), read in place through their strides, with the
+    mask of :func:`decode_keys` -> (B, 1, Hq, D) in q's dtype.  Query head h
+    reads kv head h // (Hq / Hk).  On the card: K10, its key ranges as
+    :func:`decode_range_rows` says for the card's SM count; on the CPU:
+    :func:`decode_attention_plain` in one range."""
+    return _decode_attention(q, k, v, keys, sliding_window, scale, logit_softcap, range_rows=None)
+
+
+def _decode_attention(q, k, v, keys: DecodeKeys, sliding_window=None, scale=None, logit_softcap=None, *,
+                      range_rows):
+    """:func:`decode_attention` with its range length forced, or chosen as
+    there when None: the route the tests and ``benchmarks_torch/hopper_bench.py``
+    drive."""
+    _check_decode_operands(q, k, v, keys)
+    if not q.is_cuda:
+        return decode_attention_plain(q, k, v, keys, sliding_window, scale, logit_softcap, range_rows=range_rows)
+    _check_cuda_decode_operands(q, k, v, keys)
+    b, _, hq, d = q.shape
+    rows, hk = k.shape[1], k.shape[2]
+    if range_rows is None:
+        range_rows = decode_range_rows(b, rows, hk, _sm_count(q.device))
+    if range_rows < 1 or range_rows % DECODE_TILE:
+        raise ValueError(f"range_rows must be a positive multiple of {DECODE_TILE}, got {range_rows}")
+    n = -(-rows // range_rows)
+    out = torch.empty((b, 1, hq, d), dtype=torch.bfloat16, device=q.device)
+    part_acc = part_ml = None
+    if n > 1:  # the ranges' (acc, m, l), merged by the second launch
+        part_acc = torch.empty((b, hk, n, hq // hk, d), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((b, hk, n, hq // hk, 2), dtype=torch.float32, device=q.device)
+    scale = float(d) ** -0.5 if scale is None else float(scale)
+    fn = _build.kernel("decode_attention.cu")
+    LAUNCHES["decode_attention"] += 1
+    _check_status("decode_attention", fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if part_acc is None else part_acc.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(), keys.q_positions.data_ptr(), keys.key_positions.data_ptr(),
+        keys.live.data_ptr(), b, rows, keys.key_positions.shape[1], hq, hk, d, range_rows, n, q.stride(0),
+        q.stride(2), *k.stride()[:3], *v.stride()[:3], scale, 0.0 if logit_softcap is None else float(logit_softcap),
+        int(logit_softcap is not None), 0 if sliding_window is None else int(sliding_window),
+        int(sliding_window is not None), int(k.dtype == torch.float8_e4m3fn), _stream(q)))
     return out

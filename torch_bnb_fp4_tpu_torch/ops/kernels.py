@@ -69,10 +69,10 @@ SPLIT_MIN_BLOCKS = 4
 SPLIT_COUNTERS = 8192
 
 # launches per wrapper: each CUDA launch adds one (plain CPU calls do not);
-# "flash_attention" is K7's, counted by ops/attention.py
+# "flash_attention" is K7's and "decode_attention" K10's, counted by ops/attention.py
 LAUNCHES = {"decode_pairs": 0, "matmul_pk": 0, "matmul_pk_minner": 0, "matmul_pk_w4a8": 0, "flash_attention": 0,
             "flash_attention_fp8": 0, "matmul_w8": 0, "dequant_pk": 0, "matmul_pk_expert": 0, "matmul_pk_minner_expert": 0,
-            "matmul_pk_w4a8_expert": 0, "dequant_splitk": 0, "matmul_splitk": 0}
+            "matmul_pk_w4a8_expert": 0, "dequant_splitk": 0, "matmul_splitk": 0, "decode_attention": 0}
 
 
 def reset_launch_counts() -> None:
