@@ -65,12 +65,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      its dense bf16 twin;
   6. the long-prompt path: the 32-layer Mistral-7B geometry served by the
      Engine with chunked prefill (max_batch 4, max_len 8192, chunk 256) on
-     4352-row sliding-window rings: prompts of 100, 300, 4500 and 6000
-     tokens, 32 new tokens each; the short requests must gain tokens on the
-     ticks that run a long prompt's chunk, and K7 and K4 must both launch.
-     The 6000-token request is served again with full 8192-row caches and as
-     one whole-prompt prefill (Lq = Lk = 6016: K7, and K4 at M = 6016); each
-     run's logits are held against the ring run's as in phase 5.
+     4352-row sliding-window rings: warmup() given one prompt length must
+     capture the chunk graph of every width 32-256; then prompts of 100, 300,
+     4500 and 6000 tokens, 32 new tokens each, with no new program and every
+     chunk a graph replay (``prefill_chunks_eager`` 0); the short requests
+     must gain tokens on the ticks that run a long prompt's chunk, and K7 and
+     K4 must both launch.  One 256-row chunk is then timed as its graph's
+     replay against its eager run (host ms to issue it, wall and device ms,
+     the device operations and launch calls of one run under torch.profiler,
+     the port's kernel launches per replay).  The 6000-token request is served
+     again with full 8192-row caches and as one whole-prompt prefill (Lq = Lk
+     = 6016: K7, and K4 at M = 6016); each run's logits are held against the
+     ring run's as in phase 5.
   3c. K6 (pair-K dequantize) vs its plain version, bit-exact, on the four
      fused shapes at f32 and bf16 out and on the seven unfused shapes at f32
      out (the shadow build); K5 (the int8-shadow GEMM) vs its plain
@@ -481,18 +487,21 @@ def hold_runs(tag, names, ref_lg, ref_tokens, lg, tokens):
 
 class Recorder:
     """While ``eng`` serves, keeps on the device: the last-position logits of
-    every prefill forward (a whole prompt or a chunk: the calls with
-    ``last_index``) with its request's uid and CUDA events around the call;
-    and every request's decode logits.  The engine decodes by CUDA-graph
-    replay, where a wrapper around ``T.forward`` runs only at capture, so the
-    decode rows come from the engine's ``step_logits`` buffer, read after
-    each tick (entering before the engine's first decode tick, or before its
-    warmup)."""
+    every prefill pass (a whole prompt, a prefix-suffix chunk, or a chunk of
+    a chunked admission) with its request's uid and CUDA events around it;
+    and every request's decode logits.  The engine decodes, and runs the
+    chunks of a chunked admission, by CUDA-graph replay, where a wrapper
+    around ``T.forward`` runs only at capture, so the decode rows come from
+    the engine's ``step_logits`` buffer, read after each tick, and a chunk's
+    from its ``_pf_logits`` buffer, read after each ``_prefill_chunk`` (both
+    written while ``step_logits`` is set: enter before the engine's first
+    tick, or before its warmup).  Warmup's chunks are not recorded."""
 
     def __init__(self, T, eng):
         self.T, self.eng, self.forward = T, eng, T.forward
         self.prefill = []  # (uid, rows, logits, start, end)
         self.decode = {}  # uid -> [logits of its decode steps]
+        self._in_chunk = False
 
     def __enter__(self):
         import torch
@@ -515,18 +524,32 @@ class Recorder:
                         e.step_logits[j, i].clone() for j in range(e.last_decode_steps))
             return n
 
-        e.step, e._bind = recorded_step, recorded_bind
+        chunk = e._prefill_chunk
+
+        def recorded_chunk(w, rows):  # one chunk of a chunked admission, a graph replay on the card
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            self._in_chunk = True
+            try:
+                chunk(w, rows)
+            finally:
+                self._in_chunk = False
+            ev[1].record()
+            if e._pf is not None:  # not warmup's
+                self.prefill.append((e._pf["req"].uid, w, e._pf_logits[0].clone(), *ev))
+
+        e.step, e._bind, e._prefill_chunk = recorded_step, recorded_bind, recorded_chunk
         return self
 
     def __exit__(self, *exc):
         self.T.forward = self.forward
-        del self.eng.step, self.eng._bind
+        del self.eng.step, self.eng._bind, self.eng._prefill_chunk
         self.eng.step_logits = None
 
     def _call(self, p, c, tokens, cache, **kw):
         import torch
 
-        if "last_index" not in kw:  # a decode step (eager only while its graph is captured)
+        if "last_index" not in kw or self._in_chunk:  # a decode step or a chunk program (recorded around it)
             return self.forward(p, c, tokens, cache, **kw)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
@@ -541,6 +564,65 @@ class Recorder:
         last prefill call, then its decode rows."""
         first = [r[2] for r in self.prefill if r[0] == uid][-1]
         return [first.cpu()] + [x.cpu() for x in self.decode.get(uid, [])[: n - 1]]
+
+
+def chunk_replay_vs_eager(eng, at: int = 4096, rep: int = 8) -> dict:
+    """One full-width chunk of the idle engine ``eng`` at position ``at`` of
+    its static prefill cache (over the rows of a prompt of max_len tokens,
+    ``Engine._chunk_rows``), ``rep`` times as a replay of its CUDA graph and
+    ``rep`` times eagerly through ``Engine._chunk_fn``, in turns: medians of
+    the host ms to issue it, the wall ms to its end and the device ms between
+    CUDA events around it; then one of each under ``torch.profiler``: the
+    device operations and the host's kernel or graph launch calls it made.
+    ``graph_launches`` are the port's kernel launches one replay adds to
+    ``ops.kernels``' counts."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+
+    w = eng.ecfg.prefill_chunk
+    rows = eng._chunk_rows(w, at + w, eng.ecfg.max_len)
+    key = ("chunk", w, rows, eng.step_logits is not None)
+    if key not in eng._graphs:
+        eng._prefill_chunk(w, rows)  # captures it
+    graph, pc = eng._graphs[key], eng._pcache
+
+    def go(kind):
+        if kind == "graph":
+            graph.graph.replay()
+        else:
+            eng._chunk_fn(w, rows)
+
+    times = {"graph": [], "eager": []}
+    for _ in range(rep):
+        for kind in times:
+            pc.length.fill_(at)
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            go(kind)
+            ev[1].record()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            times[kind].append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3, ev[0].elapsed_time(ev[1])))
+    out = {"width": w, "at": at, "rows": sorted(set(rows)), "graph_launches": sum(graph.launches.values())}
+    for kind, runs in times.items():
+        out[kind] = {name: statistics.median(r[i] for r in runs) for i, name in enumerate(("issue_ms", "wall_ms",
+                                                                                            "device_ms"))}
+        pc.length.fill_(at)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            go(kind)
+            torch.cuda.synchronize()
+        evs = prof.events()
+        out[kind]["device_ops"] = sum(1 for e in evs if e.device_type == DeviceType.CUDA)
+        out[kind]["launch_calls"] = sum(1 for e in evs if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                                                     "cuLaunchKernel", "cudaGraphLaunch"))
+    pc.length.zero_()
+    return out
 
 
 def engine_vs_generate(T, Engine, params, cfg, ecfg, reqs, eng_tokens, gen_tokens, dev):
@@ -2834,13 +2916,20 @@ def main() -> int:
     big = len(long_reqs) - 1  # the 6000-token request
     ecfg6 = EngineConfig(max_batch=4, max_len=8192, inner_steps=8, prefill_chunk=256)
     eng = Engine(params, cfg, ecfg6)
-    cache_rows = sorted({a.shape[1] for a in eng.cache.k + eng.cache.v})
-    check(cache_rows == [4352], f"ring engine: cache rows {cache_rows}, want 4352 on every layer")
-    for r in long_reqs:
-        eng.submit(r)
+    cache_rows = sorted({a.shape[1] for a in eng.cache.k + eng.cache.v + eng._pcache.k + eng._pcache.v})
+    check(cache_rows == [4352], f"ring engine: cache and prefill cache rows {cache_rows}, want 4352 on every layer")
     interleaved = 0
-    K.reset_launch_counts()
     with Recorder(T, eng) as rec:
+        t0 = time.perf_counter()
+        warm6 = eng.warmup(prompt_lens=[LONG_PROMPTS[0]])  # every chunk width and row count, whatever the lengths
+        warm6_s = time.perf_counter() - t0
+        graphs6 = sorted(k[1:3] for k in eng._graphs if k[0] == "chunk")
+        widths6 = sorted({w for w, _ in graphs6})
+        check(widths6 == list(range(32, 257, 32)) and set(graphs6) == eng._chunk_keys(),
+              f"phase 6: warmup captured chunk graphs {graphs6}, want {sorted(eng._chunk_keys())}")
+        for r in long_reqs:
+            eng.submit(r)
+        K.reset_launch_counts()
         t0 = time.perf_counter()
         while eng.pending or eng._pf is not None or any(r is not None for r in eng.slot_req):
             before = {r.uid: len(eng.slot_tokens[i]) for i, r in enumerate(eng.slot_req)
@@ -2856,6 +2945,11 @@ def main() -> int:
         wall = time.perf_counter() - t0
     launches6 = K.launch_counts()
     st6 = eng.stats()
+    n_chunks6 = sum(-(-((lp + 31) // 32 * 32) // ecfg6.prefill_chunk) for lp in LONG_PROMPTS)
+    check(eng.traces == warm6, f"phase 6: serving after warmup() added programs: {warm6} -> {eng.traces}")
+    check(st6["prefill_chunks_eager"] == 0 and st6["prefill_chunks_graphed"] == n_chunks6,
+          f"phase 6: chunks graphed {st6['prefill_chunks_graphed']}, eager {st6['prefill_chunks_eager']}; want "
+          f"{n_chunks6} and 0")
     res6 = {c.uid: c for c in eng.completions}
     check(set(res6) == {r.uid for r in long_reqs}, "phase 6: the engine did not complete every request")
     for r in long_reqs:
@@ -2877,6 +2971,18 @@ def main() -> int:
           f"mean (min {min(full_chunks):.1f}, max {max(full_chunks):.1f}; CUDA events around each chunk forward), "
           f"final {big_chunks[-1][0]}-row chunk {big_chunks[-1][1]:.1f} ms")
     print(f"[6] launches on the long-prompt path: {json.dumps(launches6)}")
+    print(f"[6] warmup(prompt_lens=[{LONG_PROMPTS[0]}]) in {warm6_s:.1f} s: {len(graphs6)} chunk graphs of widths "
+          f"{widths6} over rows {sorted({r[0] for _, r in graphs6})}, traces {warm6}; serving added none; "
+          f"{st6['prefill_chunks_graphed']} chunks replayed, {st6['prefill_chunks_eager']} eager")
+    cr = chunk_replay_vs_eager(eng)
+    print(f"[6] one {cr['width']}-row chunk at position {cr['at']} of the prefill ring (rows {cr['rows']}), medians "
+          f"of 8 in turns: graph "
+          f"replay issue {cr['graph']['issue_ms']:.3f} ms, wall {cr['graph']['wall_ms']:.2f} ms, device "
+          f"{cr['graph']['device_ms']:.2f} ms; eager issue {cr['eager']['issue_ms']:.2f} ms, wall "
+          f"{cr['eager']['wall_ms']:.2f} ms, device {cr['eager']['device_ms']:.2f} ms; per run: graph "
+          f"{cr['graph']['device_ops']} device ops from {cr['graph']['launch_calls']} launch call(s), eager "
+          f"{cr['eager']['device_ops']} from {cr['eager']['launch_calls']}; port kernel launches per replay "
+          f"{cr['graph_launches']} ({smi})")
     del eng, rec
     torch.cuda.empty_cache()
 
@@ -3216,7 +3322,8 @@ def main() -> int:
     shutil.rmtree(ckpt8, ignore_errors=True)
     g8e = torch.Generator().manual_seed(10)
     served8 = [torch.randint(0, mcfg.vocab_size, (lp,), generator=g8e).tolist() for lp in MOE_SERVED_PROMPTS]
-    aborted8 = torch.randint(0, mcfg.vocab_size, (300,), generator=g8e).tolist()
+    # long enough that its chunks, graph replays, outlast the abort's round trip: the abort lands mid-prefill
+    aborted8 = torch.randint(0, mcfg.vocab_size, (4500,), generator=g8e).tolist()
     short8p = torch.randint(0, mcfg.vocab_size, (50,), generator=g8e).tolist()
     try:
         p4 = synth_params(mcfg4, seed=15, device=dev)  # unfused, as the CLI loads a checkpoint
@@ -3243,7 +3350,7 @@ def main() -> int:
             check(res8e[i].tokens == toks_http, f"[8e] request {i} over HTTP differs from the in-process replay")
         check(all(launches8e[nm] > 0 for nm in moe_served), f"[8e] replay launches {launches8e}")
         print(f"[8e] CLI server (--prefill-shadow): serving line after {startup8:.1f} s; prompts {MOE_SERVED_PROMPTS} "
-              f"at once, an aborted 300-token request and a 50-token one; HTTP tokens equal the in-process replay's "
+              f"at once, an aborted 4500-token request and a 50-token one; HTTP tokens equal the in-process replay's "
               f"(load_checkpoint + attach_prefill_shadow) for all {len(reqs8e)}; server launches "
               f"{json.dumps(child8['launches'])}; replay launches {json.dumps(launches8e)}")
         del p8e, shadowed8
@@ -3357,7 +3464,7 @@ def main() -> int:
     shapes9 = dict(wq=(cfg.q_dim, cfg.dim), wk=(kv_dim, cfg.dim), wv=(kv_dim, cfg.dim), wo=(cfg.dim, cfg.q_dim),
                    w_gate=(cfg.ffn_dim, cfg.dim), w_up=(cfg.ffn_dim, cfg.dim), w_down=(cfg.dim, cfg.ffn_dim))
     served9 = [torch.randint(0, cfg.vocab_size, (lp,), generator=g9).tolist() for lp in SPLITK_SERVED_PROMPTS]
-    aborted9 = torch.randint(0, cfg.vocab_size, (300,), generator=g9).tolist()
+    aborted9 = torch.randint(0, cfg.vocab_size, (4500,), generator=g9).tolist()  # as aborted8: lands mid-prefill
     short9 = torch.randint(0, cfg.vocab_size, (50,), generator=g9).tolist()
     try:
         t0 = time.perf_counter()
@@ -3414,7 +3521,7 @@ def main() -> int:
             check(res9d[i].tokens == toks_http, f"[9d] request {i} over HTTP differs from the in-process replay")
         check(launches9d["matmul_splitk"] > 0 and launches9d["matmul_w8"] == 0, f"[9d] replay launches {launches9d}")
         print(f"[9d] CLI server (--prefill-shadow, which skips every split-K linear): serving line after "
-              f"{startup9:.1f} s; prompts {SPLITK_SERVED_PROMPTS} at once, an aborted 300-token request and a 50-token "
+              f"{startup9:.1f} s; prompts {SPLITK_SERVED_PROMPTS} at once, an aborted 4500-token request and a 50-token "
               f"one; HTTP tokens equal the in-process replay's for all {len(reqs9d)}; server launches "
               f"{json.dumps(cl)}; replay launches {json.dumps(launches9d)}")
         del p9r, shadowed9

@@ -918,7 +918,7 @@ def test_kv_cast_on_card_equals_cpu(dev):
     torch.testing.assert_close(got, kv_cast(x, torch.float8_e4m3fn).view(torch.uint8), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("mode", ["plain", "spec", "fp8_chunked"])
+@pytest.mark.parametrize("mode", ["plain", "spec", "fp8_chunked", "rings_chunked"])
 def test_graphed_engine_equals_eager_generate(dev, mode):
     """The engine on the card decodes by CUDA-graph replay: after warmup()
     serving captures nothing (traces flat), its greedy tokens equal eager
@@ -926,32 +926,76 @@ def test_graphed_engine_equals_eager_generate(dev, mode):
     rows), and the launch counts include every replay (K2 at least once per
     linear per decode step).  ``fp8_chunked`` serves from an e4m3 cache with
     chunked prefill: its tokens are not held against the bf16 ``generate``
-    (the cache rounds K/V), only its logprobs, flat traces and cache dtype."""
+    (the cache rounds K/V), only its logprobs, flat traces and cache dtype.
+    ``rings_chunked`` prefills 256-row chunks as graph replays on 4352-row
+    rings (K4 at 256 rows, K3 and K2 below, K7 over the rings): prompts of
+    eight buckets, one of each final chunk width 32-256, some wrapping the
+    ring, after a warmup given one other length.  No chunk runs eagerly, and
+    each request is held against its chunks run eagerly through
+    ``T.forward`` on a copy of the static prefill cache (each chunk over the
+    leading rows ``Engine._chunk_rows`` gives it) in this test's own loop:
+    the first token's logprob within 1e-3, the tokens equal to the loop's
+    greedy continuation."""
     from torch_bnb_fp4_tpu_torch.models import transformer as T
     from torch_bnb_fp4_tpu_torch.serve import Engine, EngineConfig, Request
     from torch_bnb_fp4_tpu_torch.utils.synth import synth_params
 
-    cfg = T.ModelConfig.tiny_test(n_layers=2)
+    cfg = T.ModelConfig.tiny_test(n_layers=2, sliding_window=4096 if mode == "rings_chunked" else None)
     params = synth_params(cfg, seed=5, fuse=True, device=dev)
     g = torch.Generator().manual_seed(2)
-    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in (32, 64, 32)]
+    lens = (32, 64, 32)
+    if mode == "rings_chunked":  # buckets 256 k + 32 j: final widths 32 j, k of 0, 9 or 18 chunks before
+        lens = [256 * (0, 9, 18)[j % 3] + 32 * j - 7 for j in range(1, 9)]
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in lens]
     kw = dict(max_batch=4, max_len=128, inner_steps=4, batch_buckets=True, logprobs=True)
     if mode == "spec":
         kw.update(spec_tokens=3, spec_ngram=2)
         prompts = [(p[:8] * 4)[:32] for p in prompts]  # periodic prompts: drafts get accepted
     if mode == "fp8_chunked":
         kw.update(kv_dtype="float8_e4m3fn", prefill_chunk=32)
+    if mode == "rings_chunked":
+        kw.update(max_len=8192, prefill_chunk=256)
     eng = Engine(params, cfg, EngineConfig(**kw))
-    warm = eng.warmup(max_prompt_len=64)
+    warm = eng.warmup(prompt_lens=[300]) if mode == "rings_chunked" else eng.warmup(max_prompt_len=64)
     K.reset_launch_counts()
     res = eng.run([Request(uid=i, prompt=p, max_new_tokens=12) for i, p in enumerate(prompts)])
     assert eng.traces == warm
     steps = eng.stats()["decode_steps"]
     assert K.launch_counts()["matmul_pk"] >= steps * 4 * cfg.n_layers
+    if mode == "rings_chunked":
+        assert {a.shape[1] for a in eng.cache.k + eng._pcache.k} == {4352}
+        st, n_chunks = eng.stats(), sum(-(-((n + 31) // 32 * 32) // 256) for n in lens)
+        assert st["prefill_chunks_eager"] == 0 and st["prefill_chunks_graphed"] == n_chunks, st
+        for name in ("matmul_pk_w4a8", "matmul_pk_minner", "flash_attention"):
+            assert K.launch_counts()[name] > 0, name
     for i, p in enumerate(prompts):
         c = res[i]
         assert len(c.tokens) == 12 and len(c.logprobs) == 12 and all(lp <= 0 for lp in c.logprobs)
         if mode == "fp8_chunked":
+            continue
+        if mode == "rings_chunked":
+            pc = T.KVCache(k=[a.clone() for a in eng._pcache.k], v=[a.clone() for a in eng._pcache.v],
+                           length=torch.zeros(1, dtype=torch.int32, device=dev))  # stale rows past the length
+            lp_pad = -(-len(p) // 32) * 32
+            with torch.no_grad():
+                for lo in range(0, lp_pad, 256):
+                    hi = min(lo + 256, lp_pad)
+                    toks = torch.zeros((1, hi - lo), dtype=torch.int32)
+                    toks[0, : min(len(p), hi) - lo] = torch.tensor(p[lo:hi])
+                    rows = eng._chunk_rows(hi - lo, hi, lp_pad)
+                    view = T.KVCache(k=[a[:, :r] for a, r in zip(pc.k, rows)],
+                                     v=[a[:, :r] for a, r in zip(pc.v, rows)], length=pc.length)
+                    lg, view = T.forward(params, cfg, toks.to(dev), view, last_index=min(len(p), hi) - 1 - lo)
+                    pc.length = view.length
+                pc.length.fill_(len(p))  # decode goes on from the true length, over the bucket's padding rows
+                first = int(lg[0, -1].argmax())
+                lp0 = torch.log_softmax(lg[0, -1].float(), -1)[first].item()
+                want = [first]
+                for _ in range(11):
+                    lg, pc = T.forward(params, cfg, torch.tensor([[want[-1]]], dtype=torch.int32, device=dev), pc)
+                    want.append(int(lg[0, -1].argmax()))
+            assert abs(c.logprobs[0] - lp0) <= 1e-3, (i, c.logprobs[0], lp0)
+            assert c.tokens == want, (i, c.tokens, want)
             continue
         want = T.generate(params, cfg, torch.tensor([p], dtype=torch.int32, device=dev), 12)[0].tolist()
         assert c.tokens == want, (i, c.tokens, want)

@@ -704,13 +704,17 @@ def has_multi_lora(params: ModelParams) -> bool:
 
 def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor, cache: KVCache,
             positions: torch.Tensor | None = None, last_only: bool = False,
-            last_index: int | None = None, adapter_idx: torch.Tensor | None = None,
+            last_index: int | torch.Tensor | None = None, adapter_idx: torch.Tensor | None = None,
             group=None) -> tuple[torch.Tensor, KVCache]:
     """Run L tokens (B, L) through the model, appending to the cache.
 
     Returns (logits (B, L', vocab) f32, cache with the new lengths); L' is 1
     with ``last_only`` or ``last_index`` (the lm_head runs on that position
     only).  The cache tensors are updated in place.
+
+    ``last_index``: a Python int, or a one-element int64 tensor on the
+    tokens' device, gathered there, so that a CUDA graph of the forward
+    replays for any position.
 
     ``adapter_idx``: (B,) int32 per-row adapter index (0 = no adapter) on
     the tokens' device, for ``MultiLoRALinear`` params
@@ -756,7 +760,9 @@ def forward(params: ModelParams, cfg: ModelConfig, tokens: torch.Tensor, cache: 
         x = _layer_forward(lp, cfg, x, cache.k[i], cache.v[i], ctx, layer_idx=i, adapter_idx=adapter_idx,
                            group=group)
     x = rms_norm(x, params.final_norm, cfg.rms_eps, cfg.norm_offset)
-    if last_index is not None:
+    if torch.is_tensor(last_index):
+        x = x.index_select(1, last_index.reshape(1))
+    elif last_index is not None:
         x = x[:, last_index : last_index + 1]
     elif last_only:
         x = x[:, -1:]

@@ -21,7 +21,8 @@ shard at load) serves through K9b; --prefill-shadow then skips every split-K
 linear, which keeps K9b for prefill too.  ``--device`` (default
 cuda) is the port's own flag: the server runs on the card unless asked for
 the CPU.  --warmup-prompt-len runs every serving program (the decode CUDA
-graphs included) before the server accepts requests.  ``--lora DIR`` serves
+graphs included; with --prefill-chunk the chunk graph of every width and row
+count) before the server accepts requests.  ``--lora DIR`` serves
 one HF PEFT adapter on every request (its exact low-rank delta beside the
 untouched FP4 bases), ``--lora-merge`` folds it into the weights instead
 (requantized: no cost per token); ``--lora NAME=DIR``, repeatable, stacks
@@ -86,8 +87,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--logprobs", action="store_true", help="emit per-token logprobs on every completion")
     ap.add_argument("--kv-dtype", default="bfloat16", choices=["bfloat16", "float8_e4m3fn"])
     ap.add_argument("--warmup-prompt-len", type=int, default=0,
-                    help="run every serving program (decode CUDA graphs, prefill buckets) for prompts up to this "
-                         "length before accepting traffic")
+                    help="run every serving program (decode CUDA graphs, prefill buckets or, with --prefill-chunk, "
+                         "every chunk graph) for prompts up to this length before accepting traffic")
     ap.add_argument("--lora", action="append", default=None, metavar="DIR|NAME=DIR",
                     help="HF PEFT LoRA adapter dir to serve over the base (exact low-rank delta; base bytes "
                          "untouched).  Repeatable as NAME=DIR for multi-adapter serving: requests then pick an "

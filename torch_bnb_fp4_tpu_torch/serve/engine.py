@@ -23,11 +23,19 @@ field, per-request LoRA adapters and meshes):
     top_p) draws Gumbel-max noise from the engine's ``torch.Generator``,
     seeded from ``EngineConfig.seed`` and registered with every graph, so a
     replay draws fresh noise; a greedy engine runs pure argmax;
-  * prefill runs eagerly per request at batch 1 on a small cache of the
-    prompt's 32-row bucket (or one ``prefill_chunk`` per tick), and its KV
-    rows are copied into the slot; prefix caching forks a donor's rows (a
-    live slot, or a retired request kept in ``prefix_store`` extra cache
-    rows) instead of recomputing them;
+  * a whole prompt prefills eagerly at batch 1 on a small cache of its
+    32-row bucket, and its KV rows are copied into the slot.  Chunked
+    prefill (``prefill_chunk``: one chunk per tick) runs on ONE static
+    batch-1 prefill cache with the slot cache's rows per layer, from static
+    input buffers (the chunk's tokens, its last index, temperature, top_p,
+    adapter index) to static outputs (the draw and its logprob): on the card
+    each chunk replays a CUDA graph keyed by the chunk's width and the
+    leading rows of each layer it attends over (a few sizes per width, each
+    layer on the attention route of the prompt's bucket-sized cache: see
+    ``Engine._chunk_rows``), every one captured by :meth:`Engine.warmup`,
+    so no prompt length or bucket ever needs a graph of its own.  Prefix
+    caching forks a donor's rows (a live slot, or a retired request kept in
+    ``prefix_store`` extra cache rows) instead of recomputing them;
   * speculative decoding drafts ``spec_tokens`` by prompt lookup in a
     device-resident token history and verifies them in one (B, k+1) forward
     (greedy: exact match; sampling: rejection sampling);
@@ -450,6 +458,22 @@ class Engine:
         self._gen.manual_seed(ecfg.seed)
         self._graphs: dict[tuple, _Graph] = {}
         self._pool = self._side = None  # the graphs' shared memory pool and capture stream (card only)
+        self._chunks = {"graphed": 0, "eager": 0}  # chunked-prefill chunks served since warmup(), by how they ran
+        if ecfg.prefill_chunk:
+            # static state of the chunk programs (updated in place, never rebound): a batch-1 prefill cache
+            # with the slot cache's rows per layer, the chunk's tokens and last index, the prompt's sampling
+            # row and adapter in; its first token, logprob and (with step_logits) last-position logits out
+            self._pcache = T.KVCache.zeros(self._cache_cfg, 1, ml, dtype=self._kv_dtype, write_chunk=self._ring_chunk,
+                                           device=dev)
+            self._pf_tok = torch.zeros((1, ecfg.prefill_chunk), dtype=torch.int32, device=dev)
+            self._pf_last = torch.zeros(1, dtype=torch.int64, device=dev)
+            self._pf_temp = torch.full((1,), ecfg.temperature, dtype=torch.float32, device=dev)
+            self._pf_top_p = torch.full((1,), ecfg.top_p, dtype=torch.float32, device=dev)
+            self._pf_aidx = torch.zeros(1, dtype=torch.int32, device=dev)
+            self._pf_first = torch.zeros(1, dtype=torch.int32, device=dev)
+            self._pf_lp = torch.zeros(1, dtype=torch.float32, device=dev)
+            self._pf_logits = torch.zeros((1, cfg.vocab_size), dtype=torch.float32, device=dev)
+            self._pf_kinds = [(cfg.layer_sliding_window(i), a.shape[1]) for i, a in enumerate(self._pcache.k)]
 
     # -- device programs ---------------------------------------------------
 
@@ -554,41 +578,44 @@ class Engine:
             self._programs.add(key)
             self.traces[kind] += 1
 
-    def _run(self, key: tuple, fn) -> None:
+    def _run(self, key: tuple, fn, kind: str = "decode") -> bool:
         """Run device program ``fn`` (it reads and writes the static buffers
         only): on the card by replaying its CUDA graph, captured at first use;
-        on the CPU, and with a mesh, eagerly."""
-        self._program("decode", key)
+        on the CPU, and with a mesh, eagerly.  Returns True when it replayed a
+        graph captured before this call."""
+        self._program(kind, key)
         if self.device.type != "cuda" or self.mesh is not None:
             fn()
-            return
+            return False
         g = self._graphs.get(key)
+        warm = g is not None
         if g is None:
             g = self._graphs[key] = self._capture(fn)
         g.replay()
+        return warm
 
     def _capture(self, fn) -> _Graph:
         """Capture ``fn`` into a CUDA graph, after one eager run on the capture
         stream (kernel builds, allocator growth, per-stream scratch) whose
-        state changes are undone: the lengths (and speculation history) are
-        restored, and its writes past the lengths are overwritten by the
-        replay before any query sees them.  All graphs share one memory pool.
-        A capture that fails raises; without a mesh the engine never decodes
-        eagerly on the card.  With a mesh it decodes eagerly and captures
-        nothing: gloo collectives cannot be captured in a CUDA graph, and
-        capture over NCCL needs a card per rank (ROADMAP)."""
+        state changes are undone: the lengths of the cache and of the prefill
+        cache (and the speculation history) are restored, and its writes past
+        the lengths are overwritten by the replay before any query sees them.
+        All graphs share one memory pool.  A capture that fails raises;
+        without a mesh the engine never decodes eagerly on the card.  With a
+        mesh it decodes eagerly and captures nothing: gloo collectives cannot
+        be captured in a CUDA graph, and capture over NCCL needs a card per
+        rank (ROADMAP)."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._side = torch.cuda.Stream(self.device)
-        saved = [self.cache.length.clone()]
-        if self.ecfg.spec_tokens:
-            saved += [self._hist.clone(), self._hlen.clone()]
+        state = ([self.cache.length] + ([self._hist, self._hlen] if self.ecfg.spec_tokens else [])
+                 + ([self._pcache.length] if self.ecfg.prefill_chunk else []))
+        saved = [t.clone() for t in state]
         self._side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._side):
             fn()
         torch.cuda.current_stream(self.device).wait_stream(self._side)
-        for dst, src in zip([self.cache.length, self._hist, self._hlen] if self.ecfg.spec_tokens
-                            else [self.cache.length], saved):
+        for dst, src in zip(state, saved):
             dst.copy_(src)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._gen)
@@ -602,7 +629,8 @@ class Engine:
     def _row_tensors(self, req: Request, slot: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Record a request's sampling overrides and adapter on its slot;
         returns the (1,) temperature, top_p and adapter index of its prefill
-        (JAX's ``_resolve_sampling``)."""
+        (JAX's ``_resolve_sampling``): with ``prefill_chunk``, the chunk
+        programs' static buffers, filled."""
         t = self.ecfg.temperature if req.temperature is None else req.temperature
         p = self.ecfg.top_p if req.top_p is None else req.top_p
         aid = 0 if req.adapter is None else self.adapter_ids[req.adapter]
@@ -611,6 +639,10 @@ class Engine:
         self.slot_aidx[slot] = aid
         self._slots_dirty = True
         self._hist_dirty = True
+        if self.ecfg.prefill_chunk:  # the chunk programs' static buffers
+            for buf, x in zip((self._pf_temp, self._pf_top_p, self._pf_aidx), (t, p, aid)):
+                buf.fill_(x)
+            return self._pf_temp, self._pf_top_p, self._pf_aidx
         return (torch.tensor([t], dtype=torch.float32, device=self.device),
                 torch.tensor([p], dtype=torch.float32, device=self.device),
                 torch.tensor([aid], dtype=torch.int32, device=self.device))
@@ -633,38 +665,110 @@ class Engine:
         self._program("prefill", ("prefill", lp_pad))
         small = T.KVCache.zeros(self._cache_cfg, 1, lp_pad, dtype=self._kv_dtype, device=self.device)
         logits, small = self._forward(tokens, small, aidx, last_index=true_len - 1)
-        self._splice_fn(small, slot, true_len)
+        self._splice_fn(small, slot, true_len, lp_pad)
         return self._first_token(logits, temp, top_p)
 
     @torch.no_grad()
-    def _chunk_fn(self, tokens: torch.Tensor, small: T.KVCache, last_index: int, lp_pad: int, temp, top_p,
-                  aidx=None):
-        """One prefill chunk on the private batch-1 cache (of the prompt's
-        bucket ``lp_pad``): its KV lands at small.length, which advances;
-        ``last_index`` is the chunk-local position of the prompt's true last
-        token (only the final chunk's draw is used).  Returns (token, logprob
-        or None, cache)."""
-        self._program("prefill", ("chunk", tokens.shape[1], lp_pad))
+    def _suffix_fn(self, tokens: torch.Tensor, small: T.KVCache, last_index: int, lp_pad: int, temp, top_p,
+                   aidx=None):
+        """One prefix-suffix chunk of whole-prompt admission on the private
+        batch-1 cache (of the prompt's bucket ``lp_pad``): its KV lands at
+        small.length, which advances; ``last_index`` is the chunk-local
+        position of the prompt's true last token (only the final chunk's draw
+        is used).  Returns (token, logprob or None, cache)."""
+        self._program("prefill", ("suffix", tokens.shape[1], lp_pad))
         logits, small = self._forward(tokens, small, aidx, last_index=last_index)
         return (*self._first_token(logits, temp, top_p), small)
+
+    @torch.no_grad()
+    def _chunk_fn(self, w: int, rows: tuple[int, ...]) -> None:
+        """One ``w``-row prefill chunk on the leading ``rows[i]`` rows of the
+        static prefill cache's layer i (a CUDA graph's body): reads the first
+        ``w`` static tokens, the last index, temperature, top_p and adapter
+        index; its KV lands at the prefill cache's length, which advances in
+        place; writes the draw at the last index (the chunk-local position of
+        the prompt's true last token, only the final chunk's draw is used),
+        its logprob and, with ``step_logits`` set, its logits to the static
+        outputs."""
+        pc = self._pcache
+        view = T.KVCache(k=[a[:, :r] for a, r in zip(pc.k, rows)], v=[a[:, :r] for a, r in zip(pc.v, rows)],
+                         length=pc.length)
+        logits, out = self._forward(self._pf_tok[:, :w], view, self._pf_aidx, last_index=self._pf_last)
+        first, lp0 = self._first_token(logits, self._pf_temp, self._pf_top_p)
+        self._pf_first.copy_(first)
+        if lp0 is not None:
+            self._pf_lp.copy_(lp0)
+        if self.step_logits is not None:
+            self._pf_logits.copy_(logits[:, -1])
+        pc.length.copy_(out.length)
+
+    def _prefill_chunk(self, w: int, rows: tuple[int, ...]) -> None:
+        """Run :meth:`_chunk_fn` over the static buffers as they stand: on
+        the card a graph replay keyed by (``w``, ``rows``, whether
+        ``step_logits`` is set), never by the prompt.  Counted graphed when it
+        replayed a graph captured before it, else eager (the CPU, a mesh, or
+        the chunk whose first use captured its graph)."""
+        warm = self._run(("chunk", w, rows, self.step_logits is not None), lambda: self._chunk_fn(w, rows),
+                         kind="prefill")
+        self._chunks["graphed" if warm else "eager"] += 1
+
+    def _chunk_rows(self, w: int, hi: int, lp_pad: int) -> tuple[int, ...]:
+        """Per layer, the leading rows of the static prefill cache that the
+        ``w``-row chunk ending at prompt row ``hi`` of bucket ``lp_pad``
+        attends over.  Each layer keeps the attention route that the chunk
+        took on a private cache of the bucket (``ring_rows(lp_pad)`` rows,
+        routed by shape), so the static cache lowers no precision: where that
+        was K7, all of the layer's rows (K7 skips key tiles with no valid
+        key); where it was the dense route (f32 probabilities), the chunk's
+        end rounded up to ``prefill_chunk`` times a power of two, below K7's
+        threshold for the width, or all the rows of a ring that wrapped.  So
+        the dense route reads at most twice the rows that hold the chunk's
+        keys, and a width meets a few row counts (:meth:`_chunk_keys`)."""
+        top = self.ecfg.prefill_chunk
+        while top < hi:
+            top *= 2
+        by_kind = {}
+        for window, n in set(self._pf_kinds):
+            if T._use_flash(w, T.ring_rows(lp_pad, window, self._ring_chunk)):
+                by_kind[window, n] = n
+            else:  # hi <= the bucket's rows < K7's threshold, or a ring that wrapped (n rows either way)
+                r = min(n, top)
+                by_kind[window, n] = (T._FLASH_MIN_CELLS - 1) // w // 32 * 32 if T._use_flash(w, r) else r
+        return tuple(by_kind[k] for k in self._pf_kinds)
+
+    def _chunk_keys(self) -> set[tuple[int, tuple[int, ...]]]:
+        """Every (width, rows) a prefill chunk can run with: chunks start at
+        multiples of ``prefill_chunk`` (a donated prefix is one too) and end
+        at the next one or at the prompt's 32-row bucket, clamped to
+        max_len."""
+        c, ml = self.ecfg.prefill_chunk, self.ecfg.max_len
+        keys = set()
+        for lp_pad in {self._bucket(n) for n in range(1, ml + 1, 32)}:
+            for lo in range(0, lp_pad, c):
+                hi = min(lo + c, lp_pad)
+                keys.add((hi - lo, self._chunk_rows(hi - lo, hi, lp_pad)))
+        return keys
 
     def _row(self, row: int) -> tuple[int, int]:
         """(data replica, local row) of global cache row ``row``."""
         return row % self._nd, row // self._nd
 
-    def _splice_fn(self, small: T.KVCache, slot: int, true_len: int) -> None:
+    def _splice_fn(self, small: T.KVCache, slot: int, true_len: int, lp_pad: int) -> None:
         """Copy a completed prefill's KV rows into ``slot``, layer by layer:
-        ``sm.shape[1]`` rows each (a ring layer of the small cache may hold
-        fewer rows than the prompt's bucket).  Slot s holds the same position
-        in both caches: either the small layer never wrapped, or it has the big
-        layer's ring size.  Rows past ``true_len`` are masked by kv_valid.
-        With data replicas only the slot's owner writes (every replica ran
-        the prefill alike)."""
+        the ``ring_rows(lp_pad, ...)`` rows that the prompt's bucket fills (a
+        ring layer may hold fewer; all of a ring that wrapped), whether
+        ``small`` is a cache of the bucket or the static prefill cache.  Slot
+        s holds the same position in both caches: either the small layer
+        never wrapped, or it has the big layer's ring size.  Rows past
+        ``true_len`` are masked by kv_valid.  With data replicas only the
+        slot's owner writes (every replica ran the prefill alike)."""
         d, r = self._row(slot)
         if d != self._di:
             return
-        for big, sm in zip(self.cache.k + self.cache.v, small.k + small.v):
-            big[r, : sm.shape[1]].copy_(sm[0])
+        n = self.cfg.n_layers
+        for i, (big, sm) in enumerate(zip(self.cache.k + self.cache.v, small.k + small.v)):
+            rows = T.ring_rows(lp_pad, self.cfg.layer_sliding_window(i % n), self._ring_chunk)
+            big[r, :rows].copy_(sm[0, :rows])
         self.cache.length[r] = true_len
 
     def _bcast_row(self, row: int, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -698,22 +802,27 @@ class Engine:
                 a[rd].copy_(t)
             c.length[rd] = got[-1][0]
 
-    def _fork_fn(self, src: int, length: int, lp_pad: int) -> T.KVCache:
-        """A private batch-1 cache for a prompt of bucket ``lp_pad`` holding
-        row ``src``'s leading KV rows, write offset ``length`` (prefix
-        caching): rows [0, length) are the donor's shared-prefix KV, rows
-        beyond are garbage the suffix chunks overwrite or kv_valid masks.
-        Per layer the copy is the small cache's row count for this bucket.
-        With data replicas the donor's owner broadcasts it to every replica
-        (the suffix prefill runs alike on all of them)."""
-        self._program("fork", ("fork", lp_pad))
+    def _fork_fn(self, src: int, length: int, lp_pad: int | None = None) -> T.KVCache:
+        """A batch-1 cache holding row ``src``'s leading ``length`` KV rows,
+        write offset ``length`` (prefix caching): a new private cache of
+        bucket ``lp_pad`` (whole-prompt admission), or without one the static
+        prefill cache (chunked admission).  Rows beyond are garbage the
+        suffix chunks overwrite or kv_valid masks.  The donor never wrapped
+        and ``length`` fits the smallest ring, so row p holds position p in
+        both caches.  With data replicas the donor's owner broadcasts the
+        rows to every replica (the suffix prefill runs alike on all of
+        them)."""
+        self._program("fork", ("fork", lp_pad or "static"))
+        dst = self._pcache if lp_pad is None else T.KVCache.zeros(
+            self._cache_cfg, 1, lp_pad, dtype=self._kv_dtype, write_chunk=self._ring_chunk, device=self.device)
         _, r = self._row(src)
-        n = self.cfg.n_layers
-        rows = [T.ring_rows(lp_pad, self.cfg.layer_sliding_window(i), self._ring_chunk) for i in range(n)]
-        parts = [a[r : r + 1, :rows[i % n]].clone() for i, a in enumerate(self.cache.k + self.cache.v)]
-        if self._nd > 1:
+        parts = [a[r : r + 1, :length] for a in self.cache.k + self.cache.v]
+        if self._nd > 1 and length:
             parts = self._bcast_row(src, parts)
-        return T.KVCache(k=parts[:n], v=parts[n:], length=torch.tensor([length], dtype=torch.int32, device=self.device))
+        for d, part in zip(dst.k + dst.v, parts):
+            d[:, :length].copy_(part)
+        dst.length.fill_(length)
+        return dst
 
     # -- prefix cache --------------------------------------------------------
 
@@ -880,7 +989,7 @@ class Engine:
                 return True
         if self._pf is not None and self._pf["req"].uid == uid:
             r = self._pf["req"]
-            self._pf = None  # its small cache is dropped; the slot was never bound
+            self._pf = None  # the slot was never bound; the next prompt resets the prefill cache
             self._complete_empty(r)
             return True
         for i, r in enumerate(self.slot_req):
@@ -924,10 +1033,11 @@ class Engine:
             self.on_token(req.uid, first)
 
     def _chunk_tokens(self, prompt: list[int], lo: int, hi: int) -> torch.Tensor:
+        """Prompt rows [lo, hi), zero-padded, as a (1, hi - lo) int32 host tensor."""
         toks = np.zeros((1, hi - lo), np.int32)
         real = prompt[lo:hi]
         toks[0, : len(real)] = real
-        return torch.from_numpy(toks).to(self.device)
+        return torch.from_numpy(toks)
 
     def _admit(self) -> None:
         admitted = 0
@@ -948,11 +1058,11 @@ class Engine:
                 while lo < lp:
                     hi = min(lo + 32, lp_pad)
                     with span("engine.prefill"):
-                        first, lp0, small = self._chunk_fn(self._chunk_tokens(req.prompt, lo, hi), small,
-                                                           min(lp, hi) - 1 - lo, lp_pad, *rows)
+                        toks = self._chunk_tokens(req.prompt, lo, hi).to(self.device)
+                        first, lp0, small = self._suffix_fn(toks, small, min(lp, hi) - 1 - lo, lp_pad, *rows)
                         self.last_prefill.append((req.uid, hi - lo, lo, min(lp, hi) - lo))
                         if hi >= lp:
-                            self._splice_fn(small, slot, lp)
+                            self._splice_fn(small, slot, lp, lp_pad)
                             self._bind(slot, req, first, lp0)
                     lo = hi
                 self._prefix_hits += 1
@@ -960,7 +1070,8 @@ class Engine:
                 log.debug("admit(prefix) uid=%d slot=%d donor=%d reused=%d/%d", req.uid, slot, dslot, reuse, lp)
             else:
                 with span("engine.prefill"):
-                    first, lp0 = self._prefill_fn(self._chunk_tokens(req.prompt, 0, lp_pad), slot, lp, *rows)
+                    first, lp0 = self._prefill_fn(self._chunk_tokens(req.prompt, 0, lp_pad).to(self.device), slot, lp,
+                                                  *rows)
                     self.last_prefill.append((req.uid, lp_pad, 0, lp))
                     self._bind(slot, req, first, lp0)
             admitted += 1
@@ -968,7 +1079,8 @@ class Engine:
 
     def _admit_chunked(self) -> None:
         """Advance the in-flight prefill by ONE chunk (starting the next
-        pending request when idle): each tick pays at most one chunk."""
+        pending request when idle): each tick pays at most one chunk, run on
+        the static prefill cache by :meth:`_prefill_chunk`."""
         c = self.ecfg.prefill_chunk
         if self._pf is None:
             slots = self._free_slots()
@@ -977,34 +1089,33 @@ class Engine:
             req = self._dequeue()
             lp_pad = self._bucket(len(req.prompt))
             done = 0
-            rows = self._row_tensors(req, slots[0])
+            self._row_tensors(req, slots[0])
             aid = int(self.slot_aidx[slots[0]])
             donor = self._find_prefix_donor(req.prompt, c, aid) if self.ecfg.prefix_cache else None
             if donor is not None:
                 # start at the donated prefix (a chunk multiple, so chunk widths stay the same)
                 dslot, done = donor
-                small = self._fork_fn(dslot, done, lp_pad)
+                self._fork_fn(dslot, done)
                 self._prefix_hits += 1
                 self._prefix_tokens += done
                 log.debug("admit(prefix) uid=%d donor=%d reused=%d/%d", req.uid, dslot, done, len(req.prompt))
             else:
-                # the small cache covers the whole bucket (ring layers keep fewer rows)
-                small = T.KVCache.zeros(self._cache_cfg, 1, lp_pad, dtype=self._kv_dtype, write_chunk=self._ring_chunk,
-                                        device=self.device)
-            self._pf = dict(req=req, slot=slots[0], small=small, done=done, lp_pad=lp_pad, rows=rows)
+                self._pcache.length.zero_()  # the previous prompt's rows are past the length: masked, then overwritten
+            self._pf = dict(req=req, slot=slots[0], done=done, lp_pad=lp_pad)
         pf = self._pf
         req, lp = pf["req"], len(pf["req"].prompt)
         lo = pf["done"]
         hi = min(lo + c, pf["lp_pad"])
         with span("engine.prefill"):
-            first, lp0, pf["small"] = self._chunk_fn(self._chunk_tokens(req.prompt, lo, hi), pf["small"],
-                                                     min(lp, hi) - 1 - lo, pf["lp_pad"], *pf["rows"])
+            self._pf_tok[:, : hi - lo].copy_(self._chunk_tokens(req.prompt, lo, hi))
+            self._pf_last.fill_(min(lp, hi) - 1 - lo)
+            self._prefill_chunk(hi - lo, self._chunk_rows(hi - lo, hi, pf["lp_pad"]))
             self.last_prefill.append((req.uid, hi - lo, lo, min(lp, hi) - lo))
             pf["done"] = hi
             if hi < lp:
                 return  # more chunks to go; decode proceeds this tick
-            self._splice_fn(pf["small"], pf["slot"], lp)
-            self._bind(pf["slot"], req, first, lp0)
+            self._splice_fn(self._pcache, pf["slot"], lp, pf["lp_pad"])
+            self._bind(pf["slot"], req, self._pf_first[0], self._pf_lp[0])
         log.debug("admit(chunked) uid=%d slot=%d prompt_len=%d chunks=%d", req.uid, pf["slot"], lp, -(-lp // c))
         self._pf = None
 
@@ -1154,11 +1265,13 @@ class Engine:
         """Run every serving program once before serving, so that no request
         pays a capture, a kernel build or allocator growth: the prefill of
         every 32-row bucket covering ``prompt_lens`` (or all up to
-        ``max_prompt_len``; in chunked mode every chunk of each bucket), the
-        forks and suffix chunks of the prefix cache, and the decode programs
-        of every power-of-two depth <= inner_steps (and every speculation
-        depth s) for every batch bucket, captured as CUDA graphs on the card.
-        The engine must be idle: the runs scribble on slot 0 and idle slots.
+        ``max_prompt_len``) and the forks and suffix chunks of the prefix
+        cache; in chunked mode instead the chunk program of every width and
+        row count (:meth:`_chunk_keys`, whatever the prompt lengths) and the
+        fork into the prefill cache; and the decode programs of every power-of-two
+        depth <= inner_steps (and every speculation depth s) for every batch
+        bucket; on the card all captured as CUDA graphs.  The engine must be
+        idle: the runs scribble on slot 0, idle slots and the prefill cache.
         With a mesh every rank warms up alike (its runs are collective).
         Returns the trace counters (JAX's ``Engine.warmup``)."""
         if any(r is not None for r in self.slot_req) or self._pf is not None:
@@ -1173,24 +1286,24 @@ class Engine:
         p1 = torch.full((1,), self.ecfg.top_p, dtype=torch.float32, device=dev)
         a1 = torch.zeros(1, dtype=torch.int32, device=dev)
         c = self.ecfg.prefill_chunk
-        for lp_pad in buckets:
-            if c:
-                small = T.KVCache.zeros(self._cache_cfg, 1, lp_pad, dtype=self._kv_dtype, write_chunk=self._ring_chunk,
-                                        device=dev)
-                for lo in range(0, lp_pad, c):
-                    hi = min(lo + c, lp_pad)
-                    _, _, small = self._chunk_fn(torch.zeros((1, hi - lo), dtype=torch.int32, device=dev), small, 0,
-                                                 lp_pad, t1, p1, a1)
-                self._splice_fn(small, 0, 1)
-            else:
-                self._prefill_fn(torch.zeros((1, lp_pad), dtype=torch.int32, device=dev), 0, 1, t1, p1, a1)
-        if self.ecfg.prefix_cache:
+        if c:
+            self._pf_tok.zero_()
+            self._pf_last.zero_()
+            for w, rows in sorted(self._chunk_keys()):
+                self._pcache.length.zero_()
+                self._prefill_chunk(w, rows)
+            if self.ecfg.prefix_cache:  # a donor gives at least one chunk, at most the smallest ring
+                self._fork_fn(0, min(c, self._pcache.min_rows))
+        else:
             for lp_pad in buckets:
-                small = self._fork_fn(0, 0, lp_pad)
-                if not c:  # suffix widths are 32 except a max_len-clamped bucket's tail
+                self._prefill_fn(torch.zeros((1, lp_pad), dtype=torch.int32, device=dev), 0, 1, t1, p1, a1)
+            if self.ecfg.prefix_cache:
+                for lp_pad in buckets:
+                    small = self._fork_fn(0, 0, lp_pad)
+                    # suffix widths are 32 except a max_len-clamped bucket's tail
                     for w in sorted({min(32, lp_pad)} | ({lp_pad % 32} if lp_pad % 32 else set())):
-                        _, _, small = self._chunk_fn(torch.zeros((1, w), dtype=torch.int32, device=dev), small, 0,
-                                                     lp_pad, t1, p1, a1)
+                        _, _, small = self._suffix_fn(torch.zeros((1, w), dtype=torch.int32, device=dev), small, 0,
+                                                      lp_pad, t1, p1, a1)
         self._upload_slots([])
         logits_flag = self.step_logits is not None
         for bp in self._batch_buckets():
@@ -1205,9 +1318,10 @@ class Engine:
                     s *= 2
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        log.info("warmup: %d prefill buckets, %d decode programs", len(buckets), self.traces["decode"])
-        # throughput metrics start when serving starts
+        log.info("warmup: %d prefill programs, %d decode programs", self.traces["prefill"], self.traces["decode"])
+        # throughput metrics and the chunk counts start when serving starts
         self.step_times.clear()
+        self._chunks = dict.fromkeys(self._chunks, 0)
         self._t0 = time.perf_counter()
         return dict(self.traces)
 
@@ -1234,6 +1348,8 @@ class Engine:
             prefix_hits=self._prefix_hits,
             prefix_tokens_reused=self._prefix_tokens,
             prefix_store_entries=len(self._store),
+            prefill_chunks_graphed=self._chunks["graphed"],  # since warmup(): replays of a graph captured before
+            prefill_chunks_eager=self._chunks["eager"],  # the CPU, a mesh, or a chunk that captured its graph
             kv_cache_bytes=sum(a.numel() * a.element_size() for a in self.cache.k + self.cache.v),  # this rank's
             mean_ttft_s=sum(c.ttft_s for c in done) / len(done) if done else 0.0,
             mean_tpot_s=(sum((c.total_s - c.ttft_s) / max(len(c.tokens) - 1, 1) for c in done) / len(done)
